@@ -10,6 +10,7 @@ back.  The package imports neither jax nor csdr_tpu.
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.core.block import Block, Pipeline, VarOut, stateless
 from csdr_tpu_torch.core.checkpoint import (load_state, save_state,
+                                            state_from_jax_leaves,
                                             state_from_numpy_leaves,
                                             state_to_numpy_leaves)
 from csdr_tpu_torch.core.stream import StreamRunner, run_offline
@@ -26,6 +27,7 @@ __all__ = [
     "run_offline",
     "save_state",
     "load_state",
+    "state_from_jax_leaves",
     "state_from_numpy_leaves",
     "state_to_numpy_leaves",
     "__version__",

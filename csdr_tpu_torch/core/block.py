@@ -45,14 +45,17 @@ def resolve_device(device) -> torch.device:
 
 
 class VarOut(NamedTuple):
-    """Fixed-capacity output with a host-side valid count: ``data[:count]``
-    is meaningful, the rest is padding of no defined value."""
+    """Fixed-capacity output with a host-side valid count: the first
+    ``count`` samples along the LAST axis are meaningful, the rest is
+    padding of no defined value.  A multi-channel output ``(C, cap)`` (the
+    fastddc blocks) has one count shared by all channels: csdr_tpu's counts
+    there are always ``jnp.full((C,), n)``."""
 
     data: torch.Tensor
     count: int
 
     def compact(self) -> torch.Tensor:
-        return self.data[: self.count]
+        return self.data[..., : self.count]
 
 
 class Block(nn.Module):

@@ -96,6 +96,124 @@ def state_from_numpy_leaves(pipeline, leaves, device="cuda") -> object:
                                   leaves)
 
 
+class JaxLeaves:
+    """csdr_tpu's flat state leaves (numpy), read in order.
+
+    Some csdr_tpu blocks carry their constant matrices inside the state
+    pytree (the fastddc inverse's TQ/d/W, the fftfilt taps spectra); the
+    port keeps those as registered buffers and its state is only the stream
+    history.  Blocks of that kind read their history with :meth:`complex`
+    and :meth:`real`, and check each matrix leaf against their buffer with
+    :meth:`matches` and its variants, which raise on any mismatch."""
+
+    def __init__(self, leaves, device):
+        self.leaves = [np.asarray(a) for a in leaves]
+        self.device = device
+        self.pos = 0
+
+    def _next(self, what: str, shape=None) -> np.ndarray:
+        if self.pos >= len(self.leaves):
+            raise ValueError(f"{what}: too few leaves ({len(self.leaves)})")
+        a = self.leaves[self.pos]
+        self.pos += 1
+        if shape is not None and a.shape != tuple(shape):
+            raise ValueError(f"{what}: leaf {self.pos - 1} has shape "
+                             f"{a.shape}, the port's is {tuple(shape)}")
+        return a
+
+    def _f32(self, what: str, shape) -> np.ndarray:
+        a = self._next(what, shape)
+        if a.dtype != np.float32:
+            raise ValueError(f"{what}: leaf {self.pos - 1} is {a.dtype}, "
+                             "not float32")
+        return a
+
+    def real(self, shape, what: str) -> torch.Tensor:
+        """One float32 leaf as a tensor on the device (history)."""
+        return torch.from_numpy(np.array(self._f32(what, shape))
+                                ).to(self.device)
+
+    def complex(self, shape, what: str) -> torch.Tensor:
+        """A planar (re, im) pair as a complex64 tensor on the device."""
+        re, im = self._f32(what, shape), self._f32(what, shape)
+        return torch.from_numpy((re + 1j * im).astype(np.complex64)
+                                ).to(self.device)
+
+    def matches(self, buf: torch.Tensor, what: str) -> None:
+        """A planar pair equal, value for value, to the complex buffer."""
+        want = buf.detach().cpu().numpy()
+        for part, got in ((want.real, self._f32(what, want.shape)),
+                          (want.imag, self._f32(what, want.shape))):
+            if not np.array_equal(part, got):
+                raise ValueError(f"{what}: leaf {self.pos - 1} differs from "
+                                 "the port's matrix")
+
+    def matches_padded(self, buf: torch.Tensor, what: str) -> None:
+        """A planar pair whose leading columns equal the buffer and whose
+        padding columns are zero (csdr_tpu pads to 128-lane multiples)."""
+        want = buf.detach().cpu().numpy()
+        cols = want.shape[-1]
+        for part in (want.real, want.imag):
+            got = self._next(what)
+            if got.dtype != np.float32 or got.shape[:-1] != want.shape[:-1] \
+                    or got.shape[-1] < cols:
+                raise ValueError(f"{what}: leaf {self.pos - 1} is "
+                                 f"{got.dtype} {got.shape}, the port's is "
+                                 f"{want.shape}")
+            if not (np.array_equal(got[..., :cols], part)
+                    and not np.any(got[..., cols:])):
+                raise ValueError(f"{what}: leaf {self.pos - 1} differs from "
+                                 "the port's matrix")
+
+    def matches_packed_w(self, w: torch.Tensor, what: str) -> None:
+        """csdr_tpu's ``pack_w`` leaf of the complex (inv, M) matrix: float32
+        [wr | wi] lanes, each padded to mpad (precision "HIGHEST"), or the
+        bf16 [hi; lo] row stack of that (precision "HIGH"), whose sum must
+        reproduce W to bf16x2 accuracy."""
+        want = w.detach().cpu().numpy()
+        inv, m = want.shape
+        got = self._next(what)
+        if got.dtype == np.float32:
+            packed = got
+        elif got.ndim == 2 and got.shape[0] == 2 * inv:
+            packed = (got[:inv].astype(np.float32)
+                      + got[inv:].astype(np.float32))
+        else:
+            raise ValueError(f"{what}: leaf {self.pos - 1} is {got.dtype} "
+                             f"{got.shape}")
+        mpad = packed.shape[-1] // 2
+        if packed.shape != (inv, 2 * mpad) or mpad < m:
+            raise ValueError(f"{what}: leaf {self.pos - 1} has shape "
+                             f"{got.shape} for W {want.shape}")
+        full = np.zeros((inv, 2 * mpad), np.float32)
+        full[:, :m], full[:, mpad:mpad + m] = want.real, want.imag
+        exact = got.dtype == np.float32
+        if not (np.array_equal(packed, full) if exact else np.allclose(
+                packed, full, rtol=0, atol=1e-5 * np.abs(full).max())):
+            raise ValueError(f"{what}: leaf {self.pos - 1} differs from the "
+                             "port's W")
+
+    def done(self) -> None:
+        if self.pos != len(self.leaves):
+            raise ValueError(f"{len(self.leaves)} leaves for a state of "
+                             f"{self.pos}")
+
+
+def state_from_jax_leaves(block, leaves, device="cuda") -> object:
+    """The port's state for ``block`` from csdr_tpu's flat state leaves, for
+    the blocks whose csdr_tpu state also carries constant matrices (the
+    fastddc blocks, ``bandpass_fir_fft_block``): the history is kept, the
+    matrix leaves are checked against the port's buffers, and any shape or
+    value mismatch raises.  Other blocks: :func:`state_from_numpy_leaves`."""
+    reader = JaxLeaves(leaves, resolve_device(device))
+    if not hasattr(block, "state_from_jax"):
+        raise TypeError(f"{type(block).__name__} keeps no matrices in its "
+                        "csdr_tpu state; use state_from_numpy_leaves")
+    state = block.state_from_jax(reader)
+    reader.done()
+    return state
+
+
 def save_state(path: str, state) -> None:
     """Serialize a block/pipeline state to ``path`` (.npz)."""
     tree = _flatten(state, [])

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with
-a plain C interface and loaded with ctypes: no PyTorch headers, so a build
-takes seconds.  The library is built at first use into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes: no PyTorch headers, so a
+build takes seconds.  The library is built at first use into
 ``build/csdr_tpu_torch/`` beside the package (``build/`` is git-ignored) and
 named by a hash of its sources and flags, so an edited source rebuilds.
 
@@ -19,12 +20,13 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "csdr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 _VP, _LL, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_double
@@ -33,6 +35,15 @@ _SIGNATURES = {
     "csdr_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP, _VP],
     "csdr_shift_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP,
                                 _D, _D, _VP],
+    "csdr_fft_ko": [_VP, _VP, _I, _LL, _VP],
+    "csdr_ifft_ko": [_VP, _VP, _I, _LL, _VP],
+    "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
+                         _I, _I, _VP],
+}
+# name -> argtypes of the int-returning queries (shared memory, tiles)
+_QUERIES = {
+    "csdr_fir_decimate_tile": [],
+    "csdr_fastddc_inv_smem_bytes": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -66,9 +77,17 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list[str]) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"csdr_tpu_torch: nvcc failed ({proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns
-    the library path."""
+    the library path.  One nvcc per source, in parallel, then one link."""
     global build_seconds
     sources = _sources()
     out = BUILD_DIR / f"libcsdr_kernels_{_digest(sources)}.so"
@@ -76,18 +95,18 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"csdr_tpu_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    # build under a private directory, then rename: a concurrent process
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp, p.stem + ".o")) for p in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(sources, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            list(pool.map(_run, cmds))
+        so = str(Path(tmp, out.name))
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
+        os.replace(so, out)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -103,8 +122,10 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.csdr_cuda_error_string.argtypes = [ctypes.c_int]
         handle.csdr_cuda_error_string.restype = ctypes.c_char_p
-        handle.csdr_fir_decimate_tile.argtypes = []
-        handle.csdr_fir_decimate_tile.restype = ctypes.c_int
+        for name, argtypes in _QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = handle
     return _lib
 

@@ -1,0 +1,139 @@
+"""Batched power-of-two FFT in kernel bin order (counterpart of
+csdr_tpu.kernels.fft_pallas).
+
+Replaces the TPU kernels ``_fft_fwd_kernel`` and ``_fft_inv_kernel`` (K3,
+csdr_tpu/kernels/fft_pallas.py), one ``pallas_call`` there; here both are
+instantiations of one CUDA template, ``csrc/fft_ko.cu``.
+
+The contract is the TPU kernels' own, so that their consumers port
+unchanged: the forward DFT of (..., N) complex64 frames (unnormalized,
+FFTW sign) comes out in *kernel bin order*, where position ``128*j + u``
+holds bin ``(N/128)*u + bitrev(j)``; ``natural[..., k] ==
+ko[..., kernel_perm(N)[k]]``.  The inverse takes kernel order and returns
+natural order, unnormalized.  fastddc folds the order into its class
+matrices and fftfilt into its taps spectrum, so nothing reorders at run
+time.  N is a power of two in 128..16384, any batch.
+
+What bounds it on an H100: 16 B of device memory per point against
+~5*log2(N) FP32 operations, so device-memory bytes at N=256..1024; the
+kernel reads and writes each point once and runs the radix-2 stages in
+shared memory (see the source note).
+
+The wrappers launch the kernel for CUDA tensors, or raise; they take the
+plain version (``*_plain``: ``torch.fft`` plus the order permutation) only
+for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from csdr_tpu_torch.kernels import _build
+
+LANE = 128
+MAX_N = 16384
+
+LAUNCHES = {"fft_ko": 0, "ifft_ko": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _bitrev(i: int, bits: int) -> int:
+    r = 0
+    for _ in range(bits):
+        r = (r << 1) | (i & 1)
+        i >>= 1
+    return r
+
+
+def supported(n: int, b: int) -> bool:
+    """Shapes the kernel takes: N a power of two in 128..16384, B > 0."""
+    return LANE <= n <= MAX_N and not n & (n - 1) and b > 0
+
+
+def kernel_perm(n: int) -> np.ndarray:
+    """perm with natural[k] = kernelorder[perm[k]] (numpy int32); the same
+    array as csdr_tpu's ``fft_pallas.kernel_perm``."""
+    t = n // LANE
+    bits = int(np.log2(t))
+    perm = np.empty(n, np.int32)
+    for j in range(t):
+        r = _bitrev(j, bits)
+        for u in range(LANE):
+            perm[t * u + r] = LANE * j + u
+    return perm
+
+
+def gather_idx(n: int) -> np.ndarray:
+    """Index array g with x_ko = x_nat[g]: the inverse of kernel_perm."""
+    perm = kernel_perm(n)
+    inv = np.empty(n, np.int32)
+    inv[perm] = np.arange(n, dtype=np.int32)
+    return inv
+
+
+@functools.lru_cache(maxsize=None)
+def _index(n: int, which: str, device: str) -> torch.Tensor:
+    idx = kernel_perm(n) if which == "perm" else gather_idx(n)
+    return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
+def _check(x: torch.Tensor) -> None:
+    if x.dtype != torch.complex64 or x.dim() < 1:
+        raise TypeError(f"want a complex64 tensor of frames, got "
+                        f"{x.dim()}-D {x.dtype}")
+    n = x.shape[-1]
+    if not supported(n, max(1, x.numel() // max(n, 1))):
+        raise ValueError(f"fft_ko: N={n} is not a power of two in "
+                         f"{LANE}..{MAX_N}")
+
+
+def _launch(name: str, x: torch.Tensor) -> torch.Tensor:
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: frames must be contiguous")
+    n = x.shape[-1]
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = getattr(_build.lib(), "csdr_" + name)(
+        x.data_ptr(), y.data_ptr(), n, x.numel() // n, stream)
+    _build.check(code, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def fft_ko(x: torch.Tensor) -> torch.Tensor:
+    """Forward DFT over the last axis, output in kernel bin order.  CUDA
+    tensors launch the kernel; CPU tensors take :func:`fft_ko_plain`."""
+    _check(x)
+    if not x.is_cuda:
+        return fft_ko_plain(x)
+    return _launch("fft_ko", x)
+
+
+def ifft_ko(x: torch.Tensor) -> torch.Tensor:
+    """Inverse DFT (unnormalized) from kernel bin order to natural order.
+    CUDA tensors launch the kernel; CPU tensors take :func:`ifft_ko_plain`."""
+    _check(x)
+    if not x.is_cuda:
+        return ifft_ko_plain(x)
+    return _launch("ifft_ko", x)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the same functions in torch ops
+# ---------------------------------------------------------------------------
+
+def fft_ko_plain(x: torch.Tensor) -> torch.Tensor:
+    g = _index(x.shape[-1], "gather", str(x.device))
+    return torch.fft.fft(x)[..., g]
+
+
+def ifft_ko_plain(x: torch.Tensor) -> torch.Tensor:
+    perm = _index(x.shape[-1], "perm", str(x.device))
+    return torch.fft.ifft(x[..., perm], norm="forward")   # unnormalized

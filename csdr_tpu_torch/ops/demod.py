@@ -1,4 +1,5 @@
-"""FM demodulation and WFM de-emphasis, the WFM part of csdr_tpu.ops.demod.
+"""FM demodulation, WFM de-emphasis and the SSB real part: the WFM and SSB
+parts of csdr_tpu.ops.demod.
 
 The discriminator is elementwise with a one-sample carry.  The de-emphasis
 1-pole IIR runs, as in csdr_tpu, as the short FIR it equals at audio rates
@@ -54,6 +55,11 @@ class FmdemodQuadriBlock(Block):
 
 def fmdemod_quadri_block() -> Block:
     return FmdemodQuadriBlock()
+
+
+def realpart_cf(x: torch.Tensor) -> torch.Tensor:
+    """SSB demod tail: take I (reference csdr.c:634-645)."""
+    return x.real
 
 
 def _affine_scan(b: torch.Tensor, a: torch.Tensor, y0) -> torch.Tensor:

@@ -38,6 +38,11 @@ PKG = ROOT / "csdr_tpu_torch"
 def test_port_imports_neither_jax_nor_csdr_tpu():
     """In a fresh interpreter (this one has jax loaded by conftest)."""
     code = ("import sys, csdr_tpu_torch, csdr_tpu_torch.models.wfm\n"
+            "import csdr_tpu_torch.ops.fastddc, csdr_tpu_torch.ops.fftfilt\n"
+            "import csdr_tpu_torch.models.receivers\n"
+            "import csdr_tpu_torch.kernels.fft_cuda\n"
+            "import csdr_tpu_torch.kernels.fastddc_cuda\n"
+            "import chip_smoke, check_kernels\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'csdr_tpu' "
             "or m.startswith('csdr_tpu.')]\n"
@@ -51,6 +56,7 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
 def test_port_source_has_no_jax_imports():
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 12
+    sources += [ROOT / "chip_smoke.py", ROOT / "check_kernels.py"]
     for p in sources:
         for i, line in enumerate(p.read_text().splitlines(), 1):
             s = line.strip()
@@ -131,6 +137,16 @@ def test_pipeline_state_length_checked_and_stateless_passes_varout():
     blk = tblock.stateless("twice", lambda v: 2 * v)
     _, y = blk(None, tblock.VarOut(torch.arange(4.0), 3))
     assert y.count == 3 and y.data.tolist() == [0.0, 2.0, 4.0, 6.0]
+
+
+def test_varout_compact_cuts_samples_not_channels():
+    """A (C, cap) VarOut shares one count across channels: compact cuts
+    the sample axis; the 1-D case is unchanged."""
+    data = torch.arange(12.0).reshape(3, 4)
+    assert tblock.VarOut(data, 2).compact().tolist() == \
+        [[0.0, 1.0], [4.0, 5.0], [8.0, 9.0]]
+    assert tblock.VarOut(torch.arange(5.0), 3).compact().tolist() == \
+        [0.0, 1.0, 2.0]
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port's FIR kernels against float64 numpy, and on the card against
-their plain versions.
+"""The port's kernels (the FIR pair, the kernel-order FFT pair and the
+fastddc inverse) against float64 numpy, and on the card against their
+plain versions.
 
 This file imports neither jax nor csdr_tpu, so it also runs on a machine
 with a card and no JAX:
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from csdr_tpu_torch import firdes
-from csdr_tpu_torch.kernels import fir_cuda
+from csdr_tpu_torch.kernels import fastddc_cuda, fft_cuda, fir_cuda
 
 torch.set_num_threads(2)
 
@@ -107,3 +108,167 @@ def test_cuda_wrapper_raises_on_shapes_the_kernel_refuses(cuda):
     taps = torch.ones(801, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fir_cuda.fir_decimate(x[:0], x, taps, 200, 10)
+
+
+# --------------------------------------------------------------------------
+# K3: the kernel-order FFT pair
+# --------------------------------------------------------------------------
+
+def _frames(b, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, n))
+            + 1j * rng.standard_normal((b, n))).astype(np.complex64)
+
+
+def _ko64(x):
+    """float64 DFT of the frames, stored in kernel bin order:
+    natural[k] == ko[kernel_perm[k]]."""
+    nat = np.fft.fft(x.astype(np.complex128))
+    ko = np.empty_like(nat)
+    ko[:, fft_cuda.kernel_perm(x.shape[-1])] = nat
+    return ko
+
+
+@pytest.mark.parametrize("n", [128, 256, 1024, 4096])
+def test_fft_ko_plain_matches_float64(n):
+    x = _frames(5, n, seed=n)
+    ko = _ko64(x)
+    y = fft_cuda.fft_ko(torch.from_numpy(x)).numpy()
+    assert _snr_db(ko, y) > 120
+    back = fft_cuda.ifft_ko(torch.from_numpy(ko.astype(np.complex64)))
+    assert _snr_db(x.astype(np.complex128) * n, back.numpy()) > 120
+    # the kernel-order map on a single bin: bin k lands at perm[k]
+    k = 3 if n > 128 else 5
+    e = np.exp(2j * np.pi * k * np.arange(n) / n).astype(np.complex64)
+    spec = fft_cuda.fft_ko(torch.from_numpy(e)[None]).numpy()[0]
+    assert np.argmax(np.abs(spec)) == fft_cuda.kernel_perm(n)[k]
+
+
+def test_fft_ko_shapes_refused():
+    assert fft_cuda.supported(128, 1) and fft_cuda.supported(16384, 7)
+    assert not fft_cuda.supported(64, 1)
+    assert not fft_cuda.supported(32768, 1)
+    assert not fft_cuda.supported(384, 1)
+    with pytest.raises(ValueError, match="power of two"):
+        fft_cuda.fft_ko(torch.zeros(2, 96, dtype=torch.complex64))
+    with pytest.raises(TypeError, match="complex64"):
+        fft_cuda.fft_ko(torch.zeros(2, 256))
+
+
+# --------------------------------------------------------------------------
+# K4: the fastddc factored-v2 inverse
+# --------------------------------------------------------------------------
+
+def _inv_inputs(b, c, pre, inv, m, seed):
+    rng = np.random.default_rng(seed)
+
+    def cn(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    rot = np.exp(2j * np.pi * rng.random((c, b))).astype(np.complex64)
+    return cn(b, pre * inv), cn(c, pre, inv), cn(inv, m), cn(c, m), rot
+
+
+def _inv64(s, tq, w, d, rot):
+    b, (c, pre, inv) = s.shape[0], tq.shape
+    z = np.einsum("bjm,cjm->cbm", s.reshape(b, pre, inv).astype(complex),
+                  tq.astype(complex))
+    return (z @ w.astype(complex)) * d[:, None, :] * rot[:, :, None]
+
+
+# (B, C, pre, inv, M): the 64-channel D=16 plan cut to size, D=4 (pre=2,
+# M=224), D=256 (inv=16), and ragged frame/channel counts
+INV_CASES = ((24, 8, 8, 128, 56), (9, 3, 2, 512, 224), (13, 5, 128, 16, 7))
+
+
+@pytest.mark.parametrize("b,c,pre,inv,m", INV_CASES)
+def test_fastddc_inv_plain_matches_float64(b, c, pre, inv, m):
+    args = _inv_inputs(b, c, pre, inv, m, seed=b)
+    ref = _inv64(*args)
+    y = fastddc_cuda.fastddc_inv(*map(torch.from_numpy, args), m).numpy()
+    assert y.shape == (c, b, m) and _snr_db(ref, y) > 120
+    # fewer output columns than W has: the leading columns
+    y2 = fastddc_cuda.fastddc_inv(*map(torch.from_numpy, args), m - 1)
+    assert _snr_db(ref[..., : m - 1], y2.numpy()) > 120
+
+
+def test_fastddc_inv_checks_shapes():
+    s, tq, w, d, rot = map(torch.from_numpy, _inv_inputs(4, 2, 8, 128, 56, 0))
+    with pytest.raises(ValueError, match="shapes"):
+        fastddc_cuda.fastddc_inv(s[:, :-1], tq, w, d, rot, 56)
+    with pytest.raises(ValueError, match="m_out"):
+        fastddc_cuda.fastddc_inv(s, tq, w, d, rot, 57)
+    with pytest.raises(TypeError, match="complex64"):
+        fastddc_cuda.fastddc_inv(s, tq, w.real.contiguous(), d, rot, 56)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(128, 9), (256, 270), (1024, 333),
+                                 (2048, 5), (16384, 3)])
+def test_cuda_fft_ko_matches_plain(cuda, n, b):
+    x = torch.from_numpy(_frames(b, n, seed=n)).to(cuda)
+    n0 = dict(fft_cuda.LAUNCHES)
+    yk = fft_cuda.fft_ko(x)
+    yp = fft_cuda.fft_ko_plain(x)
+    zk = fft_cuda.ifft_ko(yp)
+    zp = fft_cuda.ifft_ko_plain(yp)
+    torch.cuda.synchronize()
+    assert _snr_db(yp.cpu().numpy(), yk.cpu().numpy()) > 110
+    assert _snr_db(zp.cpu().numpy(), zk.cpu().numpy()) > 110
+    assert _snr_db(_ko64(x.cpu().numpy()), yk.cpu().numpy()) > 110
+    assert fft_cuda.LAUNCHES == {"fft_ko": n0["fft_ko"] + 1,
+                                 "ifft_ko": n0["ifft_ko"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,pre,inv,m", INV_CASES + ((1024, 64, 8, 128, 56),))
+def test_cuda_fastddc_inv_matches_plain(cuda, b, c, pre, inv, m):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inv_inputs(b, c, pre, inv, m, seed=b)]
+    n0 = fastddc_cuda.LAUNCHES["fastddc_inv"]
+    yk = fastddc_cuda.fastddc_inv(*args, m)
+    yp = fastddc_cuda.fastddc_inv_plain(*args, m)
+    torch.cuda.synchronize()
+    assert _snr_db(yp.cpu().numpy(), yk.cpu().numpy()) > 110
+    assert fastddc_cuda.LAUNCHES["fastddc_inv"] == n0 + 1
+
+
+# --------------------------------------------------------------------------
+# matrix products outside the kernels: full float32 whatever the caller set
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def tf32_on():
+    cuda = torch.backends.cuda.matmul
+    prev = cuda.allow_tf32
+    cuda.allow_tf32 = True
+    yield
+    cuda.allow_tf32 = prev
+
+
+def test_full_f32_matmul_turns_tf32_off_and_restores(tf32_on):
+    from csdr_tpu_torch.core.precision import full_f32_matmul
+    cuda = torch.backends.cuda.matmul
+    assert cuda.allow_tf32
+    with full_f32_matmul():
+        assert not cuda.allow_tf32
+        with full_f32_matmul():                  # nested: stays off
+            assert not cuda.allow_tf32
+        assert not cuda.allow_tf32
+    assert cuda.allow_tf32
+    with pytest.raises(ZeroDivisionError):
+        with full_f32_matmul():
+            1 / 0
+    assert cuda.allow_tf32
+
+
+@pytest.mark.cuda
+def test_cuda_fastddc_plain_ignores_global_tf32(cuda, tf32_on):
+    """K4's plain version (einsum fold and cgemm) gives the same bits with
+    TF32 switched on globally as with it off."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inv_inputs(256, 16, 8, 128, 56, seed=3)]
+    y_on = fastddc_cuda.fastddc_inv_plain(*args, 56)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y_off = fastddc_cuda.fastddc_inv_plain(*args, 56)
+    assert torch.equal(y_on, y_off)
