@@ -9,8 +9,9 @@ opt-in shared-memory shapes:
    middle of a buffer whose head and tail hold a sentinel; the sentinel
    must survive and the output must equal the wrapper's bit for bit (an
    out-of-range store shows here);
-2. repeats: K2 (path C's shape), K3 forward (path B's) and K4 (path A's)
-   run ``--repeats`` times on one input, and one chunk of path A's
+2. repeats: K2 (path C's shape), K3 forward (path B's), K4 (path A's) and
+   K5 (path P's) run ``--repeats`` times on one input, and one chunk of
+   path A's
    channelizer a fifth as often; every result must equal the first bit for bit
    (a shared-memory race shows as run-to-run differences);
 3. one chunk of path A and one of path C through their entry points.
@@ -137,6 +138,27 @@ def run(torch, repeats: int) -> int:
         if (d, b) == (16, cs.FRAMES_A):
             repeat(f"fastddc_inv D={d} B={b} C={c}", lambda: (
                 fastddc_cuda.fastddc_inv(s_in, *mats, m)), repeats)
+
+    # K5: path P's tail-extended chunk, the BASELINE headline, NFM's front
+    # end, m = 1 (T <= D), ragged kout and a kout below one tile
+    poly_cases = ((10, 1023, cs.CHUNK // 10, 1030 + cs.CHUNK),
+                  (10, 1023, 262_144, 0), (50, 81, 48_000, 0),
+                  (10, 7, 240_000, 0), (50, 49, 1001, 0), (50, 801, 777, 0),
+                  (50, 81, 13, 0))
+    for d, t, kout, n in poly_cases:
+        n = n or (kout - 1) * d + t
+        xcat = cn(n)
+        taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
+        tile = fir_cuda.poly_tile(t, d)
+        y = fir_cuda.fir_decimate_poly(xcat, taps, d, kout)
+        guarded(f"fir_poly D={d} T={t} kout={kout}", y,
+                lambda p, s: lib.csdr_fir_poly(xcat.data_ptr(), n,
+                                               taps.data_ptr(), t, d, kout,
+                                               tile, p, s))
+        if n == 1030 + cs.CHUNK:
+            repeat(f"fir_poly D={d} T={t} kout={kout} (path P)",
+                   lambda: fir_cuda.fir_decimate_poly(xcat, taps, d, kout),
+                   repeats)
 
     # path A: one chunk, repeatedly from a fresh state; then path C
     ddc = fd.fastddc_init(0.05, 16)

@@ -13,7 +13,9 @@ prints one JSON line per phase and exits non-zero at the first failure:
    the card could take (bytes or FP32 operations over the peak rates):
    the FIR pair (K1, K2), K2 also at path C's D=50/T=801, the
    kernel-order FFT pair (K3) at the shapes of paths B and C, the fastddc
-   inverse (K4) at path A's shape and at the D=4 and D=256 plans.
+   inverse (K4) at path A's shape and at the D=4 and D=256 plans; then
+   the polyphase FIR (K5) at path P's shape and four others, each also
+   against K2 on the same input, and K2 at path D's D=50/T=81.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -36,6 +38,22 @@ prints one JSON line per phase and exits non-zero at the first failure:
       an out-of-band tone rejected, card equals CPU on 2 chunks.
    Matrix products outside the kernels must run with TF32 off.
 6. throughput of A, B and C as for WFM.
+7. path P/D/E/F, each driven as path A is:
+   P  K5's dispatcher fir_decimate_poly_or_plain over 10 chunks of 2.4 M
+      samples at D=10/T=1023, the tail carried by the caller: K5 once per
+      chunk, equal to fir_decimate_block (K2) on the stream and, on 2
+      chunks, to the port on the CPU;
+   D  nfm_receiver(50, 48 ksps audio, fastagc on 48 000-sample blocks) over
+      10 s of an NFM 1 kHz tone: K2 once per chunk, the tone, card equals
+      CPU on 4 chunks (the fastagc lookahead fills the first 2);
+   E  ssb_receiver(0.0, 0.1, 0.05, decimation=50), the full chain with its
+      AGC, on path C's input: launches and tone as C, the AGC's output
+      level for an input 40 dB quieter within 3 dB, card equals CPU on 2
+      chunks from the AGC's start-up on (SSB_SETTLE);
+   F  am_receiver() over 10 s of a 1 kHz tone at depth 0.5: K2 once per
+      chunk, the tone, card equals CPU on 2 chunks;
+   then the AGC's launches and host syncs per chunk (torch.profiler).
+8. throughput of D, E and F as for C.
 
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
@@ -68,6 +86,7 @@ FP32_FLOPS = 67e12         # H100 SXM FP32 outside the tensor cores
 KERNEL_SOURCE = "csdr_tpu_torch/csrc/fir_decimate.cu"
 FFT_SOURCE = "csdr_tpu_torch/csrc/fft_ko.cu"
 INV_SOURCE = "csdr_tpu_torch/csrc/fastddc_inv.cu"
+POLY_SOURCE = "csdr_tpu_torch/csrc/fir_poly.cu"
 CHANNELS = 64              # BASELINE config 5's channelizer
 FRAMES_A = 1024            # bench.py fastddc16: frames per chunk
 FRAMES_B = 3200            # bench.py fastddc50
@@ -75,6 +94,11 @@ CHUNKS_A, CHUNKS_AP, CHUNKS_B, CHUNKS_C = 10, 3, 3, 10
 CHUNK_C = 270 * 8900       # ~1 s at 2.4 Msps, 270 bandpass frames
 CHANNEL_BAR = 100.0        # card vs CPU, dB, per channel (fastddc)
 SSB_BAR = 110.0            # card vs CPU audio, dB (K2 and K3 in f32 FMA)
+CHUNKS_P = 10              # path P: 2.4 M-sample chunks through K5
+SSB_SETTLE = 4800          # audio samples of the SSB AGC's start-up (0.1 s)
+RECEIVER_BAR = 120.0       # card vs CPU audio, dB, paths D-F (K2 in f32 FMA)
+POLY_K2_BAR = 100.0        # K5 vs K2 on one input, dB: two summation orders
+AUDIO_RATE = 48_000        # the D=50 receivers' audio rate
 MISMATCH_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -151,12 +175,14 @@ def require_match(what: str, card, cpu, bar: float, x=None, rerun_card=None,
     raise SmokeFailure(f"{what}: {snrs.min():.1f} dB < {bar} dB")
 
 
-def fm_tone(n: int, fs: float = FS, carrier: float = -SHIFT) -> np.ndarray:
-    """The verify skill's FM-modulated 1 kHz tone (75 kHz deviation) on a
-    carrier at ``carrier``*fs."""
+def fm_tone(n: int, fs: float = FS, carrier: float = -SHIFT,
+            dev: float = 75_000.0) -> np.ndarray:
+    """The verify skill's FM-modulated 1 kHz tone (``dev`` Hz for a full
+    scale tone, so a peak deviation of dev/2) on a carrier at
+    ``carrier``*fs."""
     t = np.arange(n) / fs
     audio = 0.5 * np.sin(2 * np.pi * 1000.0 * t)
-    phase = 2 * np.pi * (np.cumsum(audio) * 75_000.0 / fs
+    phase = 2 * np.pi * (np.cumsum(audio) * dev / fs
                          + np.mod(carrier * np.arange(n), 1.0))
     return np.exp(1j * phase).astype(np.complex64)
 
@@ -186,6 +212,11 @@ def phase_env(torch, build):
             "kernel tile differs from fir_cuda.TILE")
     require(lib.csdr_fastddc_inv_smem_bytes() == fastddc_cuda.SMEM_BYTES,
             "fastddc_inv tiles differ from fastddc_cuda's")
+    require(lib.csdr_fir_poly_outputs_per_item() == fir_cuda.POLY_R
+            and all(lib.csdr_fir_poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
+                    == fir_cuda.poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
+                    for d, t in ((10, 1023), (50, 81), (50, 801), (10, 7))),
+            "fir_poly tiles differ from fir_cuda's")
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc.stdout.strip().splitlines()[-1],
@@ -297,7 +328,8 @@ def phase_kernels(torch):
          "wrapper": "csdr_tpu_torch.kernels.fft_cuda.fft_ko / ifft_ko"},
         {"kernel": "K4 fastddc _inv_kernel", "status": "ported",
          "wrapper": "csdr_tpu_torch.kernels.fastddc_cuda.fastddc_inv"},
-        {"kernel": "K5 _fir_poly_kernel", "status": "queued"}])
+        {"kernel": "K5 _fir_poly_kernel", "status": "ported",
+         "wrapper": "csdr_tpu_torch.kernels.fir_cuda.fir_decimate_poly"}])
     return cases, headline
 
 
@@ -473,8 +505,8 @@ def phase_path(torch):
     chunks = len(x) // CHUNK
     audio, launches, hz, wall = drive_path(
         torch, wfm.wfm_advanced(shift_rate=SHIFT), x, "wfm_advanced")
-    require(launches == {"shift_fir_decimate": chunks, "fir_decimate": 0},
-            f"launches {launches} for {chunks} chunks")
+    require_launches(launches, {"shift_fir_decimate": chunks},
+                     f"wfm_advanced, {chunks} chunks")
     def wfm_on(device):
         return run_offline(wfm.wfm_advanced(shift_rate=SHIFT), x[:2 * CHUNK],
                            block_size=CHUNK, device=device)
@@ -496,9 +528,8 @@ def phase_path(torch):
     audio_u, launches_u, hz_u, wall_u = drive_path(
         torch, wfm.wfm_advanced(shift_rate=SHIFT, fuse_shift=False),
         x[: n_unfused * CHUNK], "wfm_advanced(fuse_shift=False)")
-    require(launches_u == {"shift_fir_decimate": 0,
-                           "fir_decimate": n_unfused},
-            f"unfused launches {launches_u} for {n_unfused} chunks")
+    require_launches(launches_u, {"fir_decimate": n_unfused},
+                     f"unfused, {n_unfused} chunks")
     unf_snr = snr_db(audio[: len(audio_u)], audio_u)
     require(unf_snr >= AUDIO_BAR, f"fused vs unfused: {unf_snr:.1f} dB")
     emit("path", pipeline="wfm_advanced(shift_rate=-0.2, fuse_shift=False)",
@@ -818,6 +849,302 @@ def phase_new_throughput(torch, paths, ssb):
          run_offline_msps=CHUNKS_C * CHUNK_C / wall / 1e6, note=TP_NOTE)
 
 
+# ---------------------------------------------------------------------------
+# K5 and its path (P); the NFM (D), full SSB (E) and AM (F) receivers
+# ---------------------------------------------------------------------------
+
+def poly_case(torch, d, t, kout, seed, xlen=None):
+    """K5 at one shape against its plain version (>= SNR_BAR) and against
+    K2 on the same input; its time, the plain version's, conv1d's and the
+    least time.  The stream is (kout-1)*D + T samples, or ``xlen``."""
+    from csdr_tpu_torch import firdes
+    from csdr_tpu_torch.kernels import fir_cuda
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    n = xlen or (kout - 1) * d + t
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sets, pick = _timed_sets(lambda i: torch.randn(
+        n, dtype=torch.complex64, device=dev, generator=gen))
+    taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
+    yk = fir_cuda.fir_decimate_poly(sets[0], taps, d, kout)
+    yp = fir_cuda.fir_decimate_poly_plain(sets[0], taps, d, kout)
+    y2 = fir_cuda.fir_decimate(sets[0][:0], sets[0], taps, d, kout)
+    torch.cuda.synchronize()
+    yk, yp, y2 = (v.cpu().numpy() for v in (yk, yp, y2))
+    snr, snr_k2 = snr_db(yp, yk), snr_db(y2, yk)
+    require(np.all(np.isfinite(yk)), "fir_poly: non-finite output")
+    require(snr > SNR_BAR, f"fir_poly D={d} T={t} kout={kout}: SNR "
+                           f"{snr:.1f} dB vs plain <= {SNR_BAR}")
+    require(snr_k2 >= POLY_K2_BAR, f"fir_poly D={d} T={t} kout={kout}: "
+                                   f"{snr_k2:.1f} dB vs K2 < {POLY_K2_BAR}")
+    ms = time_cuda(lambda: fir_cuda.fir_decimate_poly(pick(), taps, d, kout),
+                   iters=40, queue_ahead_ms=20.0)
+    plain_ms = time_cuda(
+        lambda: fir_cuda.fir_decimate_poly_plain(pick(), taps, d, kout),
+        iters=5, warmup=1, repeats=3)
+    planes = [torch.view_as_real(v).T.contiguous()[:, None, :] for v in sets]
+    turn = iter(range(1 << 30))
+    w = taps.view(1, 1, -1)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_ms = time_cuda(lambda: torch.nn.functional.conv1d(
+            planes[next(turn) % len(planes)], w, stride=d), iters=40,
+            queue_ahead_ms=20.0)
+    # least time: the stream and taps read once, the output written once;
+    # FP32 operations: 2 FMA (4 flops) per tap per output
+    nbytes = 8 * n + 4 * t + 8 * kout
+    flops = 4 * t * kout
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return {
+        "name": "fir_poly", "route": "cuda", "source": POLY_SOURCE,
+        "replaces": "csdr_tpu/kernels/fir_pallas.py:37",
+        "shape": {"D": d, "T": t, "kout": kout, "len": n,
+                  "tile": fir_cuda.poly_tile(t, d)},
+        "snr_db": snr, "snr_bar_db": SNR_BAR, "snr_vs_k2_db": snr_k2,
+        "snr_vs_k2_bar_db": POLY_K2_BAR,
+        "max_abs_err": float(np.max(np.abs(yk - yp))),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "library_call": "torch.nn.functional.conv1d(stride=D), cuDNN, "
+                        "TF32 off, on (re, im) planes",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
+def phase_poly_kernels(torch):
+    """K5 at path P's shape (the tail-extended 2.4 M-sample chunk) and at
+    the four shapes K5 must serve: the BASELINE headline, NFM's front end,
+    m = 1 and a ragged kout.  Then K2 at path D's shape (NFM's front end),
+    which no earlier path gives it."""
+    tail = 1030                     # round_up(T-1, D) at D=10, T=1023
+    case_p = dict(poly_case(torch, 10, 1023, CHUNK // 10, 21,
+                            xlen=tail + CHUNK), path="P")
+    others = [poly_case(torch, 10, 1023, 262_144, 22),
+              poly_case(torch, 50, 81, 48_000, 23),
+              poly_case(torch, 10, 7, 240_000, 24),
+              poly_case(torch, 50, 801, 48_061, 25)]
+    case_d = dict(kernel_case(torch, "fir_decimate", 50, 81, CHUNK // 50,
+                              0.0, 0.0, 26), path="D")
+    for c in [case_p] + others + [case_d]:
+        emit("kernels", **c)
+    return [case_p, case_d]
+
+
+def phase_poly_path(torch):
+    """Path P: the dispatcher over a stream, the tail carried here."""
+    from csdr_tpu_torch import firdes
+    from csdr_tpu_torch.kernels import fir_cuda
+    from csdr_tpu_torch.ops import fir
+
+    d, t = 10, 1023
+    tail_len = 1030
+    taps = firdes.firdes_lowpass_f(t, 0.5 / d)
+    x = tones(CHUNKS_P * CHUNK, [0.003, -0.02], 7)
+
+    def run_p(device, chunks):
+        dev = torch.device(device)
+        tail = torch.zeros(tail_len, dtype=torch.complex64, device=dev)
+        taps_dev = torch.from_numpy(taps).to(dev)
+        outs = []
+        for c in range(chunks):
+            xcat = torch.cat([tail, torch.from_numpy(
+                x[c * CHUNK:(c + 1) * CHUNK]).to(dev)])
+            outs.append(fir_cuda.fir_decimate_poly_or_plain(
+                xcat, taps_dev, d, CHUNK // d))
+            tail = xcat[-tail_len:]
+        return torch.cat(outs).cpu().numpy()
+
+    reset_all()
+    t0 = time.perf_counter()
+    y = run_p("cuda", CHUNKS_P)
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    require_launches(launches, {"fir_poly": CHUNKS_P}, "path P")
+    require(np.all(np.isfinite(y)) and len(y) == CHUNKS_P * CHUNK // d,
+            "path P: output")
+    dev = torch.device("cuda")
+    k2 = torch.cat(stream(torch, fir.fir_decimate_block(taps, d).to(dev), x,
+                          CHUNK, dev)).cpu().numpy()
+    snr_k2 = snr_db(k2, y)
+    require(snr_k2 >= SNR_BAR, f"path P vs fir_decimate_block (K2): "
+                               f"{snr_k2:.1f} dB < {SNR_BAR}")
+    cpu = run_p("cpu", 2)
+    snr_cpu = require_match("path_P: card vs CPU", y[: len(cpu)], cpu,
+                            SNR_BAR, x[:2 * CHUNK], lambda: run_p("cuda", 2),
+                            lambda: run_p("cpu", 2), frame=CHUNK // d)
+    emit("path", path="P", pipeline="fir_decimate_poly_or_plain(xcat, "
+         "lowpass T=1023, D=10), tail carried by the caller",
+         chunks=CHUNKS_P, chunk=CHUNK, launches=launches,
+         vs_fir_decimate_block_k2_snr_db=snr_k2, card_vs_cpu_snr_db=snr_cpu,
+         stream_s=wall)
+    return launches
+
+
+def receiver_path(torch, key, make, x, chunk, per_chunk, cpu_chunks,
+                  settle=0):
+    """``make()`` over ``x`` on the card through run_offline, launch counts
+    zeroed just before and read just after (``per_chunk`` launches of each
+    kernel a chunk); the card's first ``cpu_chunks`` chunks against the
+    port on the CPU, from audio sample ``settle`` on, at RECEIVER_BAR."""
+    from csdr_tpu_torch import run_offline
+
+    chunks = len(x) // chunk
+    reset_all()
+    t0 = time.perf_counter()
+    audio = run_offline(make(), x, block_size=chunk)
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    require_launches(launches, {k: chunks for k in per_chunk}, f"path {key}")
+    require(audio.dtype == np.float32 and np.all(np.isfinite(audio))
+            and len(audio) == chunks * chunk // 50,
+            f"path {key}: audio not finite float32")
+
+    def on(device):
+        return run_offline(make(), x[: cpu_chunks * chunk], block_size=chunk,
+                           device=device)
+
+    cpu = on("cpu")
+    snr = require_match(f"path_{key}: card vs CPU audio",
+                        audio[settle: len(cpu)], cpu[settle:], RECEIVER_BAR,
+                        x[: cpu_chunks * chunk],
+                        lambda: on("cuda")[settle:],
+                        lambda: on("cpu")[settle:], frame=chunk // 50)
+    return audio, launches, wall, snr, cpu
+
+
+def rms_db(a: np.ndarray) -> float:
+    return float(10 * np.log10(np.mean(np.square(a, dtype=np.float64))))
+
+
+def phase_receiver_paths(torch):
+    """Paths D (NFM), E (SSB with its AGC) and F (AM)."""
+    from csdr_tpu_torch import run_offline
+    from csdr_tpu_torch.models import receivers
+
+    require_no_tf32(torch)
+    result = {}
+
+    # D: the reference README's NFM chain at 48 ksps audio
+    def nfm():
+        return receivers.nfm_receiver(decimation=50, audio_rate=AUDIO_RATE,
+                                      fastagc_block_size=CHUNK // 50)
+    x = fm_tone(SECONDS * FS, carrier=0.0, dev=5_000.0)
+    audio, launches, wall, snr, cpu = receiver_path(
+        torch, "D", nfm, x, CHUNK, ("fir_decimate",), 4)
+    hz = tone_hz(audio)
+    require(abs(hz - 1000.0) < 5.0, f"path D: tone at {hz} Hz, not 1 kHz")
+    require(rms_db(cpu[2 * CHUNK // 50:]) > -30.0, "path D: compared "
+            "chunks carry no audio")
+    emit("path", path="D", pipeline="nfm_receiver(decimation=50, "
+         "audio_rate=48000, fastagc_block_size=48000)",
+         chunks=len(x) // CHUNK,
+         chunk=CHUNK, launches=launches, tone_hz=hz,
+         card_vs_cpu_snr_db=snr, run_offline_s=wall)
+    result["D"] = (launches, nfm, x, CHUNK, wall)
+
+    # E: the full SSB chain, AGC included, on path C's input
+    def ssb():
+        return receivers.ssb_receiver(0.0, 0.1, 0.05, decimation=50)
+    s = np.arange(CHUNKS_C * CHUNK_C, dtype=np.float64)
+    x = np.exp(2j * np.pi * np.mod(0.0005 * s, 1.0)).astype(np.complex64)
+    audio, launches, wall, snr, cpu = receiver_path(
+        torch, "E", ssb, x, CHUNK_C, ("fir_decimate", "fft_ko", "ifft_ko"),
+        2, SSB_SETTLE)
+    peak = abs(peak_cycles(audio[2000:]))
+    require(abs(peak - 0.0005 * 50) < 0.002, f"path E: tone at {peak}")
+    whole = snr_db(cpu, audio[: len(cpu)])
+    # the AGC's level: the same input 40 dB quieter, 3 chunks, the last
+    # chunk of each within 3 dB
+    quiet = run_offline(ssb(), 0.01 * x[:3 * CHUNK_C], block_size=CHUNK_C)
+    per = CHUNK_C // 50
+    loud_db, quiet_db = rms_db(audio[2 * per:3 * per]), rms_db(quiet[2 * per:])
+    require(abs(loud_db - quiet_db) <= 3.0, f"path E: AGC levels "
+            f"{loud_db:.2f} and {quiet_db:.2f} dB for inputs 40 dB apart")
+    emit("path", path="E", pipeline="ssb_receiver(0.0, 0.1, 0.05, "
+         "decimation=50) (agc_on=True)", chunks=CHUNKS_C, chunk=CHUNK_C,
+         launches=launches, tone_cycles=peak, tone_want=0.025,
+         card_vs_cpu_snr_db=snr, card_vs_cpu_from_audio_sample=SSB_SETTLE,
+         card_vs_cpu_whole_snr_db=whole, agc_level_db={
+             "input_0_dB": loud_db, "input_minus_40_dB": quiet_db},
+         run_offline_s=wall)
+    result["E"] = (launches, ssb, x, CHUNK_C, wall)
+
+    # F: the reference's AM chain
+    t = np.arange(SECONDS * FS) / FS
+    x = (1.0 + 0.5 * np.sin(2 * np.pi * 1000.0 * t)).astype(np.complex64)
+    audio, launches, wall, snr, _ = receiver_path(
+        torch, "F", receivers.am_receiver, x, CHUNK, ("fir_decimate",), 2)
+    hz = tone_hz(audio)
+    require(abs(hz - 1000.0) < 5.0, f"path F: tone at {hz} Hz, not 1 kHz")
+    emit("path", path="F", pipeline="am_receiver()", chunks=len(x) // CHUNK,
+         chunk=CHUNK, launches=launches, tone_hz=hz, card_vs_cpu_snr_db=snr,
+         run_offline_s=wall)
+    result["F"] = (launches, receivers.am_receiver, x, CHUNK, wall)
+    return result
+
+
+def agc_cost(torch, x_chunk):
+    """Launches, host syncs and time of one agc_block (chunked) step on a
+    chunk of SSB audio on the card, from torch.profiler's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from csdr_tpu_torch.ops import agc
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    blk = agc.agc_block()
+    a = torch.from_numpy(x_chunk).to(dev)
+    state, _ = blk(blk.init(dev), a)        # a continuing chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        blk(state, a)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    device_kernels = sum(1 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    ms = time_cuda(lambda: blk(state, a), iters=5, warmup=1, repeats=3)
+    return {"samples": len(x_chunk), "ms": ms,
+            "cuda_launch_calls": sum(1 for n in names
+                                     if n in ("cudaLaunchKernel",
+                                              "cuLaunchKernel",
+                                              "cudaLaunchKernelExC")),
+            "device_kernels": device_kernels,
+            "host_syncs": names.count("aten::_local_scalar_dense")}
+
+
+def phase_receiver_throughput(torch, paths):
+    """Throughput of D, E and F as for C, then the AGC's own cost."""
+    from csdr_tpu_torch import run_offline
+
+    dev = torch.device("cuda")
+    labels = {"D": "nfm_receiver(50, 48000, fastagc 48000)",
+              "E": "ssb_receiver(agc_on=True)", "F": "am_receiver()"}
+    for key, label in labels.items():
+        _, make, x, chunk, wall = paths[key]
+        xs = [torch.from_numpy(x[c * chunk:(c + 1) * chunk]).to(dev)
+              for c in range(3)]
+        tp = throughput(torch, make().to(dev), xs)
+        emit("throughput", path=key, pipeline=label, **tp,
+             run_offline_msps=(len(x) // chunk) * chunk / wall / 1e6,
+             note=TP_NOTE + ("; E and F sync the host once per AGC outer "
+                             "round, so their device_ms holds the host's "
+                             "gaps" if key in "EF" else ""))
+    _, make, x, chunk, _ = paths["E"]
+    pre = run_offline(_ssb_pre(make), x[:2 * chunk], block_size=chunk)
+    emit("agc_cost", path="E", **agc_cost(torch, pre[chunk // 50:]),
+         note="one agc_block (chunked) step on path E's second chunk of "
+              "audio; cuda_launch_calls and host_syncs from torch.profiler")
+
+
+def _ssb_pre(make):
+    from csdr_tpu_torch import Pipeline
+    pipe = make()
+    return Pipeline(list(pipe.blocks)[:3], name="ssb before its AGC")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -833,28 +1160,35 @@ def run(torch) -> int:
     smi = phase_env(torch, _build)
     cases, _ = phase_kernels(torch)
     new_cases = phase_fastddc_kernels(torch)
+    poly_cases = phase_poly_kernels(torch)
     x, launches, launches_u, wall, chunks = phase_path(torch)
     phase_throughput(torch, x, wall, chunks)
     paths = phase_fastddc_paths(torch)
     ssb = phase_ssb_path(torch)
     phase_new_throughput(torch, paths, ssb)
+    launches_p = phase_poly_path(torch)
+    receivers = phase_receiver_paths(torch)
+    phase_receiver_throughput(torch, receivers)
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
-    # and C, K3 inverse from C, K4 from A
+    # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D
     paths_of = {
+        "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
+              receivers["D"][0]),
         "wfm": ("wfm_advanced(shift_rate=-0.2)", launches),
         "wfm_unfused": ("wfm_advanced(shift_rate=-0.2, fuse_shift=False)",
                         launches_u),
         "A": ("A: fastddc_channelizer_block(ddc16)", paths["A"][0]),
         "B": ("B: fastddc50 fwd (kernel order) | classed inverse",
               paths["B"][0]),
-        "C": ("C: ssb_receiver(agc_on=False)", ssb[0])}
+        "C": ("C: ssb_receiver(agc_on=False)", ssb[0]),
+        "P": ("P: fir_decimate_poly_or_plain, D=10, T=1023", launches_p)}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
     table = []
-    for c in cases + new_cases:
+    for c in cases + new_cases + poly_cases:
         path, counts = paths_of[c["path"]]
         c = dict(c, launches=counts[c["name"]], path=path)
         require(c["launches"] > 0, f"{c['name']} not launched on its path")

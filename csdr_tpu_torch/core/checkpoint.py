@@ -19,7 +19,7 @@ import json
 import numpy as np
 import torch
 
-from csdr_tpu_torch.core.block import resolve_device
+from csdr_tpu_torch.core.block import Pipeline, resolve_device
 
 
 def _flatten(state, out: list) -> str:
@@ -193,23 +193,41 @@ class JaxLeaves:
             raise ValueError(f"{what}: leaf {self.pos - 1} differs from the "
                              "port's W")
 
+    def like(self, state):
+        """The next leaves as a state shaped, typed and placed like the port
+        state ``state`` (complex tensors from planar pairs), checked leaf by
+        leaf: the history of a block that keeps no matrices."""
+        pos = [self.pos]
+        out = _unflatten_like(state, self.leaves, pos)
+        self.pos = pos[0]
+        return out
+
     def done(self) -> None:
         if self.pos != len(self.leaves):
             raise ValueError(f"{len(self.leaves)} leaves for a state of "
                              f"{self.pos}")
 
 
+def _state_from_jax(block, reader: JaxLeaves):
+    if hasattr(block, "state_from_jax"):
+        return block.state_from_jax(reader)
+    if isinstance(block, Pipeline):
+        return tuple(_state_from_jax(b, reader) for b in block.blocks)
+    return reader.like(block.init(reader.device))
+
+
 def state_from_jax_leaves(block, leaves, device="cuda") -> object:
-    """The port's state for ``block`` from csdr_tpu's flat state leaves, for
-    the blocks whose csdr_tpu state also carries constant matrices (the
-    fastddc blocks, ``bandpass_fir_fft_block``): the history is kept, the
-    matrix leaves are checked against the port's buffers, and any shape or
-    value mismatch raises.  Other blocks: :func:`state_from_numpy_leaves`."""
+    """The port's state for ``block`` (a block or a whole Pipeline) from
+    csdr_tpu's flat state leaves (``jax.tree_util.tree_leaves`` of its
+    state).  Blocks whose csdr_tpu state also carries constant matrices
+    (the fastddc blocks, ``bandpass_fir_fft_block``) keep the history and
+    check the matrix leaves against the port's buffers; every other block
+    reads its leaves as :func:`state_from_numpy_leaves` does (the AGC's
+    float32 gain, int32 hang and bool ``started``, fastagc's buffers and
+    peaks, the FIR and de-emphasis tails).  Any shape, dtype or value
+    mismatch raises."""
     reader = JaxLeaves(leaves, resolve_device(device))
-    if not hasattr(block, "state_from_jax"):
-        raise TypeError(f"{type(block).__name__} keeps no matrices in its "
-                        "csdr_tpu state; use state_from_numpy_leaves")
-    state = block.state_from_jax(reader)
+    state = _state_from_jax(block, reader)
     reader.done()
     return state
 

@@ -1,7 +1,7 @@
 """Filter design (host-side NumPy; runs once at pipeline init).
 
-The PyTorch port's own copy of csdr_tpu.firdes, kept bit-identical to it;
-the NFM de-emphasis tables (deemphasis_nfm_taps) come with the NFM receiver.
+The PyTorch port's own copy of csdr_tpu.firdes, kept bit-identical to it,
+with the NFM de-emphasis tables (ops/_nfm_deemph_tables.py).
 
 Mirrors the reference's tap math exactly so that filters match bit-for-bit in
 float32 (SURVEY.md §2.2):
@@ -13,6 +13,7 @@ float32 (SURVEY.md §2.2):
 - resampler lowpass          -> reference libcsdr.c:664-673
 - peak filter                -> reference libcsdr.c:2232-2272 (firdes_add_peak_c)
 - RRC / cosine matched filters -> reference libcsdr.c:2455-2497
+- NFM de-emphasis FIR        -> reference predefined.h:41-68
 
 Design is float64 internally and cast to float32 at the end, which matches the
 reference (C ``sin``/``cos`` are double; taps are stored into float arrays).
@@ -157,3 +158,43 @@ def precalculate_window(size: int, window: str = WINDOW_DEFAULT) -> np.ndarray:
     i = np.arange(size, dtype=np.float64)
     rate = i / (size - 1)
     return window_kernel(window, 2.0 * rate + 1.0).astype(np.float32)
+
+
+def deemphasis_nfm_taps(sample_rate: int) -> np.ndarray:
+    """NFM de-emphasis FIR (reference predefined.h:41-68).
+
+    48000/44100/11025 sps use the reference's own precomputed arrays
+    verbatim (ops/_nfm_deemph_tables.py).  The reference's 8000 sps array
+    is numerically broken (values ~1e14), so that one is regenerated from
+    the recipe the reference documents (predefined.h:44-55):
+        firls(tapnum, [0,200, 200,400, 400,3700, 3700,sr/2]/(sr/2),
+              [0,0, 0,1, 1,0.1, 0,0])
+        then normalize gain to 0 dB at 500 Hz by projecting onto a sine.
+    Documented deviation: at 8000 sps outputs intentionally differ from
+    the reference binary (which would emit ~1e14-scaled garbage).
+    """
+    from csdr_tpu_torch.ops import _nfm_deemph_tables as t
+
+    table = {48000: t.DEEMPHASIS_NFM_FIR_48000,
+             44100: t.DEEMPHASIS_NFM_FIR_44100,
+             11025: t.DEEMPHASIS_NFM_FIR_11025}.get(sample_rate)
+    if table is not None:
+        return np.asarray(table, np.float32)
+    if sample_rate != 8000:
+        raise ValueError(
+            f"no NFM de-emphasis taps for sample_rate={sample_rate}")
+
+    from scipy.signal import firls
+
+    ntaps = 79
+    nyq = sample_rate / 2.0
+    hi = min(3700.0, nyq * 0.95)
+    bands = [0, 200, 200, 400, 400, hi, hi, nyq]
+    desired = [0, 0, 0, 1, 1, 0.1, 0, 0]
+    taps = firls(ntaps, bands, desired, fs=sample_rate)
+    norm_freq = 500.0
+    i = np.arange(ntaps, dtype=np.float64)
+    gain = float(np.dot(taps, np.sin(2 * np.pi * norm_freq * i
+                                     / sample_rate)))
+    taps = taps / gain
+    return taps.astype(np.float32)

@@ -21,13 +21,20 @@ device-memory bytes; the design reads each input sample about once and
 mixes it once in shared memory.  At long taps (D=10, T=1023) it is bound by
 FP32 FMA and the shared-memory reads that feed them (see the source note).
 
+K5 (``_fir_poly_kernel``, the direct polyphase FIR that csdr_tpu keeps as
+its exact-f32 reference form) is ``csrc/fir_poly.cu``:
+:func:`fir_decimate_poly` over an already tail-extended stream, summed per
+phase and then across phases, and its dispatcher
+:func:`fir_decimate_poly_or_plain`.
+
 The wrappers launch the kernel for CUDA tensors, or raise; they take the
 plain version (``*_plain``, the same function in torch ops) only for CPU
-tensors.  ``LAUNCHES`` counts kernel launches per instantiation.
+tensors.  ``LAUNCHES`` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from csdr_tpu_torch.kernels import _build
@@ -35,7 +42,9 @@ from csdr_tpu_torch.kernels import _build
 TILE = 256                 # outputs per block: kTile in csrc/fir_decimate.cu
 MAX_SMEM = 232448          # bytes of shared memory a block may opt into
 
-LAUNCHES = {"shift_fir_decimate": 0, "fir_decimate": 0}
+POLY_R = 8                 # outputs per work item: kR in csrc/fir_poly.cu
+
+LAUNCHES = {"shift_fir_decimate": 0, "fir_decimate": 0, "fir_poly": 0}
 
 PRECISIONS = ("HIGHEST", "HIGH")
 
@@ -118,6 +127,87 @@ def shift_fir_decimate(tail: torch.Tensor, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K5: the direct polyphase form
+# ---------------------------------------------------------------------------
+
+def poly_smem_bytes(taps_len: int, decimation: int, tile: int) -> int:
+    """Shared memory of one K5 block of ``tile`` outputs: the taps as an
+    (Mp, D) matrix, Mp = ceil(T/D) rounded up to POLY_R, the input window
+    of tile + Mp columns, and the per-phase sums."""
+    d = int(decimation)
+    mp = -(-(-(-taps_len // d)) // POLY_R) * POLY_R
+    return 4 * mp * d + 8 * (tile + mp) * d + 8 * d * (tile + 1)
+
+
+def poly_tile(taps_len: int, decimation: int) -> int:
+    """Outputs per K5 block: the largest power of two up to 1024 whose block
+    fits in half the opt-in shared memory (two blocks per SM), else the
+    smallest tile if it fits in all of it.  Raises when none fits."""
+    for tk in (1024, 512, 256, 128, 64, 32, 16, POLY_R):
+        if poly_smem_bytes(taps_len, decimation, tk) <= MAX_SMEM // 2:
+            return tk
+    if poly_smem_bytes(taps_len, decimation, POLY_R) <= MAX_SMEM:
+        return POLY_R
+    raise ValueError(
+        f"fir_poly kernel: D={decimation} T={taps_len} needs "
+        f"{poly_smem_bytes(taps_len, decimation, POLY_R)} B of shared "
+        f"memory > {MAX_SMEM}")
+
+
+def fir_decimate_poly(xcat: torch.Tensor, taps: torch.Tensor,
+                      decimation: int, kout: int) -> torch.Tensor:
+    """K5: ``kout`` outputs ``y[k] = sum_t xcat[k*D + t] * taps[t]`` of the
+    tail-extended stream ``xcat`` (complex64) through real ``taps``
+    (float32), summed per phase over the tap rows and then across the
+    phases.  CUDA tensors launch the kernel (a shape whose block does not
+    fit in shared memory raises); CPU tensors take
+    :func:`fir_decimate_poly_plain`."""
+    for name, t, dt in (("xcat", xcat, torch.complex64),
+                        ("taps", taps, torch.float32)):
+        if t.dtype != dt or t.dim() != 1:
+            raise TypeError(f"{name}: want a 1-D {dt} tensor, got "
+                            f"{t.dim()}-D {t.dtype}")
+    if taps.device != xcat.device:
+        raise ValueError(f"taps on {taps.device}, xcat on {xcat.device}")
+    t_len, d, kout = taps.shape[0], int(decimation), int(kout)
+    if t_len < 1 or d < 1 or kout < 0:
+        raise ValueError(f"bad shape: T={t_len} D={d} kout={kout}")
+    if kout and (kout - 1) * d + t_len > xcat.shape[0]:
+        raise ValueError(f"kout={kout} outputs need {(kout - 1) * d + t_len} "
+                         f"samples; xcat has {xcat.shape[0]}")
+    if not xcat.is_cuda:
+        return fir_decimate_poly_plain(xcat, taps, d, kout)
+    tile = poly_tile(t_len, d)
+    if not (xcat.is_contiguous() and taps.is_contiguous()):
+        raise ValueError("fir_poly: xcat and taps must be contiguous")
+    y = torch.empty(kout, dtype=torch.complex64, device=xcat.device)
+    stream = torch.cuda.current_stream(xcat.device).cuda_stream
+    code = _build.lib().csdr_fir_poly(xcat.data_ptr(), xcat.shape[0],
+                                      taps.data_ptr(), t_len, d, kout, tile,
+                                      y.data_ptr(), stream)
+    _build.check(code, "fir_poly")
+    LAUNCHES["fir_poly"] += 1
+    return y
+
+
+def fir_decimate_poly_or_plain(xcat: torch.Tensor, taps, decimation: int,
+                               kout: int) -> torch.Tensor:
+    """The dispatcher of csdr_tpu's ``fir_pallas.
+    fir_decimate_pallas_or_fallback``: K5 on the card, its plain version on
+    the CPU.  ``taps`` is a float32 tensor on ``xcat``'s device, used as it
+    is, or a float sequence, copied there on every call; ``xcat`` is the
+    stream with its tail in front and must hold ``(kout-1)*D + T`` samples.
+    The TPU wrapper's conv fallback (T <= D, ``len % D``) and its pad to
+    2048 outputs have no counterpart: K5 serves every shape whose block
+    fits in shared memory and raises on the others.  It runs in f32 FMA,
+    csdr_tpu's ``precision`` HIGHEST."""
+    if not isinstance(taps, torch.Tensor):
+        taps = torch.as_tensor(np.asarray(taps, np.float32),
+                               device=xcat.device)
+    return fir_decimate_poly(xcat.contiguous(), taps, decimation, kout)
+
+
+# ---------------------------------------------------------------------------
 # plain versions: the same functions in torch ops
 # ---------------------------------------------------------------------------
 
@@ -154,3 +244,23 @@ def shift_fir_decimate_plain(tail, x, taps, decimation, kout, rate,
     v = torch.cat([tail, x])
     v = v * nco_phasor(v.shape[0], rate, theta, v.device)
     return strided_corr(v, taps.tolist(), decimation, kout)
+
+
+def fir_decimate_poly_plain(xcat, taps, decimation, kout) -> torch.Tensor:
+    """K5's function in its summation order: per phase p the sum over the
+    tap rows m of X[p, k+m] * H[m, p] (X[p, q] = xcat[q*D + p], H the taps
+    zero-padded to (M, D)), then the sum over the phases."""
+    d, t_len = int(decimation), taps.shape[0]
+    m = -(-t_len // d)
+    h = torch.zeros(m * d, dtype=torch.float32, device=xcat.device)
+    h[:t_len] = taps
+    h = h.reshape(m, d)
+    cols = kout + m - 1
+    v = xcat[: cols * d]
+    if v.shape[0] < cols * d:             # the zero taps' columns past len
+        v = torch.cat([v, v.new_zeros(cols * d - v.shape[0])])
+    x = v.reshape(cols, d).T                                   # X[p, q]
+    acc = torch.zeros(d, kout, dtype=torch.complex64, device=xcat.device)
+    for mi in range(m):
+        acc += x[:, mi: mi + kout] * h[mi][:, None]
+    return acc.sum(0)

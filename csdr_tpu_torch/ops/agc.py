@@ -1,0 +1,368 @@
+"""Gain control (counterpart of csdr_tpu.ops.agc): agc_ff, the full
+feedback AGC, in its exact per-sample form and its chunked
+waveform-relaxation form; fastagc_ff, the 3-block lookahead AGC; and
+simple_agc_cc, the 1-pole AGC.
+
+- ``fastagc_ff`` is block-parallel by construction: elementwise torch ops.
+- ``simple_agc_cc``'s per-sample update is affine in the gain, so it runs
+  as a log-depth affine scan.
+- ``agc_ff`` is a nonlinear per-sample recurrence (hang counters, peak
+  memory, attack and decay branches).  Its exact form runs sample by sample
+  in float32 on the host and takes CPU tensors only: the reference form,
+  slow by nature (``agc_block(method="scan")``, in a pipeline run with
+  ``device="cpu"``).  ``agc_ff_chunked`` is the device form the receivers
+  use: per-chunk affine scans relaxed to a fixpoint of their branch
+  masks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from csdr_tpu_torch.core.block import Block, resolve_device
+from csdr_tpu_torch.ops.demod import _affine_scan
+
+FASTAGC_MAX_GAIN = 50.0  # reference libcsdr.c:943
+
+
+def fastagc_ff(state, x: torch.Tensor, reference: float = 1.0):
+    """One block step of the 3-block lookahead AGC (reference
+    libcsdr.c:946-991).
+
+    state = (buffer_1, buffer_2, peak_1, peak_2, last_gain); the buffers
+    are as long as ``x``.  Returns (state', output), the output being the
+    gain-ramped buffer_1 (two blocks of latency, as in the reference)."""
+    buffer_1, buffer_2, peak_1, peak_2, last_gain = state
+    n = x.shape[0]
+    peak_input = x.abs().max()
+    target_peak = torch.maximum(peak_input, torch.maximum(peak_1, peak_2))
+    target_gain = torch.clamp(reference / target_peak, max=FASTAGC_MAX_GAIN)
+    rate = torch.arange(n, dtype=torch.float32, device=x.device) / n
+    gain = last_gain * (1.0 - rate) + target_gain * rate
+    return (buffer_2, x, peak_2, peak_input, target_gain), buffer_1 * gain
+
+
+class FastagcBlock(Block):
+    """Streaming fastagc_ff.  Every chunk must be ``block_size`` samples;
+    warmup_out = 2*block_size (the lookahead fill)."""
+
+    def __init__(self, reference: float = 1.0, block_size: int | None = None):
+        super().__init__("fastagc_ff")
+        self.reference = reference
+        self.block_size = block_size
+        self.warmup_out = 2 * (block_size or 0)
+
+    def init(self, device="cuda"):
+        if not self.block_size:
+            raise ValueError("fastagc_block needs block_size")
+        dev = resolve_device(device)
+        z = torch.zeros(self.block_size, dtype=torch.float32, device=dev)
+
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.float32, device=dev)
+        return (z, z.clone(), scalar(0.0), scalar(0.0), scalar(1.0))
+
+    def forward(self, state, x):
+        if x.shape[0] != self.block_size:
+            raise ValueError(f"fastagc_ff: chunk of {x.shape[0]} samples, "
+                             f"block_size {self.block_size}")
+        return fastagc_ff(state, x.float(), self.reference)
+
+
+def fastagc_block(reference: float = 1.0,
+                  block_size: int | None = None) -> Block:
+    return FastagcBlock(reference, block_size)
+
+
+def simple_agc_cc(x: torch.Tensor, rate: float, reference: float = 1.0,
+                  max_gain: float = 65535.0, current_gain=1.0):
+    """reference libcsdr.c:2201-2217.  Per sample:
+      ideal = clip(reference/|x|, 0, max_gain)   (|x| = 0: the reference's
+                                                  ref/0 = +inf clamps DOWN
+                                                  to max_gain)
+      g     = g*(1-2*rate) + rate*ideal
+      y     = g*x
+    Affine in g, so a scan.  Returns (y, next_gain)."""
+    amp = x.abs()
+    zero = amp == 0
+    ideal = torch.where(zero, max_gain, torch.clamp(
+        reference / torch.where(zero, 1.0, amp), 0.0, max_gain))
+    g0 = torch.as_tensor(current_gain, dtype=torch.float32, device=x.device)
+    g = _affine_scan(torch.full_like(amp, np.float32(1.0 - 2.0 * rate)),
+                     rate * ideal, g0)
+    return x * g, g[-1].clone()
+
+
+class SimpleAgcBlock(Block):
+    def __init__(self, rate: float, reference: float = 1.0,
+                 max_gain: float = 65535.0):
+        super().__init__("simple_agc_cc")
+        self.rate, self.reference, self.max_gain = rate, reference, max_gain
+
+    def init(self, device="cuda"):
+        return torch.ones((), dtype=torch.float32,
+                          device=resolve_device(device))
+
+    def forward(self, gain, x):
+        y, gain = simple_agc_cc(x, self.rate, self.reference, self.max_gain,
+                                gain)
+        return gain, y
+
+
+def simple_agc_block(rate: float, reference: float = 1.0,
+                     max_gain: float = 65535.0) -> Block:
+    return SimpleAgcBlock(rate, reference, max_gain)
+
+
+# ---------------------------------------------------------------------------
+# agc_ff: the exact recurrence
+# ---------------------------------------------------------------------------
+
+def _f32(v) -> np.float32:
+    return np.float32(v.item() if isinstance(v, torch.Tensor) else v)
+
+
+def agc_ff(x: torch.Tensor, reference=0.2, attack_rate=0.01,
+           decay_rate=0.0001, max_gain=65536.0, hang_time=200,
+           attack_wait_time=0, gain_filter_alpha=0.999, last_gain=1.0,
+           last_hang=0, last_peak=None, last_awc=0, started=False,
+           full_state=False):
+    """Full AGC with hang/attack-wait and the gain IIR (reference
+    libcsdr_gpl.c:163-260), one sample at a time in float32 on the host.
+    Defaults are the reference CLI's (csdr.c:2018-2044).  ``x`` must be a
+    CPU tensor: a stream on the card takes agc_ff_chunked.
+
+    Returns (y, next_gain), or (y, next_gain, next_hang, next_peak,
+    next_awc) with full_state=True, all CPU tensors, the state scalars
+    0-dim.  Streaming callers thread all of it plus
+    ``started=True`` after the first chunk, which makes the output
+    independent of the chunking: the reference's skip of sample 0 (output
+    last_gain*input[0], state unchanged) applies only at the true stream
+    start, as in csdr_tpu.  Otherwise sample for sample the reference,
+    including output[0] = last_gain*input[0] and the "dc-pass" gain filter
+    y_gain = gain + last_gain - alpha*last_gain."""
+    if x.device.type != "cpu":
+        raise ValueError(f"agc_ff: the exact per-sample scan runs on the "
+                         f"host and takes CPU tensors, not {x.device}; use "
+                         f"agc_ff_chunked (agc_block's default) on the card")
+    f32 = np.float32
+    xs = x.detach().float().numpy()
+    ref, ar, dr = f32(reference), f32(attack_rate), f32(decay_rate)
+    mg, alpha, zero = f32(max_gain), f32(gain_filter_alpha), f32(0.0)
+    g = _f32(last_gain)
+    peak = (f32(float(reference) / float(g)) if last_peak is None
+            else _f32(last_peak))
+    hang, awc = int(last_hang), int(last_awc)
+    y = np.empty_like(xs)
+    with np.errstate(all="ignore"):       # ref/|x| -> inf is the reference's
+        for i, xi in enumerate(xs):
+            if i == 0 and not bool(started):
+                y[0] = g * xi
+                continue
+            gain = g
+            if xi != 0:
+                input_abs = abs(xi)
+                error = ref / input_abs - g
+                if error < 0:                       # louder: attack
+                    if peak < input_abs:
+                        peak, awc = input_abs, attack_wait_time
+                    if awc > 0:
+                        awc -= 1
+                    else:
+                        gain = g + error * ar
+                        hang = hang_time
+                elif hang > 0:                      # quieter, hanging
+                    hang -= 1
+                else:                               # quieter: decay
+                    gain = g + error * dr
+            gain = min(max(gain, zero), mg)
+            g = gain + g - alpha * g
+            y[i] = g * xi
+    out = torch.from_numpy(y)
+
+    def cpu(v, dtype):
+        return torch.tensor(v, dtype=dtype)
+    if not full_state:
+        return out, cpu(g, torch.float32)
+    return (out, cpu(g, torch.float32), cpu(hang, torch.int32),
+            cpu(peak, torch.float32), cpu(awc, torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# agc_ff_chunked: the waveform relaxation
+# ---------------------------------------------------------------------------
+
+_NEG = -(1 << 30)        # "no attack yet" in the distance scans
+
+
+def agc_ff_chunked(x: torch.Tensor, reference=0.2, attack_rate=0.01,
+                   decay_rate=0.0001, max_gain=65536.0, hang_time=200,
+                   gain_filter_alpha=0.999, last_gain=1.0, last_hang=0,
+                   started=False, chunk: int = 8192, iters: int = 14,
+                   check: bool = True):
+    """agc_ff (attack_wait_time=0) as a waveform relaxation over chunks of
+    ``chunk`` samples, on the stream's device (csdr_tpu.ops.agc
+    agc_ff_chunked, which holds it to agc_ff).
+
+    Carrying f, the filtered gain, each reference step is affine in f once
+    its branch is known (attack, decay, hang-frozen decay, or the max_gain
+    clip), and the branches depend on f only through ref/|x| < f.  All
+    chunks run in parallel: an inner relaxation derives the branch masks
+    from a trajectory and re-runs one affine scan, to the fixpoint of the
+    masks; an outer relaxation passes each chunk's exit gain and hang to
+    the next chunk as its entry, until the entries agree to 1e-6 relative.
+
+    The inner relaxation runs a fixed ``iters`` rounds and never syncs:
+    once the masks reproduce themselves a round returns its input bit for
+    bit, so this equals csdr_tpu's exit at the first stable round.  The
+    outer stop is one host sync per round.
+
+    Returns (y, next_gain, next_hang, converged); thread next_gain and
+    next_hang, and ``started=True`` after the first chunk.  ``converged``
+    (a 0-dim bool tensor) is mask self-consistency with agreed boundary
+    gains; a borderline float tie can make it False with an equivalent
+    trajectory, so it is a diagnostic, not a failure bit.  ``check=False``
+    returns None in its place and skips its comparisons."""
+    if iters < 1:
+        raise ValueError(f"agc_ff_chunked: iters={iters} < 1")
+    x = x.float()
+    dev, n = x.device, x.shape[0]
+    f0 = torch.as_tensor(last_gain, dtype=torch.float32, device=dev
+                         ).reshape(())
+    h0 = torch.as_tensor(last_hang, dtype=torch.int32, device=dev
+                         ).reshape(())
+    if n == 0:
+        return x, f0, h0, torch.tensor(True) if check else None
+    one_m_alpha = np.float32(1.0 - gain_filter_alpha)
+    chunk = -(-chunk // 128) * 128
+    pad = (-n) % chunk
+    xc = torch.cat([x, x.new_zeros(pad)]).reshape(-1, chunk)    # (B, chunk)
+    nchunks = xc.shape[0]
+    nz = xc != 0
+    c = torch.where(nz, reference / torch.clamp(xc.abs(), min=1e-30), 0.0)
+    live = nz.clone()
+    if not bool(started):
+        live[0, 0] = False       # stream start: sample 0 is an identity step
+
+    def scalar(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=dev)
+    ar, dr, zero = scalar(np.float32(attack_rate)), \
+        scalar(np.float32(decay_rate)), scalar(0.0)
+    neg = scalar(_NEG, torch.int32)
+
+    def trajectory_step(f, ef, entry_last):
+        """One round for all chunks: the branch masks from trajectory f
+        (f_prev is f shifted by one, the chunk's entry gain ef first), then
+        one affine scan."""
+        f_prev = torch.cat([ef[:, None], f[:, :-1]], 1)
+        attack = live & (c < f_prev)
+        decay = live & ~attack
+        dc = torch.cumsum(decay, 1, dtype=torch.int32)
+        last = torch.maximum(torch.cummax(torch.where(attack, dc, neg),
+                                          1).values, entry_last[:, None])
+        frozen = decay & (last > _NEG // 2) & (dc - last <= hang_time)
+        rate = torch.where(attack, ar, torch.where(decay & ~frozen, dr, zero))
+        clip_hi = f_prev + rate * (c - f_prev) > max_gain
+        a = torch.where(clip_hi, one_m_alpha, (1.0 - rate) + one_m_alpha)
+        b = torch.where(clip_hi, np.float32(max_gain), rate * c)
+        if not bool(started):
+            a[0, 0], b[0, 0] = 1.0, 0.0
+        return _affine_scan(a, b, ef), attack, clip_hi, dc[:, -1], last[:, -1]
+
+    def relax(ef, eh, f):
+        """The inner relaxation at fixed entries (ef, eh) from the seed
+        trajectory f; returns it with the exit hangs and whether the last
+        round's masks equal the round's before (None unless ``check``)."""
+        # entering hang: a virtual attack eh decay steps before the chunk
+        entry_last = torch.where(eh > 0, eh - hang_time, neg)
+        conv = torch.tensor(False, device=dev) if check else None
+        att_p = clip_p = None
+        for i in range(iters):
+            f, att, clip, dc_e, last_e = trajectory_step(f, ef, entry_last)
+            if check and i == iters - 1 and i > 0:
+                conv = (att == att_p).all() & (clip == clip_p).all()
+            att_p, clip_p = att, clip
+        h_out = torch.clamp(torch.where(last_e > _NEG // 2,
+                                        hang_time - (dc_e - last_e), 0),
+                            0, hang_time).to(torch.int32)
+        return f, h_out, conv
+
+    ef = f0.expand(nchunks).clone()
+    eh = h0.expand(nchunks).clone()
+    frows = f0.expand(nchunks, chunk).clone()
+    for _ in range(nchunks + 2):
+        # warm start: each round seeds the inner relaxation with the last
+        # round's trajectory (round 1's is the flat entry gain)
+        frows, houts, conv = relax(ef, eh, frows)
+        new_ef = torch.cat([f0.reshape(1), frows[:-1, -1]])
+        new_eh = torch.cat([h0.reshape(1), houts[:-1]])
+        close = torch.all((new_ef - ef).abs()
+                          <= 1e-6 * torch.clamp(ef.abs(), min=1e-3))
+        stable = close & torch.all(new_eh == eh)
+        ef, eh = new_ef, new_eh
+        if bool(stable):                           # the one sync a round
+            break
+    f_all = frows.reshape(-1)[:n]
+    return (f_all * x, f_all[n - 1].clone(), houts[-1].clone(),
+            stable & conv if check else None)
+
+
+class AgcBlock(Block):
+    """Streaming agc_ff.  method="chunked" (the default) runs
+    agc_ff_chunked on the stream's device, state (gain, hang, started);
+    method="scan" runs the exact recurrence on the host, state (gain, hang,
+    peak, attack-wait, started), and is built for the CPU only (init on
+    another device raises).  Both carry the whole recurrence state and
+    the ``started`` flag, so the output does not depend on the chunking and
+    the two methods agree across chunk boundaries.  ``started`` is a host
+    flag (a 0-dim CPU tensor): it depends only on the chunk lengths."""
+
+    def __init__(self, method: str = "chunked", **params):
+        super().__init__("agc_ff")
+        if method not in ("chunked", "scan"):
+            raise ValueError(f"agc method {method!r}: 'chunked' or 'scan'")
+        if method == "chunked":
+            if params.get("attack_wait_time", 0) != 0:
+                raise ValueError("chunked agc supports attack_wait_time=0 "
+                                 "only; use method='scan'")
+            if (params.get("attack_rate", 0.01) > 1.0
+                    or params.get("decay_rate", 0.001) > 1.0):
+                raise ValueError("chunked agc models the gain>=0 clamp only "
+                                 "for rates <= 1; use method='scan'")
+        self.method, self.params = method, params
+
+    def init(self, device="cuda"):
+        dev = resolve_device(device)
+        g = self.params.get("last_gain", 1.0)
+        started = torch.tensor(False)
+        if self.method == "chunked":
+            return (torch.tensor(g, dtype=torch.float32, device=dev),
+                    torch.zeros((), dtype=torch.int32, device=dev), started)
+        if dev.type != "cpu":
+            raise ValueError(f"agc method 'scan' runs on the host: run the "
+                             f"pipeline with device='cpu', not {dev}, or use "
+                             f"method='chunked'")
+        return (torch.tensor(g, dtype=torch.float32),
+                torch.zeros((), dtype=torch.int32),
+                torch.tensor(np.float32(self.params.get("reference", 0.2)
+                                        / g)),
+                torch.zeros((), dtype=torch.int32), started)
+
+    def forward(self, state, x):
+        p = dict(self.params)
+        p["last_gain"], p["last_hang"] = state[0], state[1]
+        started = torch.tensor(bool(state[-1]) or x.shape[0] > 0)
+        if self.method == "chunked":
+            p.pop("attack_wait_time", None)
+            y, gain, hang, _ = agc_ff_chunked(x, started=bool(state[-1]),
+                                              check=False, **p)
+            return (gain, hang, started), y
+        y, gain, hang, peak, awc = agc_ff(
+            x, full_state=True, last_peak=state[2], last_awc=state[3],
+            started=bool(state[-1]), **p)
+        return (gain, hang, peak, awc, started), y
+
+
+def agc_block(method: str = "chunked", **params) -> Block:
+    return AgcBlock(method, **params)

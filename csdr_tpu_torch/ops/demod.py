@@ -1,10 +1,12 @@
-"""FM demodulation, WFM de-emphasis and the SSB real part: the WFM and SSB
-parts of csdr_tpu.ops.demod.
+"""Analog demodulators and de-emphasis (counterpart of csdr_tpu.ops.demod):
+FM (quadri-correlator), AM (magnitude and its estimator), the SSB real
+part, and the WFM and NFM de-emphasis filters.
 
-The discriminator is elementwise with a one-sample carry.  The de-emphasis
-1-pole IIR runs, as in csdr_tpu, as the short FIR it equals at audio rates
-(its impulse response dies below 1e-8 within K taps), or as an affine
-prefix scan when K would exceed 256 taps.
+The discriminator is elementwise with a one-sample carry.  The WFM
+de-emphasis 1-pole IIR runs, as in csdr_tpu, as the short FIR it equals at
+audio rates (its impulse response dies below 1e-8 within K taps), or as an
+affine prefix scan when K would exceed 256 taps.  The NFM de-emphasis is a
+fixed FIR per audio rate with its input tail carried.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from csdr_tpu_torch import firdes
 from csdr_tpu_torch.core.block import Block, VarOut, resolve_device
 from csdr_tpu_torch.ops.fir import apply_real_fir_ff
 
@@ -57,20 +60,37 @@ def fmdemod_quadri_block() -> Block:
     return FmdemodQuadriBlock()
 
 
+def amdemod_cf(x: torch.Tensor) -> torch.Tensor:
+    """Magnitude AM demod (reference libcsdr.c:861-873)."""
+    return x.abs()
+
+
+def amdemod_estimator_cf(x: torch.Tensor, alpha: float = 0.0,
+                         beta: float = 0.0) -> torch.Tensor:
+    """alpha*max(|i|,|q|) + beta*min(|i|,|q|) magnitude estimate
+    (reference libcsdr.c:875-901; the defaults minimize the RMS error)."""
+    if alpha == 0:
+        alpha, beta = 0.947543636291, 0.392485425092
+    ai, aq = x.real.abs(), x.imag.abs()
+    return alpha * torch.maximum(ai, aq) + beta * torch.minimum(ai, aq)
+
+
 def realpart_cf(x: torch.Tensor) -> torch.Tensor:
     """SSB demod tail: take I (reference csdr.c:634-645)."""
     return x.real
 
 
 def _affine_scan(b: torch.Tensor, a: torch.Tensor, y0) -> torch.Tensor:
-    """Prefix of y <- b*y + a from y0: a log-depth (Hillis-Steele) scan over
-    the (mul, add) pairs, each step one pass of vector ops."""
+    """Prefix of y <- b*y + a from y0 along the last axis: a log-depth
+    (Hillis-Steele) scan over the (mul, add) pairs, each step one pass of
+    vector ops.  Leading axes are independent scans, with ``y0`` their
+    entry values (a scalar, or one per scan)."""
     b, a = b.clone(), a.clone()
-    a[0] = a[0] + b[0] * y0
-    off, n = 1, a.shape[0]
+    a[..., 0] = a[..., 0] + b[..., 0] * y0
+    off, n = 1, a.shape[-1]
     while off < n:
-        a[off:] = a[off:] + b[off:] * a[:-off]
-        b[off:] = b[off:] * b[:-off]
+        a[..., off:] = a[..., off:] + b[..., off:] * a[..., :-off]
+        b[..., off:] = b[..., off:] * b[..., :-off]
         off *= 2
     return a
 
@@ -156,3 +176,33 @@ class DeemphasisWfmBlock(Block):
 
 def deemphasis_wfm_block(tau: float, sample_rate: int) -> Block:
     return DeemphasisWfmBlock(tau, sample_rate)
+
+
+def deemphasis_nfm_ff(x: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """NFM de-emphasis: the fixed FIR of the audio rate (reference
+    libcsdr.c:1099-1128 and predefined.h), stateless valid mode."""
+    return apply_real_fir_ff(x.float(), firdes.deemphasis_nfm_taps(sample_rate))
+
+
+class DeemphasisNfmBlock(Block):
+    """Streaming NFM de-emphasis: the FIR with its T-1 input tail carried.
+    warmup_out = T-1."""
+
+    def __init__(self, sample_rate: int):
+        super().__init__("deemphasis_nfm_ff")
+        self.taps = firdes.deemphasis_nfm_taps(sample_rate)
+        self.warmup_out = len(self.taps) - 1
+
+    def init(self, device="cuda"):
+        return torch.zeros(len(self.taps) - 1, dtype=torch.float32,
+                           device=resolve_device(device))
+
+    def forward(self, tail, x):
+        n = x.shape[0]
+        xcat = torch.cat([tail, x.float()])
+        y = apply_real_fir_ff(xcat, self.taps)[:n]
+        return xcat[n:].clone(), y
+
+
+def deemphasis_nfm_block(sample_rate: int) -> Block:
+    return DeemphasisNfmBlock(sample_rate)

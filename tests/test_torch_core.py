@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
     """In a fresh interpreter (this one has jax loaded by conftest)."""
     code = ("import sys, csdr_tpu_torch, csdr_tpu_torch.models.wfm\n"
             "import csdr_tpu_torch.ops.fastddc, csdr_tpu_torch.ops.fftfilt\n"
-            "import csdr_tpu_torch.models.receivers\n"
+            "import csdr_tpu_torch.models.receivers, csdr_tpu_torch.ops.agc\n"
             "import csdr_tpu_torch.kernels.fft_cuda\n"
             "import csdr_tpu_torch.kernels.fastddc_cuda\n"
             "import chip_smoke, check_kernels\n"

@@ -232,3 +232,82 @@ def test_fused_block_equals_shift_then_fir_block():
         ss, ys = serial(ss, x)
         sf, yf = fused(sf, x)
         assert_snr(ys.numpy(), yf.numpy(), 110, f"chunk {i}")
+
+
+# --------------------------------------------------------------------------
+# K5: the direct polyphase form and its dispatcher
+# --------------------------------------------------------------------------
+
+def _poly_inputs(d, t, kout, seed):
+    """A tail-extended stream of (kout + M - 1)*D samples, as csdr_tpu's
+    dispatcher pads it, and lowpass taps."""
+    m = -(-t // d)
+    rng = np.random.default_rng(seed)
+    n = (kout + m - 1) * d
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    return x, _taps(t, d)
+
+
+@pytest.mark.parametrize("d,t,kout", [(10, 79, 4096), (50, 81, 2048),
+                                      (10, 1023, 2048)])
+def test_fir_poly_plain_matches_pallas_k5(d, t, kout):
+    """csdr_tpu's _fir_decimate_pallas through Pallas' TPU interpreter
+    (force_tpu_interpret_mode, which needs no change to csdr_tpu): both
+    sum per phase first, both in f32; >= 110 dB, the kernels' bar."""
+    from jax.experimental.pallas import tpu as pltpu
+    x, taps = _poly_inputs(d, t, kout, seed=d + t)
+    m = -(-t // d)
+    tmat = np.zeros(m * d, np.float32)
+    tmat[:t] = taps
+    with pltpu.force_tpu_interpret_mode():
+        yr, yi = jfp._fir_decimate_pallas(
+            jnp.asarray(x.real), jnp.asarray(x.imag),
+            jnp.asarray(tmat.reshape(m, d)), d, kout)
+    yj = np.asarray(yr) + 1j * np.asarray(yi)
+    yt = fir_cuda.fir_decimate_poly(_t(x), torch.from_numpy(taps), d, kout)
+    assert yt.dtype == torch.complex64 and yt.shape == (kout,)
+    assert_snr(yj, yt.numpy(), 110, f"K5 D={d} T={t}")
+
+
+@pytest.mark.parametrize("d,t,kout", [(10, 1023, 2048), (50, 801, 500),
+                                      (50, 81, 777), (10, 7, 300),
+                                      (50, 49, 40)],
+                         ids=["headline", "ssb_front", "nfm_ragged",
+                              "m1", "m1_d50"])
+def test_fir_poly_dispatcher_matches_jax_dispatcher(d, t, kout):
+    """The port's fir_decimate_poly_or_plain against csdr_tpu's
+    fir_decimate_pallas_or_fallback, which takes its XLA conv on the CPU
+    (as it does for every T <= D and every len % D != 0): ragged kout and
+    m = 1 included; the stream here is T - D samples longer than kout
+    needs, as a carried tail leaves it."""
+    x, taps = _poly_inputs(d, t, kout, seed=t)
+    x = x[: (kout - 1) * d + t]
+    yj = jfp.fir_decimate_pallas_or_fallback(
+        _cf(x), jnp.asarray(taps), d, kout, jax.lax.Precision.HIGHEST)
+    yt = fir_cuda.fir_decimate_poly_or_plain(_t(x), taps, d, kout)
+    assert_snr(_np(yj), yt.numpy(), 110, f"K5 dispatcher D={d} T={t}")
+
+
+def test_fir_poly_refuses_bad_calls():
+    x = torch.zeros(1000, dtype=torch.complex64)
+    taps = torch.ones(81)
+    with pytest.raises(ValueError, match="samples"):
+        fir_cuda.fir_decimate_poly(x, taps, 50, 20)       # needs 1031
+    assert fir_cuda.fir_decimate_poly(x, taps, 50, 19).shape == (19,)
+    assert fir_cuda.fir_decimate_poly(x, taps, 50, 0).shape == (0,)
+    with pytest.raises(TypeError, match="complex64"):
+        fir_cuda.fir_decimate_poly(x.real, taps, 50, 1)
+    # the dispatcher takes a float32 tensor as it is, or a float sequence;
+    # a tensor of another type or device is refused, not copied
+    assert torch.equal(fir_cuda.fir_decimate_poly_or_plain(x, taps, 50, 19),
+                       fir_cuda.fir_decimate_poly_or_plain(
+                           x, taps.tolist(), 50, 19))
+    with pytest.raises(TypeError, match="float32"):
+        fir_cuda.fir_decimate_poly_or_plain(x, taps.double(), 50, 1)
+    # a block of the smallest tile must fit in the opt-in shared memory
+    assert fir_cuda.poly_tile(1023, 10) == 512
+    assert fir_cuda.poly_tile(801, 50) == 64
+    assert fir_cuda.poly_tile(81, 50) == 128
+    with pytest.raises(ValueError, match="shared memory"):
+        fir_cuda.poly_tile(80_000, 2000)

@@ -1,6 +1,6 @@
-"""The port's kernels (the FIR pair, the kernel-order FFT pair and the
-fastddc inverse) against float64 numpy, and on the card against their
-plain versions.
+"""The port's kernels (the FIR pair, the direct polyphase FIR, the
+kernel-order FFT pair and the fastddc inverse) against float64 numpy, and on
+the card against their plain versions.
 
 This file imports neither jax nor csdr_tpu, so it also runs on a machine
 with a card and no JAX:
@@ -108,6 +108,61 @@ def test_cuda_wrapper_raises_on_shapes_the_kernel_refuses(cuda):
     taps = torch.ones(801, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fir_cuda.fir_decimate(x[:0], x, taps, 200, 10)
+
+
+# --------------------------------------------------------------------------
+# K5: the direct polyphase FIR
+# --------------------------------------------------------------------------
+
+# (D, T, kout): the BASELINE headline, NFM's and SSB/AM's front ends, m = 1
+# (T <= D) and a ragged kout; each stream is exactly (kout-1)*D + T long
+POLY_CASES = ((10, 1023, 1000), (50, 81, 960), (50, 801, 500), (10, 7, 333),
+              (50, 49, 1001))
+
+
+def _poly_inputs(d, t, kout, seed):
+    rng = np.random.default_rng(seed)
+    n = (kout - 1) * d + t
+    v = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    return v, firdes.firdes_lowpass_f(t, 0.5 / d)
+
+
+@pytest.mark.parametrize("d,t,kout", POLY_CASES)
+def test_fir_poly_plain_matches_float64(d, t, kout):
+    v, taps = _poly_inputs(d, t, kout, seed=t)
+    ref = _ref64(v, taps, d, kout)
+    y = fir_cuda.fir_decimate_poly(torch.from_numpy(v),
+                                   torch.from_numpy(taps), d, kout).numpy()
+    assert y.shape == (kout,) and _snr_db(ref, y) > 120
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t,kout", POLY_CASES + ((10, 1023, 262_144),))
+def test_cuda_fir_poly_matches_plain(cuda, d, t, kout):
+    """K5 against its plain version (>= 110 dB) and against float64; a
+    stream with a carried tail in front through the dispatcher."""
+    v, taps = _poly_inputs(d, t, kout, seed=t)
+    vx, tx = torch.from_numpy(v).to(cuda), torch.from_numpy(taps).to(cuda)
+    n0 = fir_cuda.LAUNCHES["fir_poly"]
+    yk = fir_cuda.fir_decimate_poly(vx, tx, d, kout)
+    yp = fir_cuda.fir_decimate_poly_plain(vx, tx, d, kout)
+    yd = fir_cuda.fir_decimate_poly_or_plain(vx, tx, d, kout)
+    yd_seq = fir_cuda.fir_decimate_poly_or_plain(vx, taps, d, kout)
+    torch.cuda.synchronize()
+    assert _snr_db(yp.cpu().numpy(), yk.cpu().numpy()) > 110
+    assert _snr_db(_ref64(v, taps, d, kout), yk.cpu().numpy()) > 110
+    assert torch.equal(yk, yd) and torch.equal(yk, yd_seq)
+    assert fir_cuda.LAUNCHES["fir_poly"] == n0 + 3
+
+
+@pytest.mark.cuda
+def test_cuda_fir_poly_raises_on_shapes_it_refuses(cuda):
+    x = torch.zeros(400_000, dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fir_cuda.fir_decimate_poly(x, torch.ones(8001, device=cuda), 2000, 3)
+    with pytest.raises(ValueError, match="samples"):
+        fir_cuda.fir_decimate_poly(x, torch.ones(81, device=cuda), 50, 8000)
 
 
 # --------------------------------------------------------------------------

@@ -129,8 +129,14 @@ def test_ssb_receiver_recovers_tone():
 
 
 def test_ssb_receiver_agc_not_ported_and_cuda_rule(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        trec.ssb_receiver()
+    """agc_on=True (the default) builds the AGC block, which once raised
+    here; tests/test_torch_receivers.py holds it against csdr_tpu.  Then
+    the device rule: without CUDA the entry points raise unless the caller
+    asks for the CPU."""
+    names = [b.name for b in trec.ssb_receiver().blocks]
+    assert names == ["fir_decimate_cc", "bandpass_fir_fft_cc", "realpart_cf",
+                     "agc_ff", "limit_ff"]
+    assert trec.ssb_receiver().blocks[3].method == "chunked"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pipe = trec.ssb_receiver(agc_on=False)
     x = np.zeros(2 * 8900, np.complex64)
