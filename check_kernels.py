@@ -119,22 +119,28 @@ def run(torch, repeats: int) -> int:
         if (n, b) == (1024, cs.FRAMES_B):
             repeat(f"fft_ko N={n} B={b}", lambda: fft_cuda.fft_ko(x),
                    repeats)
-    # K4: path A's plan, D=4, D=256, ragged frames and channels
+    # K4: path A's plan, D=4, D=256, 256 channels x 512 frames (csdr_tpu's
+    # fastddc256 bench), ragged frames and channels
     rates = cs.bench_rates()
+    rates256 = np.random.default_rng(0).uniform(-0.4, 0.4, 256)
     for d, b, c in ((16, cs.FRAMES_A, 64), (4, cs.FRAMES_A, 64),
-                    (256, cs.FRAMES_A, 64), (16, 45, 5), (256, 3, 9)):
+                    (256, cs.FRAMES_A, 64), (16, 512, 256), (16, 45, 5),
+                    (256, 3, 9)):
         ddc = fd.fastddc_init(0.05, d)
-        tq, w, dd, cyc = fd.channel_factored2_arrays(ddc, rates[:c])
+        tq, w, dd, cyc = fd.channel_factored2_arrays(
+            ddc, (rates if c <= 64 else rates256)[:c])
         rot = np.exp(2j * np.pi * np.mod(np.arange(b)[None, :]
                                          * cyc[:, None], 1.0))
         mats = [torch.from_numpy(np.ascontiguousarray(a, np.complex64))
                 .to(dev) for a in (tq, w, dd, rot)]
         s_in, m = cn(b, ddc.fft_size), w.shape[1]
+        tiles = fastddc_cuda.plan_tiles(tq.shape[1], tq.shape[2], m)
         y = fastddc_cuda.fastddc_inv(s_in, *mats, m)
-        guarded(f"fastddc_inv D={d} B={b} C={c}", y,
+        guarded(f"fastddc_inv D={d} B={b} C={c} tiles {tiles}", y,
                 lambda p, s: lib.csdr_fastddc_inv(
                     s_in.data_ptr(), *(t.data_ptr() for t in mats), p, b, c,
-                    tq.shape[1], tq.shape[2], m, m, m, s))
+                    tq.shape[1], tq.shape[2], m, m, m, tiles["kc"],
+                    tiles["mt"], tiles["jc"], s))
         if (d, b) == (16, cs.FRAMES_A):
             repeat(f"fastddc_inv D={d} B={b} C={c}", lambda: (
                 fastddc_cuda.fastddc_inv(s_in, *mats, m)), repeats)

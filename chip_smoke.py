@@ -13,7 +13,9 @@ prints one JSON line per phase and exits non-zero at the first failure:
    the card could take (bytes or FP32 operations over the peak rates):
    the FIR pair (K1, K2), K2 also at path C's D=50/T=801, the
    kernel-order FFT pair (K3) at the shapes of paths B and C, the fastddc
-   inverse (K4) at path A's shape and at the D=4 and D=256 plans; then
+   inverse (K4) at path A's shape, at the D=4 and D=256 plans and at 256
+   channels x 512 frames (D=16), also with TF32 on globally (bit for bit
+   the same) and with its 3xTF32 tensor-core bound beside the FP32 one; then
    the polyphase FIR (K5) at path P's shape and four others, each also
    against K2 on the same input, and K2 at path D's D=50/T=81.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
@@ -83,6 +85,7 @@ SNR_BAR = 110.0            # kernel vs plain, dB
 AUDIO_BAR = 60.0           # card vs CPU audio, dB (tests/test_torch_wfm.py)
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_FLOPS = 67e12         # H100 SXM FP32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM dense TF32 on the tensor cores
 KERNEL_SOURCE = "csdr_tpu_torch/csrc/fir_decimate.cu"
 FFT_SOURCE = "csdr_tpu_torch/csrc/fft_ko.cu"
 INV_SOURCE = "csdr_tpu_torch/csrc/fastddc_inv.cu"
@@ -100,6 +103,7 @@ RECEIVER_BAR = 120.0       # card vs CPU audio, dB, paths D-F (K2 in f32 FMA)
 POLY_K2_BAR = 100.0        # K5 vs K2 on one input, dB: two summation orders
 AUDIO_RATE = 48_000        # the D=50 receivers' audio rate
 MISMATCH_DIR = Path(__file__).resolve().parent / "chiprun_out"
+INV_PLANS = (1, 4, 8, 16, 64, 256)   # K4 decimations whose tiles are checked
 
 
 class SmokeFailure(RuntimeError):
@@ -210,8 +214,9 @@ def phase_env(torch, build):
     from csdr_tpu_torch.kernels import fastddc_cuda, fir_cuda
     require(lib.csdr_fir_decimate_tile() == fir_cuda.TILE,
             "kernel tile differs from fir_cuda.TILE")
-    require(lib.csdr_fastddc_inv_smem_bytes() == fastddc_cuda.SMEM_BYTES,
-            "fastddc_inv tiles differ from fastddc_cuda's")
+    require(all(lib.csdr_fastddc_inv_smem_bytes(t["kc"], t["mt"], t["jc"])
+                == t["smem"] for t in map(inv_tiles, INV_PLANS)),
+            "fastddc_inv tiles differ from fastddc_cuda.plan_tiles")
     require(lib.csdr_fir_poly_outputs_per_item() == fir_cuda.POLY_R
             and all(lib.csdr_fir_poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
                     == fir_cuda.poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
@@ -223,6 +228,15 @@ def phase_env(torch, build):
          build_s=build.build_seconds, build_and_load_s=load_s,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
     return smi
+
+
+def inv_tiles(d: int) -> dict:
+    """K4's tiles (fastddc_cuda.plan_tiles) for fastddc_init(0.05, d)."""
+    from csdr_tpu_torch.kernels import fastddc_cuda
+    from csdr_tpu_torch.ops import fastddc as fd
+    ddc = fd.fastddc_init(0.05, d)
+    return fastddc_cuda.plan_tiles(ddc.pre_decimation, ddc.fft_inv_size,
+                                   ddc.post_input_size // ddc.post_decimation)
 
 
 def kernel_case(torch, name, d, t, kout, rate, theta, seed):
@@ -420,6 +434,15 @@ def inv_case(torch, d, b, rates, seed):
     require(np.all(np.isfinite(yk)), "fastddc_inv: non-finite output")
     require(snr > SNR_BAR, f"fastddc_inv D={d}: SNR {snr:.1f} dB vs plain "
                            f"<= {SNR_BAR}")
+    # the kernel's 3xTF32 is its own arithmetic: the global flag changes
+    # no bit
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_tf32 = fastddc_cuda.fastddc_inv(sets[0], *mats, m)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    require(np.array_equal(y_tf32.cpu().numpy(), yk),
+            f"fastddc_inv D={d}: output changes with allow_tf32")
     ms = time_cuda(lambda: fastddc_cuda.fastddc_inv(pick(), *mats, m),
                    iters=40, queue_ahead_ms=20.0)
     plain_ms = time_cuda(
@@ -436,17 +459,24 @@ def inv_case(torch, d, b, rates, seed):
     # operations: 8 per complex MAC of the fold and of the iDFT
     nbytes = 8 * (b * pre * inv + c * pre * inv + inv * m + c * m + c * b
                   + c * b * m)
-    flops = 8 * b * c * pre * inv + 8 * b * c * inv * m
+    fold, idft = 8 * b * c * pre * inv, 8 * b * c * inv * m
+    flops = fold + idft
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    # the same with the iDFT on the tensor cores in 3xTF32, as the kernel
+    # runs it: the fold over the FP32 rate plus three TF32 products of
+    # the iDFT's operations over the dense TF32 rate
+    t_tc = (fold / FP32_FLOPS + 3 * idft / TF32_FLOPS) * 1e3
     return {
         "name": "fastddc_inv", "route": "cuda", "source": INV_SOURCE,
         "replaces": "csdr_tpu/kernels/fastddc_pallas.py:54",
-        "shape": {"D": d, "B": b, "C": c, "pre": pre, "inv": inv, "M": m},
+        "shape": {"D": d, "B": b, "C": c, "pre": pre, "inv": inv, "M": m,
+                  "tiles": fastddc_cuda.plan_tiles(pre, inv, m)},
         "snr_db": snr, "snr_bar_db": SNR_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_tc_ms": max(t_bytes, t_tc),
         "library_ms": lib_ms,
         "library_call": "torch.matmul(spectra (B, fft), fused G (fft, C*M)) "
                         "complex64, TF32 off: the same map before the "
@@ -463,7 +493,9 @@ def bench_rates():
 
 def phase_fastddc_kernels(torch):
     """K2, K3 and K4 at the shapes paths A, B and C give them, each tagged
-    with its path; K4 also at the D=4 and D=256 plans, on no path."""
+    with its path; K4 also at the D=4 and D=256 plans and at csdr_tpu's
+    256-channel D=16 bench shape (bench.py fastddc256: 512 frames), on no
+    path."""
     rates = bench_rates()
     frames_c = CHUNK_C // 8900             # bandpass frames of N=256
     cases = [
@@ -474,6 +506,8 @@ def phase_fastddc_kernels(torch):
         dict(fft_case(torch, "ifft_ko", 256, frames_c, 12), path="C"),
         dict(inv_case(torch, 16, FRAMES_A, rates, 13), path="A")]
     others = [inv_case(torch, d, FRAMES_A, rates, 14 + d) for d in (4, 256)]
+    rates256 = np.random.default_rng(0).uniform(-0.4, 0.4, 256)
+    others.append(inv_case(torch, 16, 512, rates256, 30))
     for c in cases + others:
         emit("kernels", **c)
     return cases
@@ -1192,7 +1226,7 @@ def run(torch) -> int:
         path, counts = paths_of[c["path"]]
         c = dict(c, launches=counts[c["name"]], path=path)
         require(c["launches"] > 0, f"{c['name']} not launched on its path")
-        table.append({k: c[k] for k in keys})
+        table.append({k: c[k] for k in keys + ("bound_tc_ms",) if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,13 +38,13 @@ _SIGNATURES = {
     "csdr_fft_ko": [_VP, _VP, _I, _LL, _VP],
     "csdr_ifft_ko": [_VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
-                         _I, _I, _VP],
+                         _I, _I, _I, _I, _I, _VP],
     "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _VP, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {
     "csdr_fir_decimate_tile": [],
-    "csdr_fastddc_inv_smem_bytes": [],
+    "csdr_fastddc_inv_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_outputs_per_item": [],
 }

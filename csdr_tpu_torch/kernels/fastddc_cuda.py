@@ -15,11 +15,26 @@ forward FFT (ops/fastddc.channel_factored2_arrays has the algebra).
 csdr_tpu's W packing (128-lane padding, the bf16 [hi; lo] stack of
 ``pack_w``) is a TPU layout and has no counterpart: W is (inv, M) complex.
 
-What bounds it on an H100: FP32 operations outside the tensor cores
-(~4.3 GFLOP against ~38 MB at the 64-channel D=16 plan); Z stays in shared
-memory, one chunk of inverse bins at a time.  Shared memory is fixed
-(33 KB) whatever the plan, so every plan shape and chunk length runs
-through the kernel: there is no plan dispatch.
+What bounds it on an H100: at the 64-channel D=16 plan ~4.3 GFLOP against
+~38 MB, 3.76 GFLOP of it the iDFT, a dense (C*B x inv) x (inv x M) complex
+product.  The kernel runs that product on the tensor cores in 3xTF32
+(``mma.sync`` m16n8k8; each f32 operand split as hi = rna_tf32(x),
+lo = rna_tf32(x - hi), and hi*hi + hi*lo + lo*hi summed in f32), so its
+bound is the FP32 fold plus 3x the iDFT at the TF32 rate (~31 us at D=16,
+against 64 us all in FP32).  The fold stays exact FP32 FMA; at large
+``pre`` (D=256: pre=128, inv=16) the warp lanes a short bin chunk leaves
+free split the j sum, added by a shuffle.  Z stays in shared memory, one
+chunk of inverse bins at a time; S rows, TQ rows and W chunks are staged
+with cp.async, double-buffered.  The rounding is the kernel's own, so the
+result does not depend on ``torch.backends.cuda.matmul.allow_tf32``.
+
+:func:`plan_tiles` picks the tiles from the plan on the host: 128 rows of
+Z a block (8 channels x 16 frames), the column tile M rounded up to a
+multiple of 8 (up to 56 columns a block; wider plans take several column
+blocks), the bin chunk ``min(inv, 32)`` and the fold stage length that
+fits the opt-in shared memory twice, else once (up to 16 folds a stage).
+A plan
+whose tiles do not fit raises; there is no fallback.
 
 The wrapper launches the kernel for CUDA tensors, or raises; it takes the
 plain version (:func:`fastddc_inv_plain`) only for CPU tensors.
@@ -28,16 +43,58 @@ plain version (:func:`fastddc_inv_plain`) only for CPU tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from csdr_tpu_torch.core.precision import full_f32_matmul
 from csdr_tpu_torch.kernels import _build
 
-# tiles of csrc/fastddc_inv.cu: channels, frames, bins per chunk, columns;
-# its static shared memory (33 KB) does not depend on the plan, so no plan
-# can exceed the 48 KB a block gets without opting in
-CB, BT, KC, OT = 8, 8, 32, 64
-SMEM_BYTES = 8 * (CB * BT * (KC + 1) + KC * OT)
+# fixed tiles of csrc/fastddc_inv.cu: channels and frames a block (128
+# rows of Z, one 16-row MMA tile for each of its 8 warps)
+CB, BT = 8, 16
+ROWS = CB * BT
+NI_MENU = (1, 2, 4, 7)          # n-tiles of 8 columns the source instantiates
+KC_MENU = (16, 32)               # bin chunks the source instantiates
+MAX_SMEM = 232_448               # opt-in shared memory of one block, bytes
+# two blocks an SM: the SM's 228 KB less the 1 KB the runtime keeps a block
+HALF_SMEM = 233_472 // 2 - 1024
+
+
+def smem_bytes(kc: int, mt: int, jc: int) -> int:
+    """Dynamic shared memory of one block: two staging buffers (S rows,
+    TQ rows, the raw W chunk) and the 3xTF32-split Z tile and W chunk
+    (float4 per complex value, rows padded against bank conflicts)."""
+    stage = 8 * (BT * jc * kc + CB * jc * kc + kc * mt)
+    return 2 * stage + 16 * (ROWS * (kc + 4) + kc * (mt + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tiles(pre: int, inv: int, m: int) -> dict:
+    """The kernel's tiles for a plan (TQ's pre and inv, W's M columns):
+    ``kc`` bins a chunk, ``mt`` columns a block, ``col_blocks`` column
+    blocks covering M, ``jc`` folds a stage and ``smem`` bytes.  Raises
+    ValueError for a plan the kernel cannot take."""
+    kc = min(inv, 32)
+    if kc not in KC_MENU or inv % kc:
+        raise ValueError(f"fastddc_inv: inv={inv} has no bin chunk in "
+                         f"{KC_MENU}")
+    ni = next((n for n in NI_MENU if 8 * n >= m), NI_MENU[-1])
+    mt = 8 * ni
+    # the longest fold stage (up to 16) at which two blocks share an SM,
+    # else the longest that fits one: at D=256, 8 folds at two blocks an
+    # SM beat 16 at one; only plans of up to 16 columns (at most 128
+    # registers a thread) get there
+    stages = [jc for jc in (16, 8, 4, 2, 1) if jc <= pre and pre % jc == 0]
+    for budget in (HALF_SMEM, MAX_SMEM):
+        for jc in stages:
+            if smem_bytes(kc, mt, jc) <= budget:
+                return {"kc": kc, "mt": mt, "col_blocks": -(-m // mt),
+                        "jc": jc, "smem": smem_bytes(kc, mt, jc)}
+    raise ValueError(f"fastddc_inv: plan pre={pre} inv={inv} M={m} needs "
+                     f"{smem_bytes(kc, mt, 1)} B of shared memory > "
+                     f"{MAX_SMEM}")
+
 
 LAUNCHES = {"fastddc_inv": 0}
 
@@ -83,15 +140,19 @@ def fastddc_inv(spectra: torch.Tensor, tq: torch.Tensor, w: torch.Tensor,
                     ("rot", rot)):
         if not t.is_contiguous():
             raise ValueError(f"fastddc_inv: {name} must be contiguous")
+    if (spectra.data_ptr() | tq.data_ptr()) % 16:
+        raise ValueError("fastddc_inv: spectra and tq must be 16-byte "
+                         "aligned (the kernel stages them 16 bytes a copy)")
     c, pre, inv = tq.shape
     b = spectra.shape[0]
+    tiles = plan_tiles(pre, inv, w.shape[1])
     out = torch.empty((c, b, m_out), dtype=torch.complex64,
                       device=spectra.device)
     stream = torch.cuda.current_stream(spectra.device).cuda_stream
     code = _build.lib().csdr_fastddc_inv(
         spectra.data_ptr(), tq.data_ptr(), w.data_ptr(), d.data_ptr(),
         rot.data_ptr(), out.data_ptr(), b, c, pre, inv, w.shape[1],
-        d.shape[1], m_out, stream)
+        d.shape[1], m_out, tiles["kc"], tiles["mt"], tiles["jc"], stream)
     _build.check(code, "fastddc_inv")
     LAUNCHES["fastddc_inv"] += 1
     return out

@@ -247,6 +247,114 @@ def test_fastddc_inv_plain_matches_float64(b, c, pre, inv, m):
     assert _snr_db(ref[..., : m - 1], y2.numpy()) > 120
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: the f32 bit pattern rounded to 10 mantissa bits,
+    to nearest with ties away from zero (sign and magnitude)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _f32_rz(x):
+    """float64 to float32 rounded toward zero, as the tensor cores round
+    the sums they accumulate."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _inv_3xtf32(s, tq, w, d, rot):
+    """K4's arithmetic: the fold in f32, then the iDFT as csrc/fastddc_inv.cu
+    runs it on the tensor cores: each f32 operand split as hi = tf32(x),
+    lo = tf32(x - hi); for each 8-bin MMA step, fresh accumulators take the
+    real products (Zr Wr, Zi (-Wi) into Yr; Zr Wi, Zi Wr into Yi), each as
+    lo*hi, hi*lo, hi*hi, every MMA's sum rounded toward zero; then the step
+    is added to the running f32 sums (rounded to nearest)."""
+    b, (c, pre, inv) = s.shape[0], tq.shape
+    m = w.shape[1]
+    z = np.einsum("bjm,cjm->cbm", s.reshape(b, pre, inv), tq)
+    z = z.astype(np.complex64).reshape(c * b, inv)
+
+    def parts(x):
+        hi = _tf32(x)
+        return hi.astype(np.float64), _tf32(x - hi).astype(np.float64)
+
+    zr, zi = parts(z.real), parts(z.imag)
+    wr, wi = parts(w.real), parts(w.imag)
+    wn = (-wi[0], -wi[1])
+    yr = np.zeros((c * b, m), np.float32)
+    yi = np.zeros((c * b, m), np.float32)
+    for k in range(0, inv, 8):
+        ks = slice(k, k + 8)
+        pr, pi = np.zeros_like(yr), np.zeros_like(yi)
+        for acc, (a, bb) in ((pr, (zr, wr)), (pr, (zi, wn)), (pi, (zr, wi)),
+                             (pi, (zi, wr))):
+            for x, y in ((a[1], bb[0]), (a[0], bb[1]), (a[0], bb[0])):
+                acc[:] = _f32_rz(acc + x[:, ks] @ y[ks])
+        yr, yi = yr + pr, yi + pi
+    y = (yr + 1j * yi).astype(np.complex64).reshape(c, b, m)
+    return (y * d[:, None, :]) * rot[:, :, None]
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)                 # TF32's at 1.0
+    x = np.array([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                  one + 3 * ulp / 2], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([one + ulp, -(one + ulp), one, one + 2 * ulp],
+                           np.float32))
+    v = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi = _tf32(v)
+    assert np.all(np.abs(v - hi) <= np.abs(v) * 2.0 ** -11)
+    assert np.all(np.abs(v - hi - _tf32(v - hi)) <= np.abs(v) * 2.0 ** -22)
+
+
+@pytest.mark.parametrize("b,c,pre,inv,m", INV_CASES)
+def test_fastddc_inv_3xtf32_design_matches_float64(b, c, pre, inv, m):
+    """The kernel's 3xTF32 product, emulated here, holds the plan's output
+    to float64 at >= 120 dB (the card holds the kernel to the plain
+    version at 110 dB)."""
+    args = _inv_inputs(b, c, pre, inv, m, seed=b)
+    assert _snr_db(_inv64(*args), _inv_3xtf32(*args)) >= 120
+
+
+def _plan(d):
+    from csdr_tpu_torch.ops.fastddc import fastddc_init
+    ddc = fastddc_init(0.05, d)
+    assert ddc.post_input_size % ddc.post_decimation == 0
+    return (ddc.pre_decimation, ddc.fft_inv_size,
+            ddc.post_input_size // ddc.post_decimation)
+
+
+# D=4, 16 and 256, and the other divisible-post decimations csdr_tpu's
+# fastddc tests run (1, 8, 64)
+@pytest.mark.parametrize("d", [1, 4, 8, 16, 64, 256])
+def test_fastddc_inv_plan_tiles_cover_and_fit(d):
+    pre, inv, m = _plan(d)
+    tiles = fastddc_cuda.plan_tiles(pre, inv, m)
+    assert tiles["mt"] % 8 == 0 and tiles["mt"] // 8 in fastddc_cuda.NI_MENU
+    assert tiles["mt"] * tiles["col_blocks"] >= m
+    assert tiles["mt"] * (tiles["col_blocks"] - 1) < m
+    assert tiles["kc"] <= inv and inv % tiles["kc"] == 0
+    assert tiles["kc"] == min(inv, 32)
+    assert pre % tiles["jc"] == 0
+    assert tiles["smem"] == fastddc_cuda.smem_bytes(
+        tiles["kc"], tiles["mt"], tiles["jc"]) <= fastddc_cuda.MAX_SMEM
+    if m <= 56:                                  # all of M in one block
+        assert tiles["col_blocks"] == 1 and tiles["mt"] - m < 8
+
+
+def test_fastddc_inv_plan_tiles_choices_and_refusals():
+    d256 = fastddc_cuda.plan_tiles(128, 16, 7)      # two blocks an SM
+    assert d256["jc"] == 8 and d256["smem"] <= fastddc_cuda.HALF_SMEM
+    assert fastddc_cuda.plan_tiles(2, 512, 224)["col_blocks"] == 4  # D=4
+    with pytest.raises(ValueError, match="bin chunk"):
+        fastddc_cuda.plan_tiles(256, 8, 7)
+    with pytest.raises(ValueError, match="bin chunk"):
+        fastddc_cuda.plan_tiles(4, 48, 20)
+
+
 def test_fastddc_inv_checks_shapes():
     s, tq, w, d, rot = map(torch.from_numpy, _inv_inputs(4, 2, 8, 128, 56, 0))
     with pytest.raises(ValueError, match="shapes"):
@@ -276,7 +384,8 @@ def test_cuda_fft_ko_matches_plain(cuda, n, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,pre,inv,m", INV_CASES + ((1024, 64, 8, 128, 56),))
+@pytest.mark.parametrize("b,c,pre,inv,m", INV_CASES + (
+    (1024, 64, 8, 128, 56), (512, 256, 8, 128, 56)))
 def test_cuda_fastddc_inv_matches_plain(cuda, b, c, pre, inv, m):
     args = [torch.from_numpy(a).to(cuda)
             for a in _inv_inputs(b, c, pre, inv, m, seed=b)]
@@ -326,4 +435,25 @@ def test_cuda_fastddc_plain_ignores_global_tf32(cuda, tf32_on):
     y_on = fastddc_cuda.fastddc_inv_plain(*args, 56)
     torch.backends.cuda.matmul.allow_tf32 = False
     y_off = fastddc_cuda.fastddc_inv_plain(*args, 56)
+    assert torch.equal(y_on, y_off)
+
+
+@pytest.mark.cuda
+def test_cuda_fastddc_inv_refuses_misaligned_spectra(cuda):
+    s, tq, w, d, rot = [torch.from_numpy(a).to(cuda)
+                        for a in _inv_inputs(4, 2, 8, 128, 56, 0)]
+    flat = torch.cat([s.new_zeros(1), s.reshape(-1)])[1:].reshape(s.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fastddc_cuda.fastddc_inv(flat, tq, w, d, rot, 56)
+
+
+@pytest.mark.cuda
+def test_cuda_fastddc_kernel_ignores_global_tf32(cuda, tf32_on):
+    """K4's 3xTF32 is the kernel's own arithmetic: the same bits with TF32
+    switched on globally as with it off."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inv_inputs(256, 16, 8, 128, 56, seed=3)]
+    y_on = fastddc_cuda.fastddc_inv(*args, 56)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y_off = fastddc_cuda.fastddc_inv(*args, 56)
     assert torch.equal(y_on, y_off)
