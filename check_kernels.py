@@ -9,9 +9,9 @@ opt-in shared-memory shapes:
    middle of a buffer whose head and tail hold a sentinel; the sentinel
    must survive and the output must equal the wrapper's bit for bit (an
    out-of-range store shows here);
-2. repeats: K2 (path C's shape), K3 forward (path B's), K4 (path A's) and
-   K5 (path P's) run ``--repeats`` times on one input, and one chunk of
-   path A's
+2. repeats: K2 (path C's shape), K3 forward and inverse (paths B's and
+   C's shapes and the 128 KB frame), K4 (path A's) and K5 (path P's) run
+   ``--repeats`` times on one input, and one chunk of path A's
    channelizer a fifth as often; every result must equal the first bit for bit
    (a shared-memory race shows as run-to-run differences);
 3. one chunk of path A and one of path C through their entry points.
@@ -111,14 +111,16 @@ def run(torch, repeats: int) -> int:
     for n, b in ((1024, cs.FRAMES_B), (256, cs.CHUNK_C // 8900), (256, 5),
                  (128, 9), (16384, 3)):
         x = cn(b, n)
+        tw = torch.from_numpy(fft_cuda.twiddles(n)).to(dev)
         for name in ("fft_ko", "ifft_ko"):
             y = getattr(fft_cuda, name)(x)
             guarded(f"{name} N={n} B={b}", y,
                     lambda p, s, f=getattr(lib, "csdr_" + name): f(
-                        x.data_ptr(), p, n, b, s))
-        if (n, b) == (1024, cs.FRAMES_B):
-            repeat(f"fft_ko N={n} B={b}", lambda: fft_cuda.fft_ko(x),
-                   repeats)
+                        x.data_ptr(), p, tw.data_ptr(), n, b, s))
+            if (n, b) in ((1024, cs.FRAMES_B), (256, cs.CHUNK_C // 8900),
+                          (16384, 3)):
+                repeat(f"{name} N={n} B={b}",
+                       lambda f=getattr(fft_cuda, name): f(x), repeats)
     # K4: path A's plan, D=4, D=256, 256 channels x 512 frames (csdr_tpu's
     # fastddc256 bench), ragged frames and channels
     rates = cs.bench_rates()

@@ -12,7 +12,8 @@ prints one JSON line per phase and exits non-zero at the first failure:
    version's, a one-call library yardstick (TF32 off) and the least time
    the card could take (bytes or FP32 operations over the peak rates):
    the FIR pair (K1, K2), K2 also at path C's D=50/T=801, the
-   kernel-order FFT pair (K3) at the shapes of paths B and C, the fastddc
+   kernel-order FFT pair (K3) at the shapes of paths B and C (the inverse
+   also at B's, which runs only the forward), the fastddc
    inverse (K4) at path A's shape, at the D=4 and D=256 plans and at 256
    channels x 512 frames (D=16), also with TF32 on globally (bit for bit
    the same) and with its 3xTF32 tensor-core bound beside the FP32 one; then
@@ -357,7 +358,7 @@ def _timed_sets(make, nsets=4):
 
 def fft_case(torch, name, n, b, seed):
     """K3 (fft_ko or ifft_ko) at (N, B) against its plain version."""
-    from csdr_tpu_torch.kernels import fft_cuda
+    from csdr_tpu_torch.kernels import _build, fft_cuda
     from csdr_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda")
@@ -392,7 +393,9 @@ def fft_case(torch, name, n, b, seed):
         "name": name, "route": "cuda", "source": FFT_SOURCE,
         "replaces": ("csdr_tpu/kernels/fft_pallas.py:265" if inverse
                      else "csdr_tpu/kernels/fft_pallas.py:220"),
-        "shape": {"N": n, "B": b},
+        "shape": {"N": n, "B": b, "radix_plan": fft_cuda.radix_plan(n),
+                  "frames_per_block":
+                      _build.lib().csdr_fft_ko_frames_per_block(n, b)},
         "snr_db": snr, "snr_bar_db": SNR_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
@@ -493,9 +496,9 @@ def bench_rates():
 
 def phase_fastddc_kernels(torch):
     """K2, K3 and K4 at the shapes paths A, B and C give them, each tagged
-    with its path; K4 also at the D=4 and D=256 plans and at csdr_tpu's
-    256-channel D=16 bench shape (bench.py fastddc256: 512 frames), on no
-    path."""
+    with its path; K3's inverse also at path B's shape, and K4 at the D=4
+    and D=256 plans and at csdr_tpu's 256-channel D=16 bench shape
+    (bench.py fastddc256: 512 frames), on no path."""
     rates = bench_rates()
     frames_c = CHUNK_C // 8900             # bandpass frames of N=256
     cases = [
@@ -505,7 +508,8 @@ def phase_fastddc_kernels(torch):
         dict(fft_case(torch, "fft_ko", 256, frames_c, 17), path="C"),
         dict(fft_case(torch, "ifft_ko", 256, frames_c, 12), path="C"),
         dict(inv_case(torch, 16, FRAMES_A, rates, 13), path="A")]
-    others = [inv_case(torch, d, FRAMES_A, rates, 14 + d) for d in (4, 256)]
+    others = [fft_case(torch, "ifft_ko", 1024, FRAMES_B, 19)]
+    others += [inv_case(torch, d, FRAMES_A, rates, 14 + d) for d in (4, 256)]
     rates256 = np.random.default_rng(0).uniform(-0.4, 0.4, 256)
     others.append(inv_case(torch, 16, 512, rates256, 30))
     for c in cases + others:

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "csdr_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP, _VP],
     "csdr_shift_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP,
                                 _D, _D, _VP],
-    "csdr_fft_ko": [_VP, _VP, _I, _LL, _VP],
-    "csdr_ifft_ko": [_VP, _VP, _I, _LL, _VP],
+    "csdr_fft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
+    "csdr_ifft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _VP],
     "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _VP, _VP],
@@ -47,6 +47,8 @@ _QUERIES = {
     "csdr_fastddc_inv_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_outputs_per_item": [],
+    "csdr_fft_ko_pass_bits": [_I, _I],
+    "csdr_fft_ko_frames_per_block": [_I, _LL],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -15,9 +15,11 @@ matrices and fftfilt into its taps spectrum, so nothing reorders at run
 time.  N is a power of two in 128..16384, any batch.
 
 What bounds it on an H100: 16 B of device memory per point against
-~5*log2(N) FP32 operations, so device-memory bytes at N=256..1024; the
-kernel reads and writes each point once and runs the radix-2 stages in
-shared memory (see the source note).
+~5*log2(N) FP32 operations, so device-memory bytes at N=256..1024.  The
+kernel reads and writes each point once and runs a mixed-radix plan
+(:func:`radix_plan`) in registers, one shared-memory exchange between
+passes, with the twiddles of :func:`twiddles` from a table this module
+keeps on the card per (N, device) (see the source note).
 
 The wrappers launch the kernel for CUDA tensors, or raise; they take the
 plain version (``*_plain``: ``torch.fft`` plus the order permutation) only
@@ -84,6 +86,52 @@ def _index(n: int, which: str, device: str) -> torch.Tensor:
     return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
+def radix_plan(n: int) -> list[int]:
+    """The kernel's passes for an N-point frame, first pass first: every
+    radix at most 16 and the last 16, the remaining bits shared out with
+    the odd ones first (1024 -> [8, 8, 16], 256 -> [16, 16]).  The launch
+    checks that the CUDA source plans the same."""
+    if not supported(n, 1):
+        raise ValueError(f"fft_ko: N={n} is not a power of two in "
+                         f"{LANE}..{MAX_N}")
+    logn = n.bit_length() - 1
+    passes = (logn + 3) // 4
+    rest, k = logn - 4, passes - 1
+    return [1 << (rest // k + (i < rest % k)) for i in range(k)] + [16]
+
+
+def twiddles(n: int) -> np.ndarray:
+    """The kernel's twiddle table (complex64, computed in float64): pass by
+    pass, for every pass of :func:`radix_plan` but the last, the R-1 rows
+    j = 1..R-1 of S entries W_N^(j * low * W), low < S, where S is the
+    product of the radices after the pass and W of those before it.  The
+    inverse conjugates it."""
+    plan = radix_plan(n)
+    parts = []
+    for i, r in enumerate(plan[:-1]):
+        w = int(np.prod(plan[:i], dtype=np.int64))
+        s = n // (w * r)
+        e = np.arange(1, r)[:, None] * np.arange(s)[None, :] * w % n
+        parts.append(np.exp(-2j * np.pi * e.ravel() / n))
+    return np.concatenate(parts).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_table(n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(twiddles(n)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(n: int) -> None:
+    lib = _build.lib()
+    plan = radix_plan(n)
+    built = [1 << lib.csdr_fft_ko_pass_bits(n, i)
+             for i in range(len(plan))]
+    if built != plan or lib.csdr_fft_ko_pass_bits(n, len(plan)) != 0:
+        raise RuntimeError(f"fft_ko: the kernel's plan for N={n} differs "
+                           f"from radix_plan: {built} against {plan}")
+
+
 def _check(x: torch.Tensor) -> None:
     if x.dtype != torch.complex64 or x.dim() < 1:
         raise TypeError(f"want a complex64 tensor of frames, got "
@@ -98,10 +146,13 @@ def _launch(name: str, x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError(f"{name}: frames must be contiguous")
     n = x.shape[-1]
+    _check_plan(n)
+    tw = _twiddle_table(n, str(x.device))
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = getattr(_build.lib(), "csdr_" + name)(
-        x.data_ptr(), y.data_ptr(), n, x.numel() // n, stream)
+        x.data_ptr(), y.data_ptr(), tw.data_ptr(), n, x.numel() // n,
+        stream)
     _build.check(code, name)
     LAUNCHES[name] += 1
     return y

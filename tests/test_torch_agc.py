@@ -207,8 +207,8 @@ def test_fastagc_three_block_latency_and_jax():
 
 @pytest.mark.parametrize("zero_run", [False, True])
 def test_simple_agc_matches_jax(zero_run):
-    """Held against csdr_tpu, not the C reference: csdr_tpu's own
-    zero-run golden against the reference fails on this tree
+    """Held against csdr_tpu, which its own tests hold to the C
+    reference, the zero-run case included
     (tests/test_agc.py::test_simple_agc_zero_run_matches_reference)."""
     if zero_run:
         x = np.zeros(300, np.complex64)
@@ -248,7 +248,10 @@ def _stream_pair(jb, tb, x, n):
 def test_dc_blocks_match_jax_streamed_and_resumed(name, bar):
     """3 chunks of an offset noise; dcblock's scan reorders its sums, so its
     bar is the lower.  Then csdr_tpu's state after the stream goes on in
-    the port."""
+    the port.  Held against csdr_tpu only: csdr_tpu's fastdcblock fails its
+    own C-reference golden
+    (tests/test_demod.py::test_fastdcblock_matches_reference), so the
+    port's fastdcblock is as far from the C reference as csdr_tpu's."""
     x = real_noise(3 * 4000, seed=3) + 0.3
     jb = getattr(jutil, name + "_block")()
     tb = getattr(tutil, name + "_block")()

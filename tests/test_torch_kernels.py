@@ -210,6 +210,111 @@ def test_fft_ko_shapes_refused():
         fft_cuda.fft_ko(torch.zeros(2, 256))
 
 
+_ROOTS16 = np.exp(-2j * np.pi * np.arange(16) / 16).astype(np.complex64)
+
+
+def _dft_regs(v, inverse):
+    """The kernel's R-point DFT over axis -2 of (..., R, S) complex64, as
+    each thread runs it in registers: radix-2 decimation-in-frequency
+    stages with 16th roots of unity, then the bit reversal undone."""
+    r = v.shape[-2]
+    v = v.copy()
+    h = r // 2
+    while h >= 1:
+        for a in range(0, r, 2 * h):
+            for i in range(h):
+                p, q = v[..., a + i, :].copy(), v[..., a + i + h, :].copy()
+                e = i * (8 // h)
+                v[..., a + i, :] = p + q
+                v[..., a + i + h, :] = (p - q) * _ROOTS16[-e % 16 if inverse
+                                                          else e]
+        h //= 2
+    bits = r.bit_length() - 1
+    return v[..., [fft_cuda._bitrev(k, bits) for k in range(r)], :]
+
+
+def _k3_schedule(x, inverse=False):
+    """csrc/fft_ko.cu's arithmetic in complex64 numpy, on the wrapper's own
+    plan (fft_cuda.radix_plan) and twiddle table (fft_cuda.twiddles): pass
+    i takes the DFT over digit i (stride S_i), its output k_i twiddled by
+    W_N^(k_i * low * W_i) after the DFT (forward) or conjugated before it
+    (inverse, passes in reverse order), read from the table at pass i's
+    offset + (k_i - 1) * S_i + low, k_i left in place of digit i; the
+    forward's last pass stores bin k at 128*bitrev_T(k mod T) + k/T and
+    the inverse's first pass loads from there."""
+    b, n = x.shape
+    plan = fft_cuda.radix_plan(n)
+    tw = fft_cuda.twiddles(n)
+    if inverse:
+        tw = np.conj(tw)
+    logn, logt = n.bit_length() - 1, n.bit_length() - 8
+    rb = [r.bit_length() - 1 for r in plan]
+    before = [sum(rb[:i]) for i in range(len(plan))]
+    sb = [logn - before[i] - rb[i] for i in range(len(plan))]
+    p = np.arange(n)
+    k = sum(((p >> sb[i]) & (plan[i] - 1)) << before[i]
+            for i in range(len(plan)))
+    pos = np.array([(fft_cuda._bitrev(int(kk) % (1 << logt), logt) << 7)
+                    | (int(kk) >> logt) for kk in k])
+    s = x[:, pos] if inverse else x
+    order = range(len(plan))
+    off = 0
+    offsets = []
+    for i in order:
+        offsets.append(off)
+        off += (plan[i] - 1) << sb[i]
+    for i in (reversed(order) if inverse else order):
+        r, stride = plan[i], 1 << sb[i]
+        v = s.reshape(b, n // (r * stride), r, stride)
+        twd = None
+        if i < len(plan) - 1:
+            rows = tw[offsets[i]: offsets[i] + (r - 1) * stride]
+            twd = np.concatenate([np.ones((1, stride), np.complex64),
+                                  rows.reshape(r - 1, stride)])
+        if inverse and twd is not None:
+            v = v * twd
+        v = _dft_regs(v, inverse)
+        if not inverse and twd is not None:
+            v = v * twd
+        s = v.reshape(b, n).astype(np.complex64)
+    if inverse:
+        return s
+    out = np.empty_like(s)
+    out[:, pos] = s
+    return out
+
+
+@pytest.mark.parametrize("n", [128, 256, 1024, 16384])
+def test_fft_ko_schedule_matches_float64(n):
+    """The CUDA kernel's plan, emulated in complex64, against float64 in
+    kernel order, forward and inverse."""
+    x = _frames(3, n, seed=n + 1)
+    ko = _ko64(x)
+    assert _snr_db(ko, _k3_schedule(x)) > 120
+    back = _k3_schedule(ko.astype(np.complex64), inverse=True)
+    assert back.dtype == np.complex64
+    assert _snr_db(x.astype(np.complex128) * n, back) > 120
+
+
+@pytest.mark.parametrize("n", [128, 256, 1024, 16384])
+def test_fft_ko_twiddles_and_plan(n):
+    """The twiddle table holds exp(-2*pi*i*k/N) to 1e-7, with k = j * low *
+    W for each pass but the last, j = 1..R-1 and low < S; the plan has
+    radices of at most 16, the last 16, in ceil(log2(N)/4) passes."""
+    plan = fft_cuda.radix_plan(n)
+    assert np.prod(plan) == n and plan[-1] == 16
+    assert all(2 <= r <= 16 for r in plan)
+    assert len(plan) == -(-(n.bit_length() - 1) // 4)
+    k = []
+    for i, r in enumerate(plan[:-1]):
+        w = int(np.prod(plan[:i]))
+        s = n // (w * r)
+        k += [j * low * w for j in range(1, r) for low in range(s)]
+    tw = fft_cuda.twiddles(n)
+    assert tw.dtype == np.complex64 and tw.shape == (len(k),)
+    assert np.max(np.abs(tw - np.exp(-2j * np.pi * np.array(k) / n))) < 1e-7
+
+
 # --------------------------------------------------------------------------
 # K4: the fastddc factored-v2 inverse
 # --------------------------------------------------------------------------

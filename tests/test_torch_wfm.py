@@ -111,6 +111,11 @@ def test_deemphasis_wfm_varout_carry_like_jax(sample_rate):
 ], ids=["integer5", "rational2.4", "generic2.4", "prefilter3.5"])
 @pytest.mark.parametrize("chunk", [5000, 246])
 def test_fractional_decimator_streams_like_jax(rate, kw, bar, chunk):
+    """Held against csdr_tpu only: csdr_tpu's fractional decimator fails
+    its own C-reference goldens (tests/test_wfm.py::
+    test_fractional_decimator_matches_reference, _with_prefilter and
+    _rational_path_golden), so the port is as far from the C reference as
+    csdr_tpu is."""
     rng = np.random.default_rng(7)
     x = np.convolve(rng.standard_normal(12 * chunk if chunk < 1000
                                         else 4 * chunk),
@@ -160,6 +165,9 @@ def test_wfm_advanced_streams_like_jax(fuse_shift, chunk):
 
 @pytest.mark.parametrize("chunk", [2400, 6000, 7001])
 def test_wfm_basic_streams_like_jax(chunk):
+    """Held against csdr_tpu only: wfm_basic runs the fractional decimator,
+    and csdr_tpu's wfm_basic fails its own C-reference golden
+    (tests/test_wfm.py::test_wfm_basic_end_to_end)."""
     x = _fm_tone(240_000, 24_000)
     a, b, cj, ct = _stream(jwfm.wfm_basic(), twfm.wfm_basic(), x, chunk)
     assert ct == cj and len(a) > 4000
