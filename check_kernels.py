@@ -8,8 +8,10 @@ opt-in shared-memory shapes:
 1. guard bands: each kernel's C entry point writes its output into the
    middle of a buffer whose head and tail hold a sentinel; the sentinel
    must survive and the output must equal the wrapper's bit for bit (an
-   out-of-range store shows here);
-2. repeats: K2 (path C's shape), K3 forward and inverse (paths B's and
+   out-of-range store shows here); K1/K2 also under the smallest and the
+   largest tile the kernel takes at each shape;
+2. repeats: K1 and K2 (the WFM front end, paths D's and C's shapes, the
+   BASELINE headline), K3 forward and inverse (paths B's and
    C's shapes and the 128 KB frame), K4 (path A's) and K5 (path P's) run
    ``--repeats`` times on one input, and one chunk of path A's
    channelizer a fifth as often; every result must equal the first bit for bit
@@ -87,10 +89,13 @@ def run(torch, repeats: int) -> int:
         cs.emit("repeat", kernel=what, runs=times, differing_runs=diff)
         cs.require(diff == 0, f"{what}: {diff} of {times} runs differ")
 
-    # K1, K2: the WFM front end, path C's D=50/T=801 (opt-in shared
-    # memory), the BASELINE headline shape and a ragged output count
+    # K1, K2: the WFM front end fused and unfused, path D's D=50/T=81, path
+    # C's D=50/T=801 (opt-in shared memory), the BASELINE headline shape
+    # and a ragged output count, each under the planner's launch and under
+    # the smallest and largest tile the kernel takes there
     fir_cases = (("shift_fir_decimate", 10, 79, 240_000),
                  ("fir_decimate", 10, 79, 240_000),
+                 ("fir_decimate", 50, 81, cs.CHUNK // 50),
                  ("fir_decimate", 50, 801, cs.CHUNK_C // 50),
                  ("fir_decimate", 10, 1023, 262_144),
                  ("fir_decimate", 50, 801, 777))
@@ -99,14 +104,21 @@ def run(torch, repeats: int) -> int:
         tl, x = cn(tail_len), cn(kout * d)
         taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
         phase = (-0.2, 0.3) if name == "shift_fir_decimate" else ()
-        y = getattr(fir_cuda, name)(tl, x, taps, d, kout, *phase)
-        guarded(f"{name} D={d} T={t} kout={kout}", y,
-                lambda p, s, f=getattr(lib, "csdr_" + name): f(
-                    tl.data_ptr(), tail_len, x.data_ptr(), x.shape[0],
-                    taps.data_ptr(), t, d, kout, p, *phase, s))
-        if (d, t, kout) == (50, 801, cs.CHUNK_C // 50):
-            repeat(f"{name} D=50 T=801", lambda: fir_cuda.fir_decimate(
-                tl, x, taps, d, kout), repeats)
+        kern = getattr(fir_cuda, name)
+        y = kern(tl, x, taps, d, kout, *phase)
+        every = fir_cuda.plans(t, d, kout, bool(phase))
+        for plan in (fir_cuda.plan_tile(t, d, kout, bool(phase)),
+                     min(every, key=lambda p: p["tile"]),
+                     max(every, key=lambda p: p["tile"])):
+            guarded(f"{name} D={d} T={t} kout={kout} tile {plan['tile']} "
+                    f"R={plan['per_thread']} S={plan['groups']}", y,
+                    lambda p, s, f=getattr(lib, "csdr_" + name), pl=plan: f(
+                        tl.data_ptr(), tail_len, x.data_ptr(), x.shape[0],
+                        taps.data_ptr(), t, d, kout, p, *phase, pl["tile"],
+                        pl["per_thread"], pl["groups"], s))
+        if kout != 777:
+            repeat(f"{name} D={d} T={t}", lambda: kern(
+                tl, x, taps, d, kout, *phase), repeats)
     # K3: paths B and C, ragged batches, the opt-in 128 KB frame
     for n, b in ((1024, cs.FRAMES_B), (256, cs.CHUNK_C // 8900), (256, 5),
                  (128, 9), (16384, 3)):

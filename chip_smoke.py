@@ -213,8 +213,12 @@ def phase_env(torch, build):
     lib = build.lib()
     load_s = time.perf_counter() - t0
     from csdr_tpu_torch.kernels import fastddc_cuda, fir_cuda
-    require(lib.csdr_fir_decimate_tile() == fir_cuda.TILE,
-            "kernel tile differs from fir_cuda.TILE")
+    fir_shapes = ((79, 10, CHUNK // 10), (801, 50, CHUNK_C // 50),
+                  (81, 50, CHUNK // 50), (1023, 10, 262_144))
+    require(all(lib.csdr_fir_decimate_smem_bytes(t, d, p["tile"],
+                                                 p["per_thread"]) == p["smem"]
+                for t, d, k in fir_shapes for p in fir_cuda.plans(t, d, k)),
+            "fir_decimate shared memory differs from fir_cuda.smem_bytes")
     require(all(lib.csdr_fastddc_inv_smem_bytes(t["kc"], t["mt"], t["jc"])
                 == t["smem"] for t in map(inv_tiles, INV_PLANS)),
             "fastddc_inv tiles differ from fastddc_cuda.plan_tiles")
@@ -305,13 +309,20 @@ def kernel_case(torch, name, d, t, kout, rate, theta, seed):
     nbytes = 8 * (tail_len + n) + 4 * t + 8 * kout
     flops = 4 * t * kout + (6 * (tail_len + n) if mix else 0)
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    plan = fir_cuda.plan_tile(t, d, kout, mix, torch.cuda.
+                              get_device_properties(0).multi_processor_count)
     return {
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": ("csdr_tpu/kernels/fir_pallas.py:226" if mix
                      else "csdr_tpu/kernels/fir_pallas.py:211"),
-        "shape": {"D": d, "T": t, "kout": kout, "n": n},
+        "shape": {"D": d, "T": t, "kout": kout, "n": n,
+                  "plan": {k: plan[k] for k in ("tile", "per_thread",
+                                                "groups", "threads",
+                                                "blocks")}},
         "snr_db": snr, "snr_bar_db": SNR_BAR, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
+        "share_of_bound": max(t_bytes, t_ops) / kernel_ms,
+        "times_faster_than_library": lib_ms / kernel_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms,

@@ -32,9 +32,10 @@ _VP, _LL, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_double
 # name -> argtypes of the C entry points (restype int: a cudaError_t)
 _SIGNATURES = {
-    "csdr_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP, _VP],
+    "csdr_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP, _I, _I,
+                          _I, _VP],
     "csdr_shift_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP,
-                                _D, _D, _VP],
+                                _D, _D, _I, _I, _I, _VP],
     "csdr_fft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_ifft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
@@ -43,7 +44,7 @@ _SIGNATURES = {
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {
-    "csdr_fir_decimate_tile": [],
+    "csdr_fir_decimate_smem_bytes": [_I, _I, _I, _I],
     "csdr_fastddc_inv_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_smem_bytes": [_I, _I, _I],
     "csdr_fir_poly_outputs_per_item": [],

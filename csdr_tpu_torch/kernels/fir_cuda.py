@@ -15,11 +15,17 @@ The kernel reads ``tail`` and ``x`` through two pointers, so a streaming
 block hands it its carried tail and the new chunk as they are: no
 concatenation pass over the chunk, and one launch per chunk.
 
-What bounds it on an H100: at the WFM front end (D=10, T=79) it moves
-~8 B per input sample and does ~2T/D FMA per sample, so it is bound by
-device-memory bytes; the design reads each input sample about once and
-mixes it once in shared memory.  At long taps (D=10, T=1023) it is bound by
-FP32 FMA and the shared-memory reads that feed them (see the source note).
+What bounds it on an H100: at the receivers' shapes it moves ~8 B an
+input sample and does 2T/D FMA a sample, so device-memory bytes bound it;
+behind them come the shared-memory reads that feed the FMA.  The kernel
+stages each block's window phase-major in shared memory (each sample read
+from device memory about once, mixed once), and each thread sums S runs
+of R consecutive outputs, so one window read serves R outputs and one tap
+read S runs, each output still one f32 chain over t in order: the
+outputs are bit for bit those of a one-output-a-thread sum.
+:func:`plan_tile` sizes R, S and the block to the shape on the host (the
+source note of ``csrc/fir_decimate.cu`` has the design, PERF.md the
+measurements it rests on).
 
 K5 (``_fir_poly_kernel``, the direct polyphase FIR that csdr_tpu keeps as
 its exact-f32 reference form) is ``csrc/fir_poly.cu``:
@@ -34,13 +40,20 @@ tensors.  ``LAUNCHES`` counts kernel launches per kernel.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from csdr_tpu_torch.kernels import _build
 
-TILE = 256                 # outputs per block: kTile in csrc/fir_decimate.cu
 MAX_SMEM = 232448          # bytes of shared memory a block may opt into
+SM_SMEM = 233472           # shared memory of one SM (228 KB)
+SMS = 132                  # SMs of an H100 SXM
+PER_THREAD = (4, 2, 1)     # consecutive outputs a thread: R in the source
+GROUPS = (1, 2)            # runs of R outputs a thread: S there
+THREADS = tuple(range(32, 513, 32))   # threads a block: kMaxThreads there
+MIX_STAGERS = 2            # K1's staging threads a summing one: kMixStagers
 
 POLY_R = 8                 # outputs per work item: kR in csrc/fir_poly.cu
 
@@ -54,10 +67,95 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def smem_bytes(taps_len: int, decimation: int) -> int:
-    """Shared memory one block stages: the taps plus its input window."""
-    return (4 * ((taps_len + 1) & ~1)
-            + 8 * ((TILE - 1) * decimation + taps_len))
+def smem_bytes(taps_len: int, decimation: int, tile: int,
+               per_thread: int) -> int:
+    """Shared memory of one K1/K2 block of ``tile`` outputs, ``per_thread``
+    (R) a thread: the taps as (M + R - 1, D, R) R-vectors, rounded up to 16
+    bytes, and the phase-major window of D rows of ``tile + M - 1``
+    columns, in R sub-rows with an odd row stride (M = ceil(T/D))."""
+    d, r = int(decimation), int(per_thread)
+    m = -(-int(taps_len) // d)
+    sub = -(-(int(tile) + m - 1) // r)
+    return 4 * ((((m + r - 1) * d * r) + 3) & ~3) + 8 * d * ((r * sub) | 1)
+
+
+def _plan(taps_len, d, r, g, nt, kout, mix):
+    tile = nt * r * g
+    smem = smem_bytes(taps_len, d, tile, r)
+    launched = nt * (MIX_STAGERS if mix else 1)
+    return {"tile": tile, "per_thread": r, "groups": g, "threads": nt,
+            "smem": smem, "blocks": -(-max(int(kout), 1) // tile),
+            "blocks_per_sm": min(SM_SMEM // (smem + 1024), 2048 // launched,
+                                 32)}
+
+
+def plans(taps_len: int, decimation: int, kout: int,
+          mix: bool = False) -> list:
+    """Every launch K1 (``mix``) or K2 takes at (T, D): each (R, S,
+    threads) of PER_THREAD x GROUPS x THREADS whose block fits in shared
+    memory; ``threads`` sum, and K1 launches MIX_STAGERS times as many
+    to stage its window."""
+    t_len, d = int(taps_len), int(decimation)
+    most = THREADS[-1] // (MIX_STAGERS if mix else 1)
+    return [_plan(t_len, d, r, g, nt, kout, mix) for r in PER_THREAD
+            for g in GROUPS for nt in THREADS
+            if nt <= most and smem_bytes(t_len, d, nt * r * g, r) <= MAX_SMEM]
+
+
+def waves(plan: dict, sms: int = SMS) -> int:
+    """How many times over the grid of ``plan`` fills ``sms`` SMs."""
+    return -(-plan["blocks"] // (sms * plan["blocks_per_sm"]))
+
+
+def plan_tile(taps_len: int, decimation: int, kout: int, mix: bool = False,
+              sms: int = SMS) -> dict:
+    """The K1 (``mix``) or K2 launch for (T, D, kout): ``tile`` outputs a
+    block, ``groups`` (S) runs of ``per_thread`` (R) consecutive outputs
+    a thread, ``threads`` summing a block (K1 launches MIX_STAGERS times as
+    many), ``smem`` bytes, ``blocks`` in the grid and the ``blocks_per_sm``
+    that shared memory and threads let one of ``sms`` SMs hold.
+
+    R outputs a thread divide the window reads of a tap by R and S runs
+    divide the tap reads by S, but a thread runs M + R - 1 steps (M =
+    ceil(T/D) tap rows) and each output holds D samples of window: from
+    D = 32 on, R = S = 1 (at D=50 more outputs a thread leave too few
+    warps an SM); else R = 4 where the taps span 32 rows or more, R = S =
+    2 from 8 rows, else R = S = 1.  Then the grid: where kout fills the
+    SMs, the fewest waves and the fullest last wave, else the most blocks;
+    then the smallest block of at least 128 threads.  At chip_smoke.py's
+    shapes that came within 4 % of the best launch the kernel takes
+    (tools/k2_tiles.py, PERF.md).  Raises ValueError for a shape no launch
+    fits."""
+    t_len, d = int(taps_len), int(decimation)
+    fits = plans(t_len, d, kout, mix)
+    if not fits:
+        raise ValueError(
+            f"fir_decimate kernel: D={d} T={t_len} needs "
+            f"{smem_bytes(t_len, d, 32, 1)} B of shared memory > "
+            f"{MAX_SMEM}")
+    m = -(-t_len // d)
+    r, g = ((1, 1) if d >= 32 else (4, 1) if m >= 32
+            else (2, 2) if m >= 8 else (1, 1))
+    mine = [p for p in fits if (p["per_thread"], p["groups"]) == (r, g)] or \
+        [p for p in fits if (p["per_thread"], p["groups"]) == (1, 1)]
+
+    def rank(p):
+        small = p["threads"] < 128, p["threads"]
+        if p["blocks"] < sms:             # kout too small to fill the SMs
+            return (1, -p["blocks"]) + small
+        fill = p["blocks"] / (waves(p, sms) * sms * p["blocks_per_sm"])
+        return (0, waves(p, sms), -round(fill, 2)) + small
+    return min(mine, key=rank)
+
+
+_planned = functools.lru_cache(maxsize=256)(plan_tile)   # per launch shape
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index
+    ).multi_processor_count
 
 
 def _check(tail, x, taps, decimation, kout, precision):
@@ -78,44 +176,48 @@ def _check(tail, x, taps, decimation, kout, precision):
         raise ValueError(
             f"kout={kout} outputs need {(kout - 1) * d + t_len} samples; "
             f"[tail|x] has {tail.shape[0] + x.shape[0]}")
-    if x.is_cuda and smem_bytes(t_len, d) > MAX_SMEM:
-        raise ValueError(
-            f"fir_decimate kernel: D={d} T={t_len} needs "
-            f"{smem_bytes(t_len, d)} B of shared memory > {MAX_SMEM}")
 
 
-def _launch(name: str, tail, x, taps, decimation, kout, *phase):
+def _launch(name: str, tail, x, taps, decimation, kout, plan, *phase):
     if not (tail.is_contiguous() and x.is_contiguous()
             and taps.is_contiguous()):
         raise ValueError(f"{name}: tail, x and taps must be contiguous")
+    if plan is None:
+        plan = _planned(taps.shape[0], int(decimation), int(kout),
+                        name == "shift_fir_decimate",
+                        _sm_count(x.device.index))
     lib = _build.lib()
     y = torch.empty(kout, dtype=torch.complex64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(lib, "csdr_" + name)
     code = fn(tail.data_ptr(), tail.shape[0], x.data_ptr(), x.shape[0],
               taps.data_ptr(), taps.shape[0], int(decimation), kout,
-              y.data_ptr(), *phase, stream)
+              y.data_ptr(), *phase, plan["tile"], plan["per_thread"],
+              plan["groups"], stream)
     _build.check(code, name)
     LAUNCHES[name] += 1
     return y
 
 
 def fir_decimate(tail: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
-                 decimation: int, kout: int,
-                 precision: str = "HIGHEST") -> torch.Tensor:
+                 decimation: int, kout: int, precision: str = "HIGHEST",
+                 plan: dict | None = None) -> torch.Tensor:
     """K2: ``kout`` decimated outputs of ``[tail | x]`` (complex64) through
-    real ``taps`` (float32).  CUDA tensors launch the kernel; CPU tensors
-    take :func:`fir_decimate_plain`."""
+    real ``taps`` (float32).  CUDA tensors launch the kernel with
+    :func:`plan_tile`'s launch, or ``plan`` (one of its dicts) where given
+    (a shape no block fits raises); CPU tensors take
+    :func:`fir_decimate_plain`."""
     _check(tail, x, taps, decimation, kout, precision)
     if not x.is_cuda:
         return fir_decimate_plain(tail, x, taps, decimation, kout)
-    return _launch("fir_decimate", tail, x, taps, decimation, kout)
+    return _launch("fir_decimate", tail, x, taps, decimation, kout, plan)
 
 
 def shift_fir_decimate(tail: torch.Tensor, x: torch.Tensor,
                        taps: torch.Tensor, decimation: int, kout: int,
                        rate: float, theta: float,
-                       precision: str = "HIGHEST") -> torch.Tensor:
+                       precision: str = "HIGHEST",
+                       plan: dict | None = None) -> torch.Tensor:
     """K1: as :func:`fir_decimate`, with sample s of ``[tail | x]`` first
     mixed by ``exp(j*2*pi*(theta + rate*s))`` (rate and theta in cycles)."""
     _check(tail, x, taps, decimation, kout, precision)
@@ -123,7 +225,7 @@ def shift_fir_decimate(tail: torch.Tensor, x: torch.Tensor,
         return shift_fir_decimate_plain(tail, x, taps, decimation, kout,
                                         rate, theta)
     return _launch("shift_fir_decimate", tail, x, taps, decimation, kout,
-                   float(rate), float(theta))
+                   plan, float(rate), float(theta))
 
 
 # ---------------------------------------------------------------------------

@@ -143,9 +143,10 @@ def test_wrapper_checks_shapes_and_types():
     before = dict(fir_cuda.LAUNCHES)
     fir_cuda.fir_decimate(x[:0], x, taps, 10, 10)
     assert fir_cuda.LAUNCHES == before          # CPU: plain, no launch
-    # the largest shape the kernel takes at D=50 (later receivers' T=801)
-    assert fir_cuda.smem_bytes(801, 50) <= fir_cuda.MAX_SMEM
-    assert fir_cuda.smem_bytes(801, 120) > fir_cuda.MAX_SMEM
+    # the kernel takes the D=50 receivers' T=801 and refuses a shape
+    # whose smallest block does not fit in shared memory
+    assert fir_cuda.plan_tile(801, 50, 48_060)["smem"] <= fir_cuda.MAX_SMEM
+    assert fir_cuda.smem_bytes(801, 2000, 32, 1) > fir_cuda.MAX_SMEM
 
 
 # --------------------------------------------------------------------------

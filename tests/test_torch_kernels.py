@@ -85,7 +85,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,t,rate,theta", CASES)
 def test_cuda_kernels_match_plain(cuda, d, t, rate, theta):
-    kout = 3 * fir_cuda.TILE + 17                # a ragged last tile
+    kout = 3 * 256 + 17                          # ragged last tiles
     tail, x, taps = _inputs(d, t, kout, seed=7)
     args = (torch.from_numpy(tail).to(cuda), torch.from_numpy(x).to(cuda),
             torch.from_numpy(taps).to(cuda), d, kout)
@@ -107,7 +107,178 @@ def test_cuda_wrapper_raises_on_shapes_the_kernel_refuses(cuda):
     x = torch.zeros(200_000, dtype=torch.complex64, device=cuda)
     taps = torch.ones(801, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        fir_cuda.fir_decimate(x[:0], x, taps, 200, 10)
+        fir_cuda.fir_decimate(x[:0], x, taps, 2000, 10)
+
+
+# (name, D, T, kout): the WFM front end fused and unfused, and the D=50
+# front ends of paths D (T=81) and C, E, F (T=801), at their chunk sizes
+PATH_SHAPES = (("shift_fir_decimate", 10, 79, 240_000),
+               ("fir_decimate", 10, 79, 240_000),
+               ("fir_decimate", 50, 81, 48_000),
+               ("fir_decimate", 50, 801, 48_060))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d,t,kout", PATH_SHAPES)
+def test_cuda_path_shapes_match_plain_and_every_tile_bit_for_bit(
+        cuda, name, d, t, kout):
+    """At each path shape the planner's launch equals the plain version,
+    and launches with other tiles and outputs a thread give the same bits:
+    every output is one chain over t = 0 .. T-1 whatever the tile."""
+    tail, x, taps = _inputs(d, t, kout, seed=11)
+    args = (torch.from_numpy(tail).to(cuda), torch.from_numpy(x).to(cuda),
+            torch.from_numpy(taps).to(cuda), d, kout)
+    phase = (0.137, 0.3) if name == "shift_fir_decimate" else ()
+    kern = getattr(fir_cuda, name)
+    y = kern(*args, *phase)
+    yp = getattr(fir_cuda, name + "_plain")(*args, *phase)
+    assert _snr_db(yp.cpu().numpy(), y.cpu().numpy()) > 110
+    chosen = fir_cuda.plan_tile(t, d, kout, bool(phase))
+    others = [p for p in fir_cuda.plans(t, d, kout, bool(phase))
+              if p["threads"] in (32, 96, 512) and p != chosen]
+    assert others
+    for plan in others:
+        assert torch.equal(kern(*args, *phase, plan=plan), y), plan
+
+
+# --------------------------------------------------------------------------
+# K1/K2's launch planner and a CPU model of the kernel's schedule
+# --------------------------------------------------------------------------
+
+def _parent_smem(t, d):
+    """Shared memory of the one-output-a-thread kernel of 256-output tiles
+    that this design replaced; the shapes it took must still be taken."""
+    return 4 * ((t + 1) & ~1) + 8 * (255 * d + t)
+
+
+# (T, D, kout): the path shapes, kout = 1, kout = one planned tile + 1,
+# T < D, T = 1, and the BASELINE headline
+PLAN_CASES = ((79, 10, 240_000), (801, 50, 48_060), (81, 50, 48_000),
+              (1023, 10, 262_144), (79, 10, 1), (801, 50, 129), (7, 50, 500),
+              (1, 10, 1000), (1, 1, 77), (1023, 10, 1025))
+
+
+@pytest.mark.parametrize("t,d,kout", PLAN_CASES)
+def test_fir_plan_tile_covers_fits_and_fills(t, d, kout):
+    plan = fir_cuda.plan_tile(t, d, kout)
+    tile, r, g = plan["tile"], plan["per_thread"], plan["groups"]
+    assert r in fir_cuda.PER_THREAD and plan["threads"] in fir_cuda.THREADS
+    assert g in fir_cuda.GROUPS and tile == plan["threads"] * r * g
+    assert plan["blocks"] * tile >= kout > (plan["blocks"] - 1) * tile
+    assert plan["smem"] == fir_cuda.smem_bytes(t, d, tile, r) \
+        <= fir_cuda.MAX_SMEM
+    assert plan["blocks_per_sm"] >= 1
+    if kout >= 48_000:
+        # the path shapes: at least one block an SM, all in one wave
+        assert fir_cuda.SMS <= plan["blocks"] \
+            <= fir_cuda.SMS * plan["blocks_per_sm"]
+        assert fir_cuda.waves(plan) == 1
+
+
+def test_fir_plan_tile_takes_every_shape_the_parent_took():
+    """No (D, T) that the 256-output-tile kernel took is refused; the
+    largest D at T=801 grows from 110 to where the smallest block, 32
+    outputs, no longer fits."""
+    for d in (1, 2, 3, 5, 10, 16, 50, 64, 100, 110, 111):
+        for t in (1, 7, 79, 81, 801, 1023, 4095, 9001, 19_000):
+            if _parent_smem(t, d) <= fir_cuda.MAX_SMEM:
+                fir_cuda.plan_tile(t, d, 1000)
+    largest = max(d for d in range(1, 1000)
+                  if fir_cuda.smem_bytes(801, d, 32, 1) <= fir_cuda.MAX_SMEM)
+    assert largest > 110
+    assert fir_cuda.plan_tile(801, largest, 100)["tile"] == 32
+    for d in (largest + 1, largest + 50, 2000):
+        with pytest.raises(ValueError, match="shared memory"):
+            fir_cuda.plan_tile(801, d, 100)
+
+
+def _fma32(a, b, c):
+    """f32 a*b + c rounded once from float64 (a*b is exact there): the
+    same emulated FMA for both orders below."""
+    return (a.astype(np.float64) * np.float64(b)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _k2_schedule(v, taps, d, kout, tile, r, g):
+    """K1/K2's schedule in numpy, block by block: the phase-major window
+    (row p, sub-row c % R, position c / R, odd row stride), the tap table
+    H[u][p][r], the steps u outer and p inner, each thread's G runs of R
+    outputs at tap rows u - r, and the guards.  Returns complex64
+    outputs."""
+    t_len = len(taps)
+    m = -(-t_len // d)
+    steps = m + r - 1
+    nt = tile // (r * g)
+    sub = -(-(tile + m - 1) // r)
+    rs = (r * sub) | 1
+    total = len(v)
+    y = np.zeros(kout, np.complex64)
+    lanes = np.arange(nt)
+    for b in range(-(-kout // tile)):
+        s0 = b * tile * d
+        w = np.zeros(d * rs, np.complex64)
+        for i in range((tile + m - 1) * d):
+            c, p = divmod(i, d)
+            if s0 + i < total:
+                w[p * rs + (c % r) * sub + c // r] = v[s0 + i]
+        hu = np.zeros(steps * d * r, np.float32)
+        for i in range(steps * d * r):
+            u, p = divmod(i // r, d)
+            tap = (u - i % r) * d + p
+            if u >= i % r and tap < t_len:
+                hu[i] = taps[tap]
+        # lane l, run j: outputs (j*nt + l)*R + q; its column at step u
+        # is (j*nt + l)*R + u, at position j*nt + l + u // R
+        runs = (np.arange(g)[:, None] * nt + lanes).reshape(-1)
+        ar = np.zeros((r, g * nt), np.float32)
+        ai = np.zeros((r, g * nt), np.float32)
+        for u in range(steps):
+            for p in range(d):
+                x = w[p * rs + (u % r) * sub + u // r + runs]
+                for q in range(r):
+                    if 0 <= u * d + p - q * d < t_len:
+                        h = hu[(u * d + p) * r + q]
+                        ar[q] = _fma32(x.real, h, ar[q])
+                        ai[q] = _fma32(x.imag, h, ai[q])
+        for q in range(r):
+            k = b * tile + runs * r + q
+            ok = k < kout
+            y[k[ok]] = (ar[q] + 1j * ai[q]).astype(np.complex64)[ok]
+    return y
+
+
+def _one_chain(v, taps, d, kout):
+    """One output a thread: the chain over t = 0 .. T-1 of the kernel this
+    design replaced, with the same emulated FMA."""
+    idx = np.arange(kout) * d
+    ar = np.zeros(kout, np.float32)
+    ai = np.zeros(kout, np.float32)
+    for t, h in enumerate(taps):
+        ar = _fma32(v[idx + t].real, h, ar)
+        ai = _fma32(v[idx + t].imag, h, ai)
+    return (ar + 1j * ai).astype(np.complex64)
+
+
+# (D, T, kout, tile, R, S): the WFM and D=50 shapes at small kout, T < D,
+# T a multiple of D, each R and S, ragged last tiles
+SCHEDULE_CASES = ((10, 79, 700, 128, 4, 1), (50, 81, 300, 64, 2, 1),
+                  (50, 801, 200, 256, 4, 1), (50, 7, 100, 32, 1, 1),
+                  (4, 243, 333, 128, 2, 2), (9, 99, 130, 256, 4, 2),
+                  (10, 1023, 150, 64, 1, 2), (10, 79, 1000, 512, 4, 2))
+
+
+@pytest.mark.parametrize("d,t,kout,tile,r,g", SCHEDULE_CASES)
+def test_fir_decimate_schedule_equals_one_chain_bit_for_bit(d, t, kout,
+                                                            tile, r, g):
+    """The kernel's schedule gives every output the bits of the one-chain
+    order, and matches float64."""
+    tail, x, taps = _inputs(d, t, kout, seed=5)
+    v = np.concatenate([tail, x])
+    y = _k2_schedule(v, taps, d, kout, tile, r, g)
+    assert np.array_equal(y.view(np.uint32),
+                          _one_chain(v, taps, d, kout).view(np.uint32))
+    assert _snr_db(_ref64(v, taps, d, kout), y) > 120
+    assert fir_cuda.smem_bytes(t, d, tile, r) <= fir_cuda.MAX_SMEM
 
 
 # --------------------------------------------------------------------------
