@@ -9,10 +9,11 @@ opt-in shared-memory shapes:
    middle of a buffer whose head and tail hold a sentinel; the sentinel
    must survive and the output must equal the wrapper's bit for bit (an
    out-of-range store shows here); K1/K2 also under the smallest and the
-   largest tile the kernel takes at each shape;
+   largest tile the kernel takes at each shape, and so is K5;
 2. repeats: K1 and K2 (the WFM front end, paths D's and C's shapes, the
    BASELINE headline), K3 forward and inverse (paths B's and
-   C's shapes and the 128 KB frame), K4 (path A's) and K5 (path P's) run
+   C's shapes and the 128 KB frame), K4 (path A's) and K5 (its nine
+   shapes) run
    ``--repeats`` times on one input, and one chunk of path A's
    channelizer a fifth as often; every result must equal the first bit for bit
    (a shared-memory race shows as run-to-run differences);
@@ -160,25 +161,31 @@ def run(torch, repeats: int) -> int:
                 fastddc_cuda.fastddc_inv(s_in, *mats, m)), repeats)
 
     # K5: path P's tail-extended chunk, the BASELINE headline, NFM's front
-    # end, m = 1 (T <= D), ragged kout and a kout below one tile
+    # end, m = 1 (T <= D), ragged kout, a kout below one tile and odd D with
+    # odd M (a tap table of an odd number of floats), each under the
+    # planner's launch and under the smallest and largest tile the kernel
+    # takes there, and repeated
     poly_cases = ((10, 1023, cs.CHUNK // 10, 1030 + cs.CHUNK),
                   (10, 1023, 262_144, 0), (50, 81, 48_000, 0),
                   (10, 7, 240_000, 0), (50, 49, 1001, 0), (50, 801, 777, 0),
-                  (50, 81, 13, 0))
+                  (50, 81, 13, 0), (3, 79, 5000, 0), (1, 33, 4000, 0))
     for d, t, kout, n in poly_cases:
         n = n or (kout - 1) * d + t
         xcat = cn(n)
         taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
-        tile = fir_cuda.poly_tile(t, d)
         y = fir_cuda.fir_decimate_poly(xcat, taps, d, kout)
-        guarded(f"fir_poly D={d} T={t} kout={kout}", y,
-                lambda p, s: lib.csdr_fir_poly(xcat.data_ptr(), n,
-                                               taps.data_ptr(), t, d, kout,
-                                               tile, p, s))
-        if n == 1030 + cs.CHUNK:
-            repeat(f"fir_poly D={d} T={t} kout={kout} (path P)",
-                   lambda: fir_cuda.fir_decimate_poly(xcat, taps, d, kout),
-                   repeats)
+        every = fir_cuda.poly_plans(t, d, kout)
+        for plan in (fir_cuda.poly_plan(t, d, kout),
+                     min(every, key=lambda p: p["tile"]),
+                     max(every, key=lambda p: p["tile"])):
+            guarded(f"fir_poly D={d} T={t} kout={kout} tile {plan['tile']} "
+                    f"R={plan['per_thread']} G={plan['groups']}", y,
+                    lambda p, s, pl=plan: lib.csdr_fir_poly(
+                        xcat.data_ptr(), n, taps.data_ptr(), t, d, kout,
+                        pl["tile"], pl["per_thread"], pl["groups"], p, s))
+        repeat(f"fir_poly D={d} T={t} kout={kout}",
+               lambda: fir_cuda.fir_decimate_poly(xcat, taps, d, kout),
+               repeats)
 
     # path A: one chunk, repeatedly from a fresh state; then path C
     ddc = fd.fastddc_init(0.05, 16)

@@ -18,7 +18,10 @@ prints one JSON line per phase and exits non-zero at the first failure:
    channels x 512 frames (D=16), also with TF32 on globally (bit for bit
    the same) and with its 3xTF32 tensor-core bound beside the FP32 one; then
    the polyphase FIR (K5) at path P's shape and four others, each also
-   against K2 on the same input, and K2 at path D's D=50/T=81.
+   against K2 on the same input, with its launch, its share of the bound
+   and conv1d's time over its own, and on a stream with a NaN that only
+   tap rows m >= M would reach (every output finite, equal to the plain
+   version); and K2 at path D's D=50/T=81.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -222,11 +225,14 @@ def phase_env(torch, build):
     require(all(lib.csdr_fastddc_inv_smem_bytes(t["kc"], t["mt"], t["jc"])
                 == t["smem"] for t in map(inv_tiles, INV_PLANS)),
             "fastddc_inv tiles differ from fastddc_cuda.plan_tiles")
-    require(lib.csdr_fir_poly_outputs_per_item() == fir_cuda.POLY_R
-            and all(lib.csdr_fir_poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
-                    == fir_cuda.poly_smem_bytes(t, d, fir_cuda.poly_tile(t, d))
-                    for d, t in ((10, 1023), (50, 81), (50, 801), (10, 7))),
-            "fir_poly tiles differ from fir_cuda's")
+    poly_shapes = ((1023, 10, CHUNK // 10), (81, 50, 48_000),
+                   (801, 50, 48_061), (7, 10, 240_000), (79, 3, 5000),
+                   (33, 1, 4000))
+    require(all(lib.csdr_fir_poly_smem_bytes(
+                t, d, p["tile"], p["per_thread"], p["groups"]) == p["smem"]
+                for t, d, k in poly_shapes
+                for p in fir_cuda.poly_plans(t, d, k)),
+            "fir_poly shared memory differs from fir_cuda.poly_smem_bytes")
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc.stdout.strip().splitlines()[-1],
@@ -916,6 +922,7 @@ def poly_case(torch, d, t, kout, seed, xlen=None):
     sets, pick = _timed_sets(lambda i: torch.randn(
         n, dtype=torch.complex64, device=dev, generator=gen))
     taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
+    plan = fir_cuda.poly_plan(t, d, kout)
     yk = fir_cuda.fir_decimate_poly(sets[0], taps, d, kout)
     yp = fir_cuda.fir_decimate_poly_plain(sets[0], taps, d, kout)
     y2 = fir_cuda.fir_decimate(sets[0][:0], sets[0], taps, d, kout)
@@ -947,15 +954,18 @@ def poly_case(torch, d, t, kout, seed, xlen=None):
     return {
         "name": "fir_poly", "route": "cuda", "source": POLY_SOURCE,
         "replaces": "csdr_tpu/kernels/fir_pallas.py:37",
-        "shape": {"D": d, "T": t, "kout": kout, "len": n,
-                  "tile": fir_cuda.poly_tile(t, d)},
+        "shape": {"D": d, "T": t, "kout": kout, "len": n},
+        "plan": {k: plan[k] for k in ("tile", "per_thread", "groups",
+                                      "threads", "smem", "blocks",
+                                      "blocks_per_sm")},
         "snr_db": snr, "snr_bar_db": SNR_BAR, "snr_vs_k2_db": snr_k2,
         "snr_vs_k2_bar_db": POLY_K2_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "bound_share": max(t_bytes, t_ops) / ms,
+        "library_ms": lib_ms, "library_over_kernel": lib_ms / ms,
         "library_call": "torch.nn.functional.conv1d(stride=D), cuDNN, "
                         "TF32 off, on (re, im) planes",
         "bytes": nbytes, "flops": flops,
@@ -978,7 +988,35 @@ def phase_poly_kernels(torch):
                               0.0, 0.0, 26), path="D")
     for c in [case_p] + others + [case_d]:
         emit("kernels", **c)
+    poly_nan_case(torch)
     return [case_p, case_d]
+
+
+def poly_nan_case(torch):
+    """K5 reads exactly its M tap rows: a NaN in a sample that only rows
+    m >= M would reach (column kout+1 of a stream of (kout + 8)*D samples
+    at D=50/T=81, M=2) leaves every output finite and equal to the plain
+    version."""
+    from csdr_tpu_torch import firdes
+    from csdr_tpu_torch.kernels import fir_cuda
+
+    d, t, kout = 50, 81, 48_000
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn((kout + 8) * d, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    x[(kout + 1) * d] = complex(float("nan"), float("nan"))
+    taps = torch.from_numpy(firdes.firdes_lowpass_f(t, 0.5 / d)).to(dev)
+    yk = fir_cuda.fir_decimate_poly(x, taps, d, kout).cpu().numpy()
+    yp = fir_cuda.fir_decimate_poly_plain(x, taps, d, kout).cpu().numpy()
+    finite = bool(np.all(np.isfinite(yk)))
+    snr = snr_db(yp, yk) if finite else float("nan")
+    emit("kernels", name="fir_poly", check="no row past M",
+         shape={"D": d, "T": t, "kout": kout, "len": len(x),
+                "nan_at": (kout + 1) * d},
+         finite=finite, snr_db=snr, snr_bar_db=SNR_BAR)
+    require(finite, "fir_poly: a NaN only rows m >= M read reached an output")
+    require(snr > SNR_BAR, f"fir_poly NaN case: {snr:.1f} dB vs plain")
 
 
 def phase_poly_path(torch):

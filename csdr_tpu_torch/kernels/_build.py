@@ -40,14 +40,13 @@ _SIGNATURES = {
     "csdr_ifft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _VP],
-    "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _VP, _VP],
+    "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _I, _I, _VP, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {
     "csdr_fir_decimate_smem_bytes": [_I, _I, _I, _I],
     "csdr_fastddc_inv_smem_bytes": [_I, _I, _I],
-    "csdr_fir_poly_smem_bytes": [_I, _I, _I],
-    "csdr_fir_poly_outputs_per_item": [],
+    "csdr_fir_poly_smem_bytes": [_I, _I, _I, _I, _I],
     "csdr_fft_ko_pass_bits": [_I, _I],
     "csdr_fft_ko_frames_per_block": [_I, _LL],
 }

@@ -29,9 +29,15 @@ measurements it rests on).
 
 K5 (``_fir_poly_kernel``, the direct polyphase FIR that csdr_tpu keeps as
 its exact-f32 reference form) is ``csrc/fir_poly.cu``:
-:func:`fir_decimate_poly` over an already tail-extended stream, summed per
-phase and then across phases, and its dispatcher
-:func:`fir_decimate_poly_or_plain`.
+:func:`fir_decimate_poly` over an already tail-extended stream, each
+output one f32 chain per phase over exactly M = ceil(T/D) tap rows, then
+the D chains added in phase order, and its dispatcher
+:func:`fir_decimate_poly_or_plain`.  It bounds like K2 (bytes at short
+taps, FP32 FMA at T=1023) and takes K2's phase-major window and
+``cp.async`` staging; a thread walks the columns of its R consecutive
+outputs phase by phase (G phases side by side), one window load and one
+tap broadcast serving 2R FMA, and keeps the phase sums in registers.
+:func:`poly_plan` sizes R, G and the block to the shape on the host.
 
 The wrappers launch the kernel for CUDA tensors, or raise; they take the
 plain version (``*_plain``, the same function in torch ops) only for CPU
@@ -55,7 +61,9 @@ GROUPS = (1, 2)            # runs of R outputs a thread: S there
 THREADS = tuple(range(32, 513, 32))   # threads a block: kMaxThreads there
 MIX_STAGERS = 2            # K1's staging threads a summing one: kMixStagers
 
-POLY_R = 8                 # outputs per work item: kR in csrc/fir_poly.cu
+POLY_PER_THREAD = (8, 4, 1)      # K5's outputs a thread: R in fir_poly.cu
+POLY_GROUPS = {1: (1, 4), 4: (2,), 8: (2,)}  # its phases at once, by R
+POLY_THREADS = (8, 16) + THREADS  # K5's threads a block
 
 LAUNCHES = {"shift_fir_decimate": 0, "fir_decimate": 0, "fir_poly": 0}
 
@@ -232,28 +240,94 @@ def shift_fir_decimate(tail: torch.Tensor, x: torch.Tensor,
 # K5: the direct polyphase form
 # ---------------------------------------------------------------------------
 
-def poly_smem_bytes(taps_len: int, decimation: int, tile: int) -> int:
-    """Shared memory of one K5 block of ``tile`` outputs: the taps as an
-    (Mp, D) matrix, Mp = ceil(T/D) rounded up to POLY_R, the input window
-    of tile + Mp columns, and the per-phase sums."""
+def poly_smem_bytes(taps_len: int, decimation: int, tile: int,
+                    per_thread: int, groups: int = 1) -> int:
+    """Shared memory of one K5 block of ``tile`` outputs, ``per_thread`` (R)
+    a thread, ``groups`` (G) phases at once: the taps as an (M, D) matrix
+    (D rounded up to 4 where G = 4), rounded up to 4 floats so that the
+    window behind it is 16-byte aligned, and the phase-major window of D
+    rows of ``tile + M - 1`` columns, in R sub-rows with an odd row stride
+    (M = ceil(T/D))."""
+    d, r, g = int(decimation), int(per_thread), int(groups)
+    m = -(-int(taps_len) // d)
+    sub = -(-(int(tile) + m - 1) // r)
+    table = (m * ((d + 3) & ~3 if g == 4 else d) + 3) & ~3
+    return 4 * table + 8 * d * ((r * sub) | 1)
+
+
+def _poly_plan(taps_len, d, r, g, nt, kout):
+    tile = nt * r
+    smem = poly_smem_bytes(taps_len, d, tile, r, g)
+    return {"tile": tile, "per_thread": r, "groups": g, "threads": nt,
+            "smem": smem, "blocks": -(-max(int(kout), 1) // tile),
+            "blocks_per_sm": min(SM_SMEM // (smem + 1024), 2048 // nt, 32)}
+
+
+def poly_plans(taps_len: int, decimation: int, kout: int) -> list:
+    """Every launch K5 takes at (T, D): each (R, G, threads) of
+    POLY_PER_THREAD x POLY_GROUPS x POLY_THREADS whose block fits in
+    shared memory."""
+    t_len, d = int(taps_len), int(decimation)
+    return [_poly_plan(t_len, d, r, g, nt, kout) for r in POLY_PER_THREAD
+            for g in POLY_GROUPS[r] for nt in POLY_THREADS
+            if poly_smem_bytes(t_len, d, nt * r, r, g) <= MAX_SMEM]
+
+
+def poly_rg(taps_len: int, decimation: int) -> tuple:
+    """K5's (R, G) for (T, D): R outputs a thread, G phases summed at once.
+    One window read and one tap broadcast serve R complex FMA pairs, but a
+    thread's outputs hold R*D samples of window between them: from D = 32
+    on, or below 8 tap rows, R = 1; else R = 8 from 32 rows, R = 4 below.
+    G phases side by side put G times the loads in flight where R is small
+    (tools/k5_phases.py, PERF.md)."""
     d = int(decimation)
-    mp = -(-(-(-taps_len // d)) // POLY_R) * POLY_R
-    return 4 * mp * d + 8 * (tile + mp) * d + 8 * d * (tile + 1)
+    m = -(-int(taps_len) // d)
+    r = 1 if d >= 32 or m < 8 else 8 if m >= 32 else 4
+    return r, POLY_GROUPS[r][-1]
 
 
-def poly_tile(taps_len: int, decimation: int) -> int:
-    """Outputs per K5 block: the largest power of two up to 1024 whose block
-    fits in half the opt-in shared memory (two blocks per SM), else the
-    smallest tile if it fits in all of it.  Raises when none fits."""
-    for tk in (1024, 512, 256, 128, 64, 32, 16, POLY_R):
-        if poly_smem_bytes(taps_len, decimation, tk) <= MAX_SMEM // 2:
-            return tk
-    if poly_smem_bytes(taps_len, decimation, POLY_R) <= MAX_SMEM:
-        return POLY_R
-    raise ValueError(
-        f"fir_poly kernel: D={decimation} T={taps_len} needs "
-        f"{poly_smem_bytes(taps_len, decimation, POLY_R)} B of shared "
-        f"memory > {MAX_SMEM}")
+def poly_plan(taps_len: int, decimation: int, kout: int,
+              sms: int = SMS) -> dict:
+    """The K5 launch for (T, D, kout): ``tile`` outputs a block,
+    ``per_thread`` (R) consecutive outputs a thread, ``groups`` (G) phases
+    summed at once, ``threads`` a block, ``smem`` bytes, ``blocks`` in the
+    grid and the ``blocks_per_sm`` that shared memory and threads let one
+    of ``sms`` SMs hold.  R and G from :func:`poly_rg` (or the first of
+    (1, 4), (1, 1) that fits); then, where kout fills the SMs, the
+    fewest warps on the busiest warp scheduler, at least two blocks an SM
+    and the least halo (the M - 1 window columns the next block stages
+    again) a tile, else the most blocks; then the smallest block
+    (tools/k5_phases.py's sweep, PERF.md).  Raises ValueError for a shape
+    no launch fits."""
+    t_len, d = int(taps_len), int(decimation)
+    fits = poly_plans(t_len, d, kout)
+    if not fits:
+        raise ValueError(
+            f"fir_poly kernel: D={d} T={t_len} needs "
+            f"{poly_smem_bytes(t_len, d, POLY_THREADS[0], 1)} B of shared "
+            f"memory > {MAX_SMEM}")
+    r, g = poly_rg(t_len, d)
+    m = -(-t_len // d)
+    # the (R, G) of poly_rg, else the first of these that fits
+    for rg in ((r, g), (1, 4), (1, 1)):
+        mine = [p for p in fits if (p["per_thread"], p["groups"]) == rg]
+        if mine:
+            break
+
+    def rank(p):
+        if p["blocks"] < sms:             # kout too small to fill the SMs
+            return (1, -p["blocks"], p["threads"] < 128, p["threads"])
+        per_sm = -(-p["blocks"] // sms)   # blocks of the busiest SM
+        # warps of its busiest scheduler, over all waves: the sum is
+        # issue-bound per scheduler, so 2.25 warps a scheduler take as
+        # long as 3
+        warps = -(-per_sm * -(-p["threads"] // 32) // 4)
+        halo = round((m - 1) / p["tile"], 3)  # columns staged twice
+        return (0, warps, p["blocks_per_sm"] < 2, halo, p["threads"])
+    return min(mine, key=rank)
+
+
+_poly_planned = functools.lru_cache(maxsize=256)(poly_plan)
 
 
 def fir_decimate_poly(xcat: torch.Tensor, taps: torch.Tensor,
@@ -261,8 +335,8 @@ def fir_decimate_poly(xcat: torch.Tensor, taps: torch.Tensor,
     """K5: ``kout`` outputs ``y[k] = sum_t xcat[k*D + t] * taps[t]`` of the
     tail-extended stream ``xcat`` (complex64) through real ``taps``
     (float32), summed per phase over the tap rows and then across the
-    phases.  CUDA tensors launch the kernel (a shape whose block does not
-    fit in shared memory raises); CPU tensors take
+    phases.  CUDA tensors launch the kernel with :func:`poly_plan`'s
+    launch (a shape no block fits raises); CPU tensors take
     :func:`fir_decimate_poly_plain`."""
     for name, t, dt in (("xcat", xcat, torch.complex64),
                         ("taps", taps, torch.float32)):
@@ -279,14 +353,15 @@ def fir_decimate_poly(xcat: torch.Tensor, taps: torch.Tensor,
                          f"samples; xcat has {xcat.shape[0]}")
     if not xcat.is_cuda:
         return fir_decimate_poly_plain(xcat, taps, d, kout)
-    tile = poly_tile(t_len, d)
+    plan = _poly_planned(t_len, d, kout, _sm_count(xcat.device.index))
     if not (xcat.is_contiguous() and taps.is_contiguous()):
         raise ValueError("fir_poly: xcat and taps must be contiguous")
     y = torch.empty(kout, dtype=torch.complex64, device=xcat.device)
     stream = torch.cuda.current_stream(xcat.device).cuda_stream
     code = _build.lib().csdr_fir_poly(xcat.data_ptr(), xcat.shape[0],
-                                      taps.data_ptr(), t_len, d, kout, tile,
-                                      y.data_ptr(), stream)
+                                      taps.data_ptr(), t_len, d, kout,
+                                      plan["tile"], plan["per_thread"],
+                                      plan["groups"], y.data_ptr(), stream)
     _build.check(code, "fir_poly")
     LAUNCHES["fir_poly"] += 1
     return y

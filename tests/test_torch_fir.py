@@ -306,9 +306,11 @@ def test_fir_poly_refuses_bad_calls():
                            x, taps.tolist(), 50, 19))
     with pytest.raises(TypeError, match="float32"):
         fir_cuda.fir_decimate_poly_or_plain(x, taps.double(), 50, 1)
-    # a block of the smallest tile must fit in the opt-in shared memory
-    assert fir_cuda.poly_tile(1023, 10) == 512
-    assert fir_cuda.poly_tile(801, 50) == 64
-    assert fir_cuda.poly_tile(81, 50) == 128
+    # the planner's launches at the path shapes; a block of the smallest
+    # tile must fit in the opt-in shared memory
+    assert [(p["tile"], p["per_thread"]) for p in (
+        fir_cuda.poly_plan(1023, 10, 240_000),
+        fir_cuda.poly_plan(801, 50, 48_061),
+        fir_cuda.poly_plan(81, 50, 48_000))] == [(1024, 8), (192, 1), (192, 1)]
     with pytest.raises(ValueError, match="shared memory"):
-        fir_cuda.poly_tile(80_000, 2000)
+        fir_cuda.poly_plan(80_000, 2000, 100)

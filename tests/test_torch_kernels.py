@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from csdr_tpu_torch import firdes
-from csdr_tpu_torch.kernels import fastddc_cuda, fft_cuda, fir_cuda
+from csdr_tpu_torch.kernels import _build, fastddc_cuda, fft_cuda, fir_cuda
 
 torch.set_num_threads(2)
 
@@ -308,11 +308,239 @@ def test_fir_poly_plain_matches_float64(d, t, kout):
     assert y.shape == (kout,) and _snr_db(ref, y) > 120
 
 
+def _poly_chains(v, taps, d, kout):
+    """The contract's order with the same emulated FMA: per phase p one
+    chain from +0 over the M tap rows m = 0 .. M-1, then the D chains
+    added in the order p = 0 .. D-1."""
+    m_rows = -(-len(taps) // d)
+    h = np.zeros(m_rows * d, np.float32)
+    h[: len(taps)] = taps
+    # the zero taps of the last row reach up to (kout + M - 1)*D samples
+    v = np.concatenate([v, np.zeros(max(0, (kout + m_rows - 1) * d - len(v)),
+                                    np.complex64)])
+    y = np.zeros(kout, np.complex64)
+    for p in range(d):
+        ar = np.zeros(kout, np.float32)
+        ai = np.zeros(kout, np.float32)
+        for m in range(m_rows):
+            x = v[(np.arange(kout) + m) * d + p]
+            ar = _fma32(x.real, h[m * d + p], ar)
+            ai = _fma32(x.imag, h[m * d + p], ai)
+        y = y + (ar + 1j * ai).astype(np.complex64) if p else \
+            (ar + 1j * ai).astype(np.complex64)
+    return y
+
+
+def _poly_layout(t, d, tile, r, g):
+    """K5's block layout, read off the wrapper's shared-memory sum: the tap
+    table's row stride, the window's sub-row and row stride, and the byte
+    offset of the window (the sum less the window's D rows)."""
+    m_rows = -(-t // d)
+    sub = -(-(tile + m_rows - 1) // r)
+    rs = (r * sub) | 1
+    smem = fir_cuda.poly_smem_bytes(t, d, tile, r, g)
+    return {"dp": (d + 3) & ~3 if g == 4 else d, "sub": sub, "rs": rs,
+            "smem": smem, "window_at": smem - 8 * d * rs}
+
+
+def _k5_schedule(v, taps, d, kout, tile, r, g):
+    """K5's schedule in numpy, block by block, over one float32 buffer laid
+    out as the block's shared memory and filled with NaN first (a word the
+    kernel leaves unwritten may hold anything): the taps in exactly M rows
+    of DP at the front, the phase-major window behind them (row p, sub-row
+    c % R, position c / R, odd row stride, zero past the stream).  Each
+    thread's R outputs walk the columns c = 0 .. M + R - 2 of G phases side
+    by side, loading as the kernel does, unguarded: a window word and the
+    tap of row c a column (4 aligned taps at G = 4), the phase past D of a
+    last group included.  Output q takes tap row c - q where it lies in
+    [0, M), and the chains of phases below D go into running sums from -0.
+    A load past the buffer raises, a window load past its sub-row fails,
+    and a product with an unwritten word turns its output NaN.  Returns
+    complex64 outputs."""
+    t_len = len(taps)
+    m_rows = -(-t_len // d)
+    nt = tile // r
+    lay = _poly_layout(t_len, d, tile, r, g)
+    dp, sub, rs, at = lay["dp"], lay["sub"], lay["rs"], lay["window_at"]
+    assert at % 16 == 0 and 4 * m_rows * dp <= at < 4 * m_rows * dp + 16
+    y = np.zeros(kout, np.complex64)
+    lanes = np.arange(nt)
+    for b in range(-(-kout // tile)):
+        sm = np.full(lay["smem"] // 4, np.nan, np.float32)
+        w = sm[at // 4:].view(np.complex64)
+        assert len(w) == d * rs
+        s0 = b * tile * d
+        i = np.arange((tile + m_rows - 1) * d)
+        c, p = np.divmod(i, d)
+        w[p * rs + (c % r) * sub + c // r] = np.where(
+            s0 + i < len(v), v[np.minimum(s0 + i, len(v) - 1)], 0)
+        i = np.arange(m_rows * dp)
+        m, p = np.divmod(i, dp)
+        ok = (p < d) & (m * d + p < t_len)
+        sm[i] = np.where(ok, taps[np.minimum(m * d + p, t_len - 1)], 0)
+        sr = np.full((r, nt), -0.0, np.float32)
+        si = np.full((r, nt), -0.0, np.float32)
+        for p0 in range(0, d, g):
+            for gi in range(g):
+                p = min(p0 + gi, d - 1)
+                ar = np.zeros((r, nt), np.float32)
+                ai = np.zeros((r, nt), np.float32)
+                h = {}
+                for c0 in range(0, m_rows + r - 1, r):
+                    pos = c0 // r + lanes
+                    assert pos[-1] < sub
+                    if g == 4:
+                        assert (c0 * dp + p0) % 4 == 0
+                    xs = [w[p * rs + cc * sub + pos] for cc in range(r)]
+                    for cc in range(r):
+                        h[c0 + cc] = sm[(c0 + cc) * dp + p0 + gi]
+                    for cc in range(r):
+                        for q in range(r):
+                            if 0 <= c0 + cc - q < m_rows:
+                                tap = h[c0 + cc - q]
+                                ar[q] = _fma32(xs[cc].real, tap, ar[q])
+                                ai[q] = _fma32(xs[cc].imag, tap, ai[q])
+                if p0 + gi < d:
+                    sr, si = sr + ar, si + ai
+        for q in range(r):
+            k = b * tile + lanes * r + q
+            ok = k < kout
+            y[k[ok]] = (sr[q] + 1j * si[q]).astype(np.complex64)[ok]
+    return y
+
+
+# (D, T, kout, tile, R, G): POLY_CASES under a planned launch, then other
+# tiles, R and G at T a multiple of D, m = 1, ragged last tiles, and odd D
+# with odd M (a tap table of an odd number of floats)
+POLY_SCHEDULE_CASES = tuple(
+    (d, t, kout) + (lambda p: (p["tile"], p["per_thread"], p["groups"]))(
+        fir_cuda.poly_plan(t, d, kout, sms=4))
+    for d, t, kout in POLY_CASES) + (
+    (10, 1023, 300, 128, 4, 2), (25, 775, 100, 64, 8, 2),
+    (10, 7, 90, 32, 4, 2), (4, 243, 333, 256, 8, 2), (9, 99, 130, 64, 1, 1),
+    (50, 81, 200, 128, 8, 2), (3, 79, 200, 32, 4, 2), (1, 33, 150, 64, 8, 2),
+    (5, 121, 90, 32, 1, 4))
+
+
+@pytest.mark.parametrize("d,t,kout,tile,r,g", POLY_SCHEDULE_CASES)
+def test_fir_poly_schedule_equals_contract_bit_for_bit(d, t, kout, tile, r,
+                                                       g):
+    """K5's schedule forms each output's products with the M tap rows only,
+    in the contract's order: bit for bit the per-phase chains and the
+    in-order phase sum, and > 120 dB against float64."""
+    v, taps = _poly_inputs(d, t, kout, seed=t + 1)
+    y = _k5_schedule(v, taps, d, kout, tile, r, g)
+    assert np.array_equal(y.view(np.uint32),
+                          _poly_chains(v, taps, d, kout).view(np.uint32))
+    assert _snr_db(_ref64(v, taps, d, kout), y) > 120
+    assert fir_cuda.poly_smem_bytes(t, d, tile, r, g) <= fir_cuda.MAX_SMEM
+
+
+def test_fir_poly_schedule_reads_no_row_past_m():
+    """A NaN in a column that only rows m >= M would reach (column kout+1
+    of a stream padded for 8-row tiles) leaves every output finite."""
+    d, t, kout = 50, 81, 40
+    v, taps = _poly_inputs(d, t, kout, seed=3)
+    v = np.concatenate([v, np.zeros((kout + 8) * d - len(v), np.complex64)])
+    v[(kout + 1) * d] = np.nan
+    for tile, r, g in ((32, 1, 4), (64, 4, 2), (40, 1, 1)):
+        y = _k5_schedule(v, taps, d, kout, tile, r, g)
+        assert np.all(np.isfinite(y))
+        assert np.array_equal(y, _poly_chains(v, taps, d, kout))
+
+
+def test_fir_poly_window_is_aligned_under_every_launch():
+    """Under every launch K5 takes, at odd and even D and M, the window
+    starts 16-byte aligned just past the tap table (its 8-byte copies,
+    stores and loads fault on the card otherwise), and the block's bytes
+    are the planner's."""
+    for t in (1, 7, 33, 79, 81, 99, 121, 775, 801, 1023):
+        for d in (1, 2, 3, 5, 9, 10, 25, 50, 101):
+            m_rows = -(-t // d)
+            for plan in fir_cuda.poly_plans(t, d, 1000):
+                lay = _poly_layout(t, d, plan["tile"], plan["per_thread"],
+                                   plan["groups"])
+                table = 4 * m_rows * lay["dp"]
+                assert lay["window_at"] % 16 == 0, (t, d, plan)
+                assert table <= lay["window_at"] < table + 16, (t, d, plan)
+                assert lay["smem"] == plan["smem"]
+
+
+def _parent_poly_smem(t, d):
+    """Shared memory of the smallest block (8 outputs) of the kernel with
+    tap rows padded to a multiple of 8 that this design replaced."""
+    mp = -(-(-(-t // d)) // 8) * 8
+    return 4 * mp * d + 8 * (8 + mp) * d + 8 * d * 9
+
+
+# (T, D, kout): the path shapes, kout = 1, kout = one planned tile + 1,
+# m = 1, T a multiple of D
+POLY_PLAN_CASES = ((1023, 10, 240_000), (1023, 10, 262_144),
+                   (81, 50, 48_000), (7, 10, 240_000), (801, 50, 48_061),
+                   (1023, 10, 1), (81, 50, 1), (7, 10, 1), (800, 50, 5000),
+                   (50, 50, 77), (1, 1, 10))
+
+
+@pytest.mark.parametrize("t,d,kout", POLY_PLAN_CASES)
+def test_fir_poly_plan_covers_fits_and_fills(t, d, kout):
+    plan = fir_cuda.poly_plan(t, d, kout)
+    tile, r, nt = plan["tile"], plan["per_thread"], plan["threads"]
+    assert (r, plan["groups"]) == fir_cuda.poly_rg(t, d) and tile == nt * r
+    assert nt in fir_cuda.POLY_THREADS
+    assert plan["blocks"] * tile >= kout > (plan["blocks"] - 1) * tile
+    assert plan["smem"] == fir_cuda.poly_smem_bytes(
+        t, d, tile, r, plan["groups"]) <= fir_cuda.MAX_SMEM
+    assert plan["blocks_per_sm"] >= 1
+    # a plan one tile larger is covered by one more block
+    more = fir_cuda.poly_plan(t, d, tile + 1)
+    assert more["blocks"] * more["tile"] >= tile + 1
+    if kout >= 48_000:
+        # the path shapes: every SM has a block, the last wave > 3/4 full
+        assert plan["blocks"] >= fir_cuda.SMS
+        fill = plan["blocks"] / (fir_cuda.waves(plan) * fir_cuda.SMS
+                                 * plan["blocks_per_sm"])
+        assert fill > 0.75
+
+
+def test_fir_poly_plan_takes_every_shape_the_parent_took():
+    """No (D, T) that the 8-row-padded kernel took is refused; at T=801 the
+    largest D is where the smallest block, 8 outputs, no longer fits."""
+    for d in (1, 2, 3, 10, 50, 100, 300, 900, 1001):
+        for t in (1, 7, 81, 801, 1023, 4095, 19_000):
+            if _parent_poly_smem(t, d) <= fir_cuda.MAX_SMEM:
+                fir_cuda.poly_plan(t, d, 1000)
+    largest = max(d for d in range(1, 5000)
+                  if fir_cuda.poly_smem_bytes(801, d, 8, 1)
+                  <= fir_cuda.MAX_SMEM)
+    assert largest >= max(d for d in range(1, 5000)
+                          if _parent_poly_smem(801, d) <= fir_cuda.MAX_SMEM)
+    assert fir_cuda.poly_plan(801, largest, 100)["tile"] == 8
+    for d in (largest + 1, 5000):
+        with pytest.raises(ValueError, match="shared memory"):
+            fir_cuda.poly_plan(801, d, 100)
+
+
+def _poly_launch(xcat, taps, d, kout, plan):
+    """K5 launched with ``plan`` (one of fir_cuda.poly_plans' dicts) in
+    place of the planner's, straight through the built library."""
+    y = torch.empty(kout, dtype=torch.complex64, device=xcat.device)
+    code = _build.lib().csdr_fir_poly(
+        xcat.data_ptr(), xcat.shape[0], taps.data_ptr(), taps.shape[0], d,
+        kout, plan["tile"], plan["per_thread"], plan["groups"], y.data_ptr(),
+        torch.cuda.current_stream(xcat.device).cuda_stream)
+    _build.check(code, "fir_poly")
+    return y
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,t,kout", POLY_CASES + ((10, 1023, 262_144),))
+@pytest.mark.parametrize("d,t,kout", POLY_CASES + (
+    (10, 1023, 262_144), (10, 1023, 240_000), (50, 81, 48_000),
+    (3, 79, 5000), (1, 33, 4000)))
 def test_cuda_fir_poly_matches_plain(cuda, d, t, kout):
     """K5 against its plain version (>= 110 dB) and against float64; a
-    stream with a carried tail in front through the dispatcher."""
+    stream with a carried tail in front through the dispatcher; and bit
+    for bit under other launches (odd D with odd M among the shapes: a tap
+    table of an odd number of floats in front of the window)."""
     v, taps = _poly_inputs(d, t, kout, seed=t)
     vx, tx = torch.from_numpy(v).to(cuda), torch.from_numpy(taps).to(cuda)
     n0 = fir_cuda.LAUNCHES["fir_poly"]
@@ -325,6 +553,28 @@ def test_cuda_fir_poly_matches_plain(cuda, d, t, kout):
     assert _snr_db(_ref64(v, taps, d, kout), yk.cpu().numpy()) > 110
     assert torch.equal(yk, yd) and torch.equal(yk, yd_seq)
     assert fir_cuda.LAUNCHES["fir_poly"] == n0 + 3
+    chosen = fir_cuda.poly_plan(t, d, kout)
+    others = [p for p in fir_cuda.poly_plans(t, d, kout)
+              if p["threads"] in (8, 64, 512) and p != chosen]
+    assert others
+    for plan in others:
+        assert torch.equal(_poly_launch(vx, tx, d, kout, plan), yk), plan
+
+
+@pytest.mark.cuda
+def test_cuda_fir_poly_reads_only_its_rows(cuda):
+    """A NaN in a sample that only tap rows m >= M would reach (column
+    kout+1 of a stream of (kout + 8)*D samples at D=50/T=81, M=2): every
+    output stays finite and equals the plain version."""
+    d, t, kout = 50, 81, 48_000
+    v, taps = _poly_inputs(d, t, kout, seed=9)
+    v = np.concatenate([v, np.zeros((kout + 8) * d - len(v), np.complex64)])
+    v[(kout + 1) * d] = np.nan
+    vx, tx = torch.from_numpy(v).to(cuda), torch.from_numpy(taps).to(cuda)
+    yk = fir_cuda.fir_decimate_poly(vx, tx, d, kout)
+    yp = fir_cuda.fir_decimate_poly_plain(vx, tx, d, kout)
+    assert bool(torch.isfinite(yk).all()) and bool(torch.isfinite(yp).all())
+    assert _snr_db(yp.cpu().numpy(), yk.cpu().numpy()) > 110
 
 
 @pytest.mark.cuda
