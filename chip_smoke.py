@@ -60,6 +60,23 @@ prints one JSON line per phase and exits non-zero at the first failure:
       chunk, the tone, card equals CPU on 2 chunks;
    then the AGC's launches and host syncs per chunk (torch.profiler).
 8. throughput of D, E and F as for C.
+9. path G/G', BASELINE config 5 whole through
+   models/multichannel.build_ddc_bpsk31_bank (64 channels, sps 256): 8
+   channels tuned to 8 BPSK31 transmissions 0.1 apart, 56 at rates drawn
+   as bench.py's flagship draws them, noise 0.01 per part:
+   G  D=50, 3 chunks of 3200 frames: K3 forward once per chunk;
+   G' D=16, 3 chunks of 1024 frames: K4 once per chunk;
+   each BPSK31 channel decodes at BER < 0.02 over > 200 bits; the channel
+   streams equal the CPU's (each BPSK31 channel >= 100 dB, every channel
+   >= 100 dB against the bank's mean channel power); the card's modem on
+   the CPU's channel streams gives the CPU's bits, counts and TED symbols
+   bit for bit; the card's bits equal the CPU's within 2 errors a
+   channel after alignment.  Then the Costas loop (use_costas=True) on
+   4096 samples of G's BPSK31 streams, card against CPU at csdr_tpu's
+   bars (32 dB over the first 256 samples, 28 dB over all).
+10. the cost of G and G' a chunk: Msps, step ms as issued, device-only
+   ms and busy share, the channelizer's and the modem's ms, and launches
+   and host syncs a chunk from torch.profiler.
 
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
@@ -108,6 +125,15 @@ POLY_K2_BAR = 100.0        # K5 vs K2 on one input, dB: two summation orders
 AUDIO_RATE = 48_000        # the D=50 receivers' audio rate
 MISMATCH_DIR = Path(__file__).resolve().parent / "chiprun_out"
 INV_PLANS = (1, 4, 8, 16, 64, 256)   # K4 decimations whose tiles are checked
+SPS = 256                  # config 5's modem: samples a symbol per channel
+FRAMES_G, CHUNKS_G = 3200, 3     # bench.py bench_tpu_flagship, D=50
+FRAMES_GP, CHUNKS_GP = 1024, 3   # the same bank at D=16
+BPSK_CHANNELS = 8          # channels carrying a BPSK31 transmission
+BANK_NOISE = 0.01          # complex noise per part in the wideband stream
+BER_BAR = 0.02             # per BPSK31 channel (tests/test_multichannel.py)
+BANK_SLIP_BAR = 2          # card vs CPU bits after alignment, a channel
+COSTAS_SAMPLES = 4096
+COSTAS_BARS = (32.0, 28.0)  # dB, first 256 samples and whole (csdr_tpu's)
 
 
 class SmokeFailure(RuntimeError):
@@ -143,6 +169,25 @@ def channel_snrs(ref, test) -> np.ndarray:
     return np.asarray([snr_db(ref[k], test[k]) for k in range(len(ref))])
 
 
+def float32_bits(v) -> list[str]:
+    """The float32 bit patterns (hex) of a complex sample's two parts."""
+    v = np.complex64(v)
+    return [f"{np.float32(p).view(np.uint32):08x}" for p in (v.real, v.imag)]
+
+
+def card_identity() -> str:
+    """The card's UUID and PCI bus, so that two failures can be told to
+    come from one card or from two."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid,pci.bus_id",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "unknown"
+
+
 def require_match(what: str, card, cpu, bar: float, x=None, rerun_card=None,
                   rerun_cpu=None, frame: int = 1) -> float:
     """The least SNR of ``card`` against ``cpu`` (per channel for 2-D
@@ -159,20 +204,33 @@ def require_match(what: str, card, cpu, bar: float, x=None, rerun_card=None,
     cpu2 = None if rerun_cpu is None else np.atleast_2d(rerun_cpu())
     err = np.abs(card[worst] - cpu[worst]) ** 2
     per_frame = err[: len(err) // frame * frame].reshape(-1, frame).sum(1)
+    k = int(np.argmax(err))
+    power = float(np.mean(np.abs(cpu[worst]) ** 2))
     summary = {"what": what, "bar_db": bar, "worst_channel": worst,
                "worst_frame": int(np.argmax(per_frame)), "frame": frame,
-               "worst_sample": int(np.argmax(err)),
+               "worst_sample": k,
+               # samples of the worst channel off by more than -80 dB of
+               # its mean power: one for a lone corrupted value, many for
+               # a path that computes differently
+               "worst_channel_samples_off": int(np.sum(err > 1e-8 * power)),
                "min_snr_db": float(snrs.min()),
-               "channels_under_bar": int(np.sum(snrs < bar))}
+               "channels_under_bar": int(np.sum(snrs < bar)),
+               "worst_sample_bits": {"card": float32_bits(card[worst][k]),
+                                     "cpu": float32_bits(cpu[worst][k])},
+               "card_id": card_identity()}
     arrays = {"snr_card_vs_cpu": snrs, "err_per_frame": per_frame,
               "card_worst": card[worst], "cpu_worst": cpu[worst]}
     if card2 is not None:
         arrays["card_rerun_worst"] = card2[worst]
         summary["card_rerun_vs_card_db"] = float(channel_snrs(card, card2).min())
         summary["card_rerun_vs_cpu_db"] = float(channel_snrs(cpu, card2).min())
+        summary["worst_sample_bits"]["card_rerun"] = float32_bits(
+            card2[worst][k])
     if cpu2 is not None:
         arrays["cpu_rerun_worst"] = cpu2[worst]
         summary["cpu_rerun_vs_cpu_db"] = float(channel_snrs(cpu, cpu2).min())
+        summary["worst_sample_bits"]["cpu_rerun"] = float32_bits(
+            cpu2[worst][k])
     if x is not None:
         arrays["x"] = np.asarray(x)
     MISMATCH_DIR.mkdir(exist_ok=True)
@@ -180,7 +238,10 @@ def require_match(what: str, card, cpu, bar: float, x=None, rerun_card=None,
     np.savez_compressed(path, summary=json.dumps(summary), **arrays)
     emit("mismatch", saved=str(path.relative_to(MISMATCH_DIR.parent)),
          **summary)
-    raise SmokeFailure(f"{what}: {snrs.min():.1f} dB < {bar} dB")
+    # the summary goes with the error too, so a log that keeps only the
+    # standard error still tells a transient from a steady disagreement
+    raise SmokeFailure(f"{what}: {snrs.min():.1f} dB < {bar} dB "
+                       f"{json.dumps(summary)}")
 
 
 def fm_tone(n: int, fs: float = FS, carrier: float = -SHIFT,
@@ -1175,8 +1236,6 @@ def phase_receiver_paths(torch):
 def agc_cost(torch, x_chunk):
     """Launches, host syncs and time of one agc_block (chunked) step on a
     chunk of SSB audio on the card, from torch.profiler's events."""
-    from torch.profiler import ProfilerActivity, profile
-
     from csdr_tpu_torch.ops import agc
     from csdr_tpu_torch.utils.timing import time_cuda
 
@@ -1184,22 +1243,9 @@ def agc_cost(torch, x_chunk):
     blk = agc.agc_block()
     a = torch.from_numpy(x_chunk).to(dev)
     state, _ = blk(blk.init(dev), a)        # a continuing chunk
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        blk(state, a)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
-    device_kernels = sum(1 for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    prof = profile_call(torch, lambda: blk(state, a))
     ms = time_cuda(lambda: blk(state, a), iters=5, warmup=1, repeats=3)
-    return {"samples": len(x_chunk), "ms": ms,
-            "cuda_launch_calls": sum(1 for n in names
-                                     if n in ("cudaLaunchKernel",
-                                              "cuLaunchKernel",
-                                              "cudaLaunchKernelExC")),
-            "device_kernels": device_kernels,
-            "host_syncs": names.count("aten::_local_scalar_dense")}
+    return {"samples": len(x_chunk), "ms": ms, **prof}
 
 
 def phase_receiver_throughput(torch, paths):
@@ -1224,6 +1270,303 @@ def phase_receiver_throughput(torch, paths):
     emit("agc_cost", path="E", **agc_cost(torch, pre[chunk // 50:]),
          note="one agc_block (chunked) step on path E's second chunk of "
               "audio; cuda_launch_calls and host_syncs from torch.profiler")
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5 whole: the channelizer and the BPSK31 modem bank (G, G')
+# ---------------------------------------------------------------------------
+
+def bank_plan():
+    """64 channel rates: 56 drawn as bench.py's flagship draws them, and 8
+    channels (every 8th) tuned to the centres of 8 BPSK31 transmissions,
+    0.1 apart.  Returns (rates, BPSK channel indexes, centres)."""
+    rates = np.empty(CHANNELS)
+    bpsk = np.arange(BPSK_CHANNELS) * (CHANNELS // BPSK_CHANNELS)
+    centres = np.linspace(-0.35, 0.35, BPSK_CHANNELS)
+    rates[bpsk] = -centres
+    rates[np.setdiff1d(np.arange(CHANNELS), bpsk)] = \
+        np.random.default_rng(3).uniform(-0.35, 0.35,
+                                         CHANNELS - BPSK_CHANNELS)
+    return rates, bpsk, centres
+
+
+def bank_input(torch, decim: int, n: int, centres, seed: int):
+    """The wideband stream on the card: each centre carries a BPSK31
+    transmission (tx_chain at SPS*decim samples a symbol, mixed there by
+    a float64 phase), plus complex noise of BANK_NOISE per part.  Returns
+    (TX bits per transmission, x (n,) complex64)."""
+    from csdr_tpu_torch.core.cplx import expj
+    from csdr_tpu_torch.models import bpsk31
+
+    dev = torch.device("cuda")
+    k = torch.arange(n, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, dtype=torch.complex64, device=dev)
+    tx_bits = []
+    for i, f in enumerate(centres):
+        text = f"CHANNEL {i} DE CSDR_TPU_TORCH PSE K ".encode()
+        while True:
+            bits, bb = bpsk31.tx_chain(text, SPS * decim, device=dev)
+            if bb.shape[0] >= n:
+                break
+            text *= 2
+        tx_bits.append(bits)
+        turn = expj(2 * np.pi * torch.remainder(f * k, 1.0))
+        x += bb[:n] * turn.to(torch.complex64)
+        del bb, turn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x += BANK_NOISE * torch.complex(
+        torch.randn(n, device=dev, generator=gen),
+        torch.randn(n, device=dev, generator=gen))
+    return tx_bits, x
+
+
+def bank_floor_db(ref: np.ndarray, test: np.ndarray) -> float:
+    """The least, over channels, of the bank's mean channel power over the
+    channel's error power, dB."""
+    err = np.mean(np.abs(ref - test) ** 2, axis=1)
+    mean = np.mean(np.abs(ref) ** 2)
+    return float("inf") if not err.max() else float(
+        10 * np.log10(mean / err.max()))
+
+
+def bank_bits(outs, c: int) -> np.ndarray:
+    """Channel c's valid bits over every chunk, on the host."""
+    return np.concatenate([b[c, :int(k[c])].cpu().numpy() for b, k in outs])
+
+
+def drive_bank(torch, step, state, xs):
+    """``step`` (the bank's, or its modem) from ``state`` over the chunks
+    ``xs``: per chunk (bits, counts), synchronised."""
+    outs = []
+    for x in xs:
+        state, out = step(state, x)
+        outs.append(out)
+    if xs[0].is_cuda:
+        torch.cuda.synchronize()
+    return outs
+
+
+def profile_call(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its launches, the kernels
+    the card ran and their time (the union of their intervals), and the
+    host syncs (aten::_local_scalar_dense)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"cuda_launch_calls": sum(1 for n in names if n in (
+                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+            "device_kernels": len(spans), "device_ms": busy / 1e3,
+            "host_syncs": names.count("aten::_local_scalar_dense")}
+
+
+def bank_cost(torch, bank, step, state, x) -> dict:
+    """Step time as issued (CUDA events around back-to-back steps), the
+    split of steps between channelizer and modem (events between the two
+    halves, as issued), the card's busy time in one step and in its modem
+    alone, and the modem's launches and host syncs a chunk
+    (torch.profiler)."""
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    box = {"state": state}
+
+    def one_step():
+        box["state"], out = step(box["state"], x)
+        return out
+
+    with torch.no_grad():
+        step_ms = time_cuda(one_step, iters=3, warmup=1, repeats=3)
+        split = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            y = bank.channelize(x)
+            ev[1].record()
+            box["state"], _ = bank.modem(box["state"], y)
+            ev[2].record()
+            ev[2].synchronize()
+            split.append((ev[0].elapsed_time(ev[1]),
+                          ev[1].elapsed_time(ev[2])))
+        chan_ms, modem_ms = (float(np.median(v)) for v in zip(*split))
+        whole = profile_call(torch, one_step)
+        modem = profile_call(torch, lambda: bank.modem(box["state"], y))
+    return {"chunk": int(x.shape[0]), "step_ms": step_ms,
+            "msps": x.shape[0] / step_ms / 1e3,
+            "device_ms": whole["device_ms"],
+            "device_busy_share": whole["device_ms"] / step_ms,
+            "channelizer_ms": chan_ms, "modem_ms": modem_ms,
+            "modem_share_of_step": modem_ms / (chan_ms + modem_ms),
+            "step_profile": whole, "modem_profile": modem}
+
+
+def bank_path(torch, key, decim, frames, chunks, kernel):
+    """One bank path on the card: launches, BER on the BPSK31 channels,
+    channel streams and bits card vs CPU, and the modem bit for bit on
+    the CPU's channel streams."""
+    from csdr_tpu_torch.models import bpsk31, multichannel
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    rates, bpsk, centres = bank_plan()
+    init, step, meta = multichannel.build_ddc_bpsk31_bank(
+        rates, decim, SPS, device=dev)
+    bank = meta["bank"]
+    chunk = frames * meta["input_size"]
+    tx_bits, x = bank_input(torch, decim, chunks * chunk, centres, 40 + decim)
+    xs = [x[c * chunk:(c + 1) * chunk] for c in range(chunks)]
+    reset_all()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = drive_bank(torch, step, init(chunk), xs)
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    require_launches(launches, {kernel: chunks}, f"path {key}")
+
+    bers = {}
+    for i, c in enumerate(bpsk):
+        errs, total = bpsk31.align_errors(tx_bits[i][8:],
+                                          bank_bits(outs, c)[8:],
+                                          range(-6, 6))
+        bers[int(c)] = errs / total
+        require(total > 200 and errs / total < BER_BAR,
+                f"path {key}: channel {c} BER {errs}/{total}")
+
+    # the same bank on the CPU: channel streams, modem and bits
+    cinit, cstep, cmeta = multichannel.build_ddc_bpsk31_bank(
+        rates, decim, SPS, device=cpu)
+    cbank = cmeta["bank"]
+    xs_cpu = [v.cpu() for v in xs]
+    with torch.no_grad():
+        y_cpu = [cbank.channelize(v) for v in xs_cpu]
+        y_card = [bank.channelize(v) for v in xs]
+    # channels carrying a transmission at CHANNEL_BAR each; every channel
+    # at CHANNEL_BAR against the bank's mean channel power: the channels
+    # holding only the noise sit ~50 dB below the carriers, under the
+    # float32 rounding floor of the wideband FFT (csdr_tpu against the
+    # port on the CPU reads them at ~92-99 dB too)
+    snr = min(require_match(f"path_{key}: card vs CPU channel streams",
+                            b[bpsk].cpu().numpy(), a[bpsk].numpy(),
+                            CHANNEL_BAR, frame=meta["group_out"])
+              for a, b in zip(y_cpu, y_card))
+    floor = min(float(np.min(channel_snrs(a.numpy(), b.cpu().numpy())))
+                for a, b in zip(y_cpu, y_card))
+    vs_mean = min(bank_floor_db(a.numpy(), b.cpu().numpy())
+                  for a, b in zip(y_cpu, y_card))
+    require(vs_mean >= CHANNEL_BAR, f"path {key}: card vs CPU channel "
+            f"streams {vs_mean:.1f} dB against the mean channel power")
+    m = y_cpu[0].shape[-1]
+    with torch.no_grad():
+        outs_cpu = drive_bank(torch, cbank.modem, cinit(chunk), y_cpu)
+        outs_mix = drive_bank(torch, bank.modem, init(chunk),
+                              [v.to(dev) for v in y_cpu])
+    for (bc, kc), (bm, km) in zip(outs_cpu, outs_mix):
+        require(torch.equal(kc, km.cpu()) and torch.equal(bc, bm.cpu()),
+                f"path {key}: the card's modem on the CPU's channel streams "
+                "differs from the CPU's in bits or counts")
+    ted_cpu, ted_card = bank.tr.init(cpu, CHANNELS), bank.tr.init(dev,
+                                                                  CHANNELS)
+    with torch.no_grad():
+        for v in y_cpu:
+            ted_cpu, sc = cbank.tr(ted_cpu, v)
+            ted_card, sk = bank.tr(ted_card, v.to(dev))
+            require(torch.equal(sc.count, sk.count.cpu())
+                    and torch.equal(sc.data, sk.data.cpu()),
+                    f"path {key}: TED symbols card vs CPU differ")
+    slips = [bpsk31.align_errors(bank_bits(outs_cpu, c),
+                                 bank_bits(outs, c), range(-6, 6))[0]
+             for c in range(CHANNELS)]
+    worst_bpsk = max(slips[c] for c in bpsk)
+    require(max(slips) <= BANK_SLIP_BAR,
+            f"path {key}: card vs CPU bits {max(slips)} errors on channel "
+            f"{int(np.argmax(slips))}")
+    emit("path", path=key, pipeline=f"build_ddc_bpsk31_bank(64 rates, "
+         f"decimation={decim}, sps={SPS})", chunks=chunks, chunk=chunk,
+         channel_samples_per_chunk=m, launches=launches, ber=bers,
+         ber_bar=BER_BAR, bits_per_bpsk_channel=int(min(
+             len(bank_bits(outs, c)) for c in bpsk)),
+         card_vs_cpu_bpsk_channel_min_snr_db=snr,
+         card_vs_cpu_any_channel_min_snr_db=floor,
+         card_vs_cpu_vs_mean_channel_power_min_db=vs_mean,
+         card_modem_on_cpu_streams="bits, counts and TED symbols equal",
+         card_vs_cpu_bit_errors_bpsk_channels_max=int(worst_bpsk),
+         card_vs_cpu_bit_errors_other_channels_max=int(max(
+             slips[c] for c in range(CHANNELS) if c not in set(bpsk))),
+         stream_s=wall)
+    return {"launches": launches, "bank": bank, "step": step, "init": init,
+            "xs": xs, "y_cpu": y_cpu, "bpsk": bpsk, "wall": wall,
+            "chunk": chunk}
+
+
+def costas_case(torch, g):
+    """use_costas=True on COSTAS_SAMPLES samples of G's BPSK31 channel
+    streams: the Costas loop card vs CPU at csdr_tpu's bars, and the
+    Costas bank's modem on the card."""
+    from csdr_tpu_torch.models import multichannel
+    from csdr_tpu_torch.ops import sync
+
+    dev = torch.device("cuda")
+    rates, bpsk, _ = bank_plan()
+    y = g["y_cpu"][0][bpsk, :COSTAS_SAMPLES].contiguous()
+    init, step, meta = multichannel.build_ddc_bpsk31_bank(
+        rates[bpsk], 50, SPS, use_costas=True, device=dev)
+    params = meta["bank"].costas
+    with torch.no_grad():
+        card = sync.bpsk_costas_loop_cc(y.to(dev), *params)[0].cpu().numpy()
+        cpu = sync.bpsk_costas_loop_cc(y, *params)[0].numpy()
+        state, (bits, counts) = meta["bank"].modem(
+            init(FRAMES_G * meta["input_size"]), y.to(dev))
+        torch.cuda.synchronize()
+    early = require_match("path_G_costas: first 256", card[:, :256],
+                          cpu[:, :256], COSTAS_BARS[0])
+    whole = require_match("path_G_costas: whole", card, cpu, COSTAS_BARS[1])
+    require(len(state) == 7 and bool((counts > 0).all()),
+            "path G: the Costas bank's modem gave no symbols")
+    emit("path", path="G costas", pipeline="bpsk_costas_loop_cc("
+         "costas_loop_params(2*pi/100)) on 8 BPSK31 channel streams of G, "
+         f"and build_ddc_bpsk31_bank(use_costas=True).modem",
+         samples=COSTAS_SAMPLES, card_vs_cpu_first_256_min_snr_db=early,
+         card_vs_cpu_whole_min_snr_db=whole, bars_db=list(COSTAS_BARS),
+         modem_symbols=[int(v) for v in counts.cpu()])
+
+
+def phase_bank_paths(torch):
+    """Paths G (D=50, K3 forward) and G' (D=16, K4): BASELINE config 5
+    whole, then the Costas case, then each bank's cost a chunk."""
+    require_no_tf32(torch)
+    g = bank_path(torch, "G", 50, FRAMES_G, CHUNKS_G, "fft_ko")
+    costas_case(torch, g)
+    del g["y_cpu"]
+    gp = bank_path(torch, "G'", 16, FRAMES_GP, CHUNKS_GP, "fastddc_inv")
+    del gp["y_cpu"]
+    return {"G": g, "G'": gp}
+
+
+def phase_bank_throughput(torch, banks):
+    for key, b in banks.items():
+        state = b["init"](b["chunk"])
+        cost = bank_cost(torch, b["bank"], b["step"], state, b["xs"][0])
+        emit("throughput", path=key, pipeline=f"build_ddc_bpsk31_bank("
+             f"64 rates, decimation={50 if key == 'G' else 16}, sps={SPS})",
+             **cost, stream_msps=len(b["xs"]) * b["chunk"] / b["wall"] / 1e6,
+             note="step_ms: CUDA events around back-to-back steps as "
+                  "issued; channelizer_ms, modem_ms: medians of 5 steps "
+                  "split by an event between the halves; device_ms: the "
+                  "union of the kernels' intervals in one profiled step; "
+                  "launches and host syncs from torch.profiler")
 
 
 def _ssb_pre(make):
@@ -1256,6 +1599,8 @@ def run(torch) -> int:
     launches_p = phase_poly_path(torch)
     receivers = phase_receiver_paths(torch)
     phase_receiver_throughput(torch, receivers)
+    banks = phase_bank_paths(torch)
+    phase_bank_throughput(torch, banks)
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
@@ -1274,12 +1619,21 @@ def run(torch) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
+    # G runs K3 forward at B's shape and G' runs K4 at A's
+    also = {("fft_ko", "B"): "G", ("fastddc_inv", "A"): "G'"}
     table = []
     for c in cases + new_cases + poly_cases:
         path, counts = paths_of[c["path"]]
+        key, extra = c["path"], also.get((c["name"], c["path"]))
         c = dict(c, launches=counts[c["name"]], path=path)
         require(c["launches"] > 0, f"{c['name']} not launched on its path")
-        table.append({k: c[k] for k in keys + ("bound_tc_ms",) if k in c})
+        if extra:
+            n = banks[extra]["launches"][c["name"]]
+            require(n > 0, f"{c['name']} not launched on path {extra}")
+            c["launches_by_path"] = {key: c["launches"], extra: n}
+        table.append({k: c[k] for k in keys + ("bound_tc_ms",
+                                               "launches_by_path")
+                      if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

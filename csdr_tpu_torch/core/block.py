@@ -20,8 +20,11 @@ float32 arithmetic as the JAX package, so a chunk costs no device sync to
 learn its own output count.
 
 Variable-rate blocks return a :class:`VarOut`: a fixed-capacity tensor and
-the count of valid leading samples.  The count is a host ``int``, because
-it depends only on the state and the chunk length, never on the samples.
+the count of valid leading samples.  Where the count depends only on the
+state and the chunk length it is a host ``int``; where it depends on the
+samples (the timing recovery loop, the byte decoders) it is an int32
+tensor on the stream's device, one count per row, so that no chunk waits
+for the device to learn it.
 """
 
 from __future__ import annotations
@@ -45,17 +48,22 @@ def resolve_device(device) -> torch.device:
 
 
 class VarOut(NamedTuple):
-    """Fixed-capacity output with a host-side valid count: the first
-    ``count`` samples along the LAST axis are meaningful, the rest is
-    padding of no defined value.  A multi-channel output ``(C, cap)`` (the
-    fastddc blocks) has one count shared by all channels: csdr_tpu's counts
-    there are always ``jnp.full((C,), n)``."""
+    """Fixed-capacity output with a valid count: the first ``count``
+    samples along the LAST axis are meaningful, the rest is padding of no
+    defined value.  A multi-channel output ``(C, cap)`` of the fastddc
+    blocks has one host ``int`` count shared by all channels (csdr_tpu's
+    counts there are always ``jnp.full((C,), n)``); a data-dependent count
+    is an int32 device tensor shaped like ``data`` without its last axis."""
 
     data: torch.Tensor
-    count: int
+    count: int | torch.Tensor
 
     def compact(self) -> torch.Tensor:
-        return self.data[..., : self.count]
+        """The valid samples.  A device count is read to the host here."""
+        if isinstance(self.count, torch.Tensor) and self.count.dim():
+            raise ValueError("compact() of a per-row count: slice each row "
+                             "by its own count")
+        return self.data[..., : int(self.count)]
 
 
 class Block(nn.Module):

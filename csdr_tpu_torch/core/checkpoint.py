@@ -111,6 +111,12 @@ class JaxLeaves:
         self.device = device
         self.pos = 0
 
+    def next_shape(self) -> tuple:
+        """The shape of the next leaf, not consumed."""
+        if self.pos >= len(self.leaves):
+            raise ValueError(f"too few leaves ({len(self.leaves)})")
+        return self.leaves[self.pos].shape
+
     def _next(self, what: str, shape=None) -> np.ndarray:
         if self.pos >= len(self.leaves):
             raise ValueError(f"{what}: too few leaves ({len(self.leaves)})")
@@ -217,15 +223,18 @@ def _state_from_jax(block, reader: JaxLeaves):
 
 
 def state_from_jax_leaves(block, leaves, device="cuda") -> object:
-    """The port's state for ``block`` (a block or a whole Pipeline) from
-    csdr_tpu's flat state leaves (``jax.tree_util.tree_leaves`` of its
-    state).  Blocks whose csdr_tpu state also carries constant matrices
-    (the fastddc blocks, ``bandpass_fir_fft_block``) keep the history and
-    check the matrix leaves against the port's buffers; every other block
-    reads its leaves as :func:`state_from_numpy_leaves` does (the AGC's
-    float32 gain, int32 hang and bool ``started``, fastagc's buffers and
-    peaks, the FIR and de-emphasis tails).  Any shape, dtype or value
-    mismatch raises."""
+    """The port's state for ``block`` (a block, a whole Pipeline, or the
+    config-5 bank ``models.multichannel.DdcBpsk31Bank``) from csdr_tpu's
+    flat state leaves (``jax.tree_util.tree_leaves`` of its state).
+    Blocks whose csdr_tpu state also carries constant matrices (the
+    fastddc blocks, ``bandpass_fir_fft_block``) keep the history and check
+    the matrix leaves against the port's buffers.  The timing recovery
+    block takes its (tail re, tail im, occ, corr) for one stream or, with a
+    leading channel axis, for a vmapped bank; the bank takes csdr_tpu's 6
+    arrays (9 with the Costas loop).  Every other block reads its leaves
+    as :func:`state_from_numpy_leaves` does (the AGC's float32 gain, int32
+    hang and bool ``started``, fastagc's buffers and peaks, the FIR and
+    de-emphasis tails).  Any shape, dtype or value mismatch raises."""
     reader = JaxLeaves(leaves, resolve_device(device))
     state = _state_from_jax(block, reader)
     reader.done()

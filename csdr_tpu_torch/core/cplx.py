@@ -11,8 +11,17 @@ import torch
 
 
 def expj(theta: torch.Tensor) -> torch.Tensor:
-    """e^{j theta} as complex64 (the reference's e_powj, libcsdr.h:56)."""
-    return torch.complex(torch.cos(theta), torch.sin(theta))
+    """e^{j theta} as complex64 (the reference's e_powj, libcsdr.h:56).
+
+    ``torch.polar``, not ``torch.cos`` and ``torch.sin``: on the CPU those
+    two run float32 through MKL's vector math, which in a fresh process
+    can give one worker thread's share of a large tensor (>= 32768
+    elements, split over threads) with errors near 2^-13 on its first
+    call: in a few to a third of fresh processes after a complex matmul,
+    on Intel CPUs with AVX-512 (tools/cpu_trig_probe.py).  ``polar``
+    computes each element on its own and gives the same values on every
+    call."""
+    return torch.polar(torch.ones_like(theta), theta)
 
 
 def from_numpy(x: np.ndarray, device="cuda") -> torch.Tensor:

@@ -42,7 +42,11 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
             "import csdr_tpu_torch.models.receivers, csdr_tpu_torch.ops.agc\n"
             "import csdr_tpu_torch.kernels.fft_cuda\n"
             "import csdr_tpu_torch.kernels.fastddc_cuda\n"
+            "import csdr_tpu_torch.ops.sync, csdr_tpu_torch.ops.digital\n"
+            "import csdr_tpu_torch.ops.noise, csdr_tpu_torch.models.bpsk31\n"
+            "import csdr_tpu_torch.models.multichannel\n"
             "import chip_smoke, check_kernels\n"
+            "assert callable(chip_smoke.phase_bank_paths)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'csdr_tpu' "
             "or m.startswith('csdr_tpu.')]\n"
@@ -65,6 +69,45 @@ def test_port_source_has_no_jax_imports():
                         or s.startswith("import csdr_tpu.")
                         or s.startswith("from csdr_tpu import")
                         or s == "import csdr_tpu"), f"{p}:{i}: {s}"
+
+
+def test_expj_is_accurate_on_its_first_call_in_fresh_processes():
+    """expj on a CPU tensor large enough to be split over threads, as the
+    first transcendental of a fresh process after a complex matmul, in 80
+    forked children of a fresh interpreter: every value within 1e-6 of
+    e^{j theta} in float64.  torch.cos/torch.sin on float32 failed this in
+    up to a third of the children (errors near 2^-13 over one thread's
+    share)."""
+    code = (
+        "import os, numpy as np, torch\n"
+        "from csdr_tpu_torch.core.cplx import expj\n"
+        "rng = np.random.default_rng(0)\n"
+        "def c64(*shape):\n"
+        "    return torch.from_numpy((rng.standard_normal(shape) + 1j * "
+        "rng.standard_normal(shape)).astype(np.complex64))\n"
+        "a, w = c64(8192, 128), c64(128, 128)\n"
+        "theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, (64, 1024))"
+        ".astype(np.float32))\n"
+        "ref = np.exp(1j * theta.numpy().astype(np.float64))\n"
+        "errs = []\n"
+        "for _ in range(80):\n"
+        "    rd, wr = os.pipe()\n"
+        "    pid = os.fork()\n"
+        "    if pid == 0:\n"
+        "        torch.matmul(a, w)\n"
+        "        err = np.abs(expj(theta).numpy() - ref).max()\n"
+        "        os.write(wr, repr(float(err)).encode())\n"
+        "        os._exit(0)\n"
+        "    os.close(wr)\n"
+        "    errs.append(float(os.read(rd, 64)))\n"
+        "    os.close(rd)\n"
+        "    os.waitpid(pid, 0)\n"
+        "print(max(errs), sum(e > 1e-6 for e in errs))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    worst, bad = proc.stdout.split()
+    assert int(bad) == 0 and float(worst) < 1e-6, proc.stdout
 
 
 @pytest.fixture
