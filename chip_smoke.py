@@ -74,9 +74,31 @@ prints one JSON line per phase and exits non-zero at the first failure:
    channel after alignment.  Then the Costas loop (use_costas=True) on
    4096 samples of G's BPSK31 streams, card against CPU at csdr_tpu's
    bars (32 dB over the first 256 samples, 28 dB over all).
+   Each bank's first chunk of channel streams, card and CPU, is also held
+   against a float64 numpy channelizer on the same matrices and NCO
+   phases, per channel ("quiet_channels": the channels without a carrier).
 10. the cost of G and G' a chunk: Msps, step ms as issued, device-only
    ms and busy share, the channelizer's and the modem's ms, and launches
    and host syncs a chunk from torch.profiler.
+11. the ddcd DDC server, driven through server.ddcd.DdcdServer: K2 at the
+   shape of S'' (D=16, T=79, kout=16 384) against its plain version, then
+   S   DdcdServer(16, 0.05, max_channels=64, frames=1024), the dynamic
+       channelizer: K4 once a chunk;
+   S'  DdcdServer(50, 0.05, max_channels=64, frames=3200), K3 forward in
+       kernel order and the dynamic classed inverse: K3 once a chunk;
+   S'' DdcdServer(16, 0.05, max_channels=8, method="td", frames=64), the
+       traced-rate NCO and K2 once a slot a chunk;
+   each 6 chunks of tones in 6 claimed slots' channels plus noise: every
+   tone at its frequency within 1e-3 cycles, a retune after chunk 3 (the
+   slot's tone moves; every slot it and the release leave alone equal bit
+   for bit to a run without them), a release after chunk 4 (zeros; in
+   the td method shift 0, as csdr_tpu's), a retune back whose host rows
+   equal the first bit for bit, every claimed slot card vs CPU >= 100 dB;
+   each path's cost (Msps, step ms as issued and device-only, busy share,
+   _run_chunk and set_shift-to-output ms by the host clock); then serve()
+   over loopback with two clients (shift=, a retune mid-stream,
+   bypass=1), and path S's server with six tone slots and six noise-only
+   slots, card and CPU against float64 per channel.
 
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
@@ -278,7 +300,8 @@ def phase_env(torch, build):
     load_s = time.perf_counter() - t0
     from csdr_tpu_torch.kernels import fastddc_cuda, fir_cuda
     fir_shapes = ((79, 10, CHUNK // 10), (801, 50, CHUNK_C // 50),
-                  (81, 50, CHUNK // 50), (1023, 10, 262_144))
+                  (81, 50, CHUNK // 50), (1023, 10, 262_144),
+                  (79, 16, 16_384))
     require(all(lib.csdr_fir_decimate_smem_bytes(t, d, p["tile"],
                                                  p["per_thread"]) == p["smem"]
                 for t, d, k in fir_shapes for p in fir_cuda.plans(t, d, k)),
@@ -1348,8 +1371,9 @@ def drive_bank(torch, step, state, xs):
 
 def profile_call(torch, fn) -> dict:
     """One call of ``fn`` under torch.profiler: its launches, the kernels
-    the card ran and their time (the union of their intervals), and the
-    host syncs (aten::_local_scalar_dense)."""
+    the card ran and their time (the union of their intervals), the five
+    kernels of most device time (ms, summed by name), and the host syncs
+    (aten::_local_scalar_dense)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1359,8 +1383,14 @@ def profile_call(torch, fn) -> dict:
         torch.cuda.synchronize()
     events = prof.events()
     names = [e.name for e in events]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    by_name: dict = {}
+    for e in dev_events:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -1372,6 +1402,8 @@ def profile_call(torch, fn) -> dict:
     return {"cuda_launch_calls": sum(1 for n in names if n in (
                 "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
             "device_kernels": len(spans), "device_ms": busy / 1e3,
+            "top_kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:5]),
             "host_syncs": names.count("aten::_local_scalar_dense")}
 
 
@@ -1507,8 +1539,8 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
              slips[c] for c in range(CHANNELS) if c not in set(bpsk))),
          stream_s=wall)
     return {"launches": launches, "bank": bank, "step": step, "init": init,
-            "xs": xs, "y_cpu": y_cpu, "bpsk": bpsk, "wall": wall,
-            "chunk": chunk}
+            "xs": xs, "y_cpu": y_cpu, "y_card0": y_card[0].cpu().numpy(),
+            "bpsk": bpsk, "wall": wall, "chunk": chunk}
 
 
 def costas_case(torch, g):
@@ -1545,13 +1577,16 @@ def costas_case(torch, g):
 
 def phase_bank_paths(torch):
     """Paths G (D=50, K3 forward) and G' (D=16, K4): BASELINE config 5
-    whole, then the Costas case, then each bank's cost a chunk."""
+    whole, then the Costas case, and each bank's first chunk of channel
+    streams, card and CPU, against float64 (the quiet channels)."""
     require_no_tf32(torch)
     g = bank_path(torch, "G", 50, FRAMES_G, CHUNKS_G, "fft_ko")
     costas_case(torch, g)
-    del g["y_cpu"]
+    quiet_bank(torch, "G", g)
+    del g["y_cpu"], g["y_card0"]
     gp = bank_path(torch, "G'", 16, FRAMES_GP, CHUNKS_GP, "fastddc_inv")
-    del gp["y_cpu"]
+    quiet_bank(torch, "G'", gp)
+    del gp["y_cpu"], gp["y_card0"]
     return {"G": g, "G'": gp}
 
 
@@ -1567,6 +1602,545 @@ def phase_bank_throughput(torch, banks):
                   "split by an event between the halves; device_ms: the "
                   "union of the kernels' intervals in one profiled step; "
                   "launches and host syncs from torch.profiler")
+
+
+# ---------------------------------------------------------------------------
+# the DDC server (paths S, S', S''), driven through DdcdServer itself
+# ---------------------------------------------------------------------------
+
+SERVER_CHUNKS = 6
+SERVER_RATES = (-0.3, -0.18, -0.06, 0.06, 0.18, 0.3)   # the claimed shifts
+# each claimed slot's tone, cycles a channel sample, distinct so that a
+# retuned slot's tone is told from its own
+SERVER_TONES = (0.05, -0.1, 0.15, -0.2, 0.1, -0.05)
+RETUNE_AT, RELEASE_AT, BACK_AT = 3, 4, 5   # before these chunks (0-based)
+SERVER_PATHS = {           # DdcdServer arguments, kernel, launches a chunk
+    "S": (dict(decimation=16, max_channels=CHANNELS, method="fastddc",
+               frames=FRAMES_A), "fastddc_inv", 1),
+    "S'": (dict(decimation=50, max_channels=CHANNELS, method="fastddc",
+                frames=FRAMES_B), "fft_ko", 1),
+    "S''": (dict(decimation=16, max_channels=8, method="td", frames=64),
+            "fir_decimate", 8)}
+QUIET_RATES = (-0.24, -0.12, 0.0, 0.12, 0.24, 0.42)   # noise-only channels
+SOCKET_WAIT = 60.0         # seconds any wait of the socket run may take
+
+
+def server_slots(c: int) -> list[int]:
+    """Six claimed slots spread over the server's c."""
+    return [int(round(v)) for v in np.linspace(0, c - 1, len(SERVER_RATES))]
+
+
+def server_input(n: int, decim: int, seed: int) -> np.ndarray:
+    """A tone in each claimed slot's channel (at its SERVER_TONES offset
+    once decimated) plus complex noise of BANK_NOISE per part."""
+    return tones(n, [-r + f / decim for r, f in zip(SERVER_RATES,
+                                                    SERVER_TONES)],
+                 seed, noise=BANK_NOISE)
+
+
+def slot_rows(srv, s: int) -> tuple:
+    """Copies of one slot's host rows."""
+    if srv.method == "fastddc" and not srv.factored:
+        w = srv._block_cols
+        return (srv.fold_np[..., s * w:(s + 1) * w].copy(),
+                srv.rate_np[s].copy())
+    return tuple(np.array(a[s]) for a in srv._host_rows())
+
+
+def drive_server(srv, x: np.ndarray, slots, changes: bool = True):
+    """Claim ``slots`` at SERVER_RATES, then SERVER_CHUNKS chunks through
+    ``_run_chunk``: slot 1 retuned to slot 4's shift before chunk
+    RETUNE_AT, slot 2 released before RELEASE_AT, slot 1 back before
+    BACK_AT (``changes=False``: the claims alone).  Returns the outputs
+    (data, counts) a chunk, and slot 1's rows at the claim and after the
+    retune back."""
+    for s, r in zip(slots, SERVER_RATES):
+        srv.set_shift(s, r)
+    first = back = slot_rows(srv, slots[1])
+    n, outs = srv.chunk_in, []
+    for k in range(SERVER_CHUNKS):
+        if changes and k == RETUNE_AT:
+            srv.set_shift(slots[1], SERVER_RATES[4])
+        if changes and k == RELEASE_AT:
+            with srv.lock:
+                srv._zero_slot_locked(slots[2])
+        if changes and k == BACK_AT:
+            srv.set_shift(slots[1], SERVER_RATES[1])
+            back = slot_rows(srv, slots[1])
+        outs.append(srv._run_chunk(x[k * n:(k + 1) * n]))
+    return outs, first, back
+
+
+def server_tone_plan(i: int) -> list:
+    """(chunks, wanted tone) for claimed slot i: slot 1 moves to slot 4's
+    tone and back, slot 2 is released."""
+    if i == 1:
+        return [(range(RETUNE_AT), SERVER_TONES[1]),
+                (range(RETUNE_AT, BACK_AT), SERVER_TONES[4]),
+                (range(BACK_AT, SERVER_CHUNKS), SERVER_TONES[1])]
+    if i == 2:
+        return [(range(RELEASE_AT), SERVER_TONES[2])]
+    return [(range(SERVER_CHUNKS), SERVER_TONES[i])]
+
+
+def server_path(torch, key):
+    """One server path on the card: launches, tones, the retune, the
+    retune back, the release, the slots these leave alone against a run
+    without them bit for bit, and each claimed slot card vs CPU."""
+    from csdr_tpu_torch.server.ddcd import DdcdServer
+
+    args, kernel, per_chunk = SERVER_PATHS[key]
+
+    def make(device):
+        return DdcdServer(transition_bw=0.05, device=device, **args)
+
+    srv = make("cuda")
+    c, d, n = srv.max_channels, srv.decimation, srv.chunk_in
+    slots = server_slots(c)
+    x = server_input(SERVER_CHUNKS * n, d, 60 + d + c)
+    reset_all()
+    t0 = time.perf_counter()
+    outs, first, back = drive_server(srv, x, slots)
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    require_launches(launches, {kernel: per_chunk * SERVER_CHUNKS},
+                     f"path {key}")
+    count = int(outs[0][1][0])
+    require(all(o.shape[0] == c and np.all(k == count) and
+                np.all(np.isfinite(o.view(np.float32))) for o, k in outs),
+            f"path {key}: output shape, counts or values")
+    got = {}
+    for i, s in enumerate(slots):
+        for ks, want in server_tone_plan(i):
+            f = peak_cycles(np.concatenate([outs[k][0][s, :count]
+                                            for k in ks]))
+            got[f"slot {s} chunks {ks.start + 1}-{ks.stop}"] = f
+            require(abs(f - want) < 1e-3, f"path {key}: slot {s} tone at "
+                    f"{f:.5f} in chunks {list(ks)}, want {want}")
+    unclaimed = [s for s in range(c) if s not in slots]
+    gone = slots[2]
+    for k in range(RELEASE_AT, SERVER_CHUNKS):
+        if srv.method == "td":
+            # as csdr_tpu's td method: a released slot goes back to shift
+            # 0, the unclaimed slots' channel, turned by its carried phase
+            y, u = outs[k][0][gone, :count], outs[k][0][unclaimed[0], :count]
+            turn = np.vdot(u, y) / np.vdot(u, u)
+            require(abs(abs(turn) - 1) < 1e-4 and np.abs(
+                y - turn * u).max() < 1e-4 * np.abs(u).max(),
+                f"path {key}: released slot {gone} is not at shift 0")
+        else:
+            require(not np.any(outs[k][0][gone]),
+                    f"path {key}: released slot {gone} gives non-zeros")
+    require(all(np.array_equal(a, b) for a, b in zip(first, back)),
+            f"path {key}: retuning back did not rewrite the rows bit for "
+            "bit")
+
+    # the slots the retune and the release leave alone, against a run
+    # with the claims alone, bit for bit
+    ctrl, _, _ = drive_server(make("cuda"), x, slots, changes=False)
+    steady = [s for i, s in enumerate(slots) if i not in (1, 2)] + unclaimed
+    for k in range(SERVER_CHUNKS):
+        rows = steady + ([slots[1]] if k < RETUNE_AT else []) + \
+            ([gone] if k < RELEASE_AT else [])
+        require(np.array_equal(outs[k][0][rows], ctrl[k][0][rows]),
+                f"path {key}: chunk {k + 1} of a slot the retune and the "
+                "release leave alone differs from the run without them")
+    del ctrl
+
+    # every slot claimed in a chunk, card vs CPU (the released slot until
+    # its release)
+    cpu, _, _ = drive_server(make("cpu"), x, slots)
+
+    def claimed(k):
+        return [s for s in slots if s != gone or k < RELEASE_AT]
+
+    snr = min(require_match(
+        f"path_{key}: card vs CPU chunk {k + 1}",
+        outs[k][0][claimed(k), :count], cpu[k][0][claimed(k), :count],
+        CHANNEL_BAR, x[k * n:(k + 1) * n],
+        lambda k=k: drive_server(make("cuda"), x,
+                                 slots)[0][k][0][claimed(k)],
+        lambda k=k: drive_server(make("cpu"), x, slots)[0][k][0][claimed(k)],
+        frame=max(1, count // 64)) for k in range(SERVER_CHUNKS))
+    emit("path", path=key, pipeline=f"DdcdServer({d}, 0.05, max_channels="
+         f"{c}, method={srv.method!r}, frames={args['frames']})",
+         chunks=SERVER_CHUNKS, chunk=n, channel_samples_per_chunk=count,
+         claimed_slots=slots, launches=launches, tones_at=got,
+         retune=f"slot {slots[1]} to shift {SERVER_RATES[4]} before chunk "
+         f"{RETUNE_AT + 1}, back before chunk {BACK_AT + 1}: rows bit for bit",
+         release=f"slot {gone} before chunk {RELEASE_AT + 1}",
+         untouched_slots_bitwise_vs_run_without_changes=True,
+         card_vs_cpu_min_claimed_slot_snr_db=snr, bar_db=CHANNEL_BAR,
+         drive_s=wall)
+    return {"launches": launches, "srv": srv, "x": x, "slots": slots,
+            "wall": wall}
+
+
+def server_cost(torch, srv, x: np.ndarray, slot: int) -> dict:
+    """The step as issued and device-only (CUDA events), and by the host
+    clock ``_run_chunk`` (input up, rows up when changed, step, slots
+    back) and a retune to the next chunk's output."""
+    import itertools
+
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    n = srv.chunk_in
+    xc = x[:n]
+    xd = torch.from_numpy(xc).to(srv.device)
+    srv._run_chunk(xc)
+    rows = srv._dev
+
+    def host_ms(fn, reps=7):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts)), [float(min(ts)), float(max(ts))]
+
+    step_ms = time_cuda(lambda: srv._step(xd, rows), iters=10, warmup=2,
+                        repeats=5)
+    device_ms = time_cuda(lambda: srv._step(xd, rows), iters=10, warmup=1,
+                          repeats=5, queue_ahead_ms=100.0)
+    run_ms, run_span = host_ms(lambda: srv._run_chunk(xc))
+    flip = itertools.cycle((SERVER_RATES[4], SERVER_RATES[1]))
+    retune_ms, retune_span = host_ms(
+        lambda: (srv.set_shift(slot, next(flip)), srv._run_chunk(xc)))
+    return {"chunk": n, "step_ms": step_ms, "msps": n / step_ms / 1e3,
+            "device_ms": device_ms, "device_busy_share": device_ms / step_ms,
+            "step_profile": profile_call(torch,
+                                         lambda: srv._step(xd, rows)),
+            "run_chunk_ms": run_ms, "run_chunk_ms_span": run_span,
+            "retune_to_output_ms": retune_ms,
+            "retune_to_output_ms_span": retune_span,
+            "rows_bytes": int(sum(a.nbytes for a in srv._host_rows()))}
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def socket_run(torch):
+    """serve() on the card in a thread over loopback, its input a pipe fed
+    chunk by chunk: two clients send shift= and get their tones, one
+    retunes mid-stream, the other switches to bypass=1 and gets the raw
+    bytes.  Every wait has a deadline of SOCKET_WAIT seconds."""
+    import os
+    import queue
+    import socket
+    import threading
+
+    from csdr_tpu_torch.ops import fastddc as fd
+    from csdr_tpu_torch.server.ddcd import DdcdServer
+
+    port = free_port()
+    srv = DdcdServer(transition_bw=0.05, port=port, device="cuda",
+                     **SERVER_PATHS["S"][0])
+    n, d = srv.chunk_in, srv.decimation
+    per = n // d * 8                         # a channel chunk's bytes
+    off = (0.005, -0.008)
+    x = tones(3 * n, [0.11 + off[0], -0.27 + off[1]], 70, noise=BANK_NOISE)
+    todo: queue.Queue = queue.Queue()
+    r, w = os.pipe()
+    pipe_in, pipe_out = os.fdopen(r, "rb"), os.fdopen(w, "wb")
+
+    def feed():
+        try:
+            while (data := todo.get()) is not None:
+                pipe_out.write(data)
+                pipe_out.flush()
+        except OSError:
+            pass
+        finally:
+            pipe_out.close()
+
+    def wait(cond, what):
+        end = time.time() + SOCKET_WAIT
+        while not cond():
+            require(time.time() < end, f"socket run: no {what} in "
+                    f"{SOCKET_WAIT} s")
+            time.sleep(0.01)
+
+    def connect():
+        end = time.time() + SOCKET_WAIT
+        while True:
+            try:
+                return socket.create_connection(("127.0.0.1", port),
+                                                timeout=5)
+            except OSError:
+                require(time.time() < end and server.is_alive(),
+                        "socket run: the server does not listen")
+                time.sleep(0.05)
+
+    def recv(sock, nbytes):
+        sock.settimeout(SOCKET_WAIT)
+        got = bytearray()
+        while len(got) < nbytes:
+            part = sock.recv(min(nbytes - len(got), 1 << 20))
+            require(bool(part), "socket run: a client's stream ended")
+            got += part
+        return bytes(got)
+
+    def peak(payload):
+        return peak_cycles(np.frombuffer(payload, np.complex64))
+
+    def tuned(s, rate):
+        return np.array_equal(srv.tq_np[s],
+                              fd.dynamic_channelizer_rows(srv.ddc, rate)[0])
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    server = threading.Thread(target=srv.serve, args=(pipe_in,),
+                              daemon=True)
+    feeder.start()
+    server.start()
+    c1 = c2 = None
+    reset_all()
+    t0 = time.perf_counter()
+    try:
+        c1 = connect()
+        wait(lambda: len(srv.clients) == 1, "slot for the first client")
+        c2 = connect()
+        wait(lambda: len(srv.clients) == 2, "slot for the second client")
+        c1.sendall(b"shift=-0.11\n")
+        c2.sendall(b"shift=0.27\n")
+        wait(lambda: tuned(0, -0.11) and tuned(1, 0.27), "shift applied")
+        todo.put(x[:n].tobytes())
+        p1, p2 = peak(recv(c1, per)), peak(recv(c2, per))
+        require(abs(p1 - off[0] * d) < 1e-3 and abs(p2 - off[1] * d) < 1e-3,
+                f"socket run: tones at {p1:.5f}, {p2:.5f}")
+        c1.sendall(b"shift=0.27\n")           # c1 retunes mid-stream
+        wait(lambda: tuned(0, 0.27), "retune applied")
+        todo.put(x[n:2 * n].tobytes())
+        q1, q2 = peak(recv(c1, per)), peak(recv(c2, per))
+        require(abs(q1 - off[1] * d) < 1e-3 and abs(q2 - off[1] * d) < 1e-3,
+                f"socket run: after the retune, tones at {q1:.5f}, {q2:.5f}")
+        c2.sendall(b"bypass=1\n")
+        wait(lambda: any(cl.bypass for cl in list(srv.clients.values())),
+             "bypass applied")
+        todo.put(x[2 * n:].tobytes())
+        raw_ok = recv(c2, n * 8) == x[2 * n:].tobytes()
+        recv(c1, per)
+        require(raw_ok, "socket run: bypass bytes differ from the input")
+    finally:
+        todo.put(None)
+        feeder.join(SOCKET_WAIT)
+        server.join(SOCKET_WAIT)
+        for cl in (c1, c2):
+            if cl is not None:
+                cl.close()
+    wall = time.perf_counter() - t0
+    require(not server.is_alive() and not feeder.is_alive(),
+            "socket run: serve() did not end at the end of its input")
+    launches = launches_all()
+    require_launches(launches, {"fastddc_inv": 3}, "socket run")
+    emit("path", path="S sockets", pipeline="DdcdServer(16, 0.05, "
+         "max_channels=64, frames=1024).serve() over loopback",
+         chunks=3, launches=launches, tones_at=[p1, p2],
+         after_retune_tones_at=[q1, q2], tone_want=[off[0] * d, off[1] * d],
+         bypass_bytes_equal=raw_ok, wall_s=wall)
+
+
+def k2_server_case(torch):
+    """K2 at the shape S'' gives it, one slot's chunk: D=16, T=79,
+    kout=16 384."""
+    case = dict(kernel_case(torch, "fir_decimate", 16, 79, 16_384, 0.0, 0.0,
+                            27), path="S''")
+    emit("kernels", **case)
+    return case
+
+
+def phase_server_paths(torch):
+    """K2 at the shape of S'', then paths S (K4), S' (K3 forward) and S''
+    (K2) through DdcdServer, each with its cost, then serve() over
+    sockets."""
+    require_no_tf32(torch)
+    case = k2_server_case(torch)
+    servers = {}
+    for key in SERVER_PATHS:
+        sv = server_path(torch, key)
+        cost = server_cost(torch, sv["srv"], sv.pop("x"), sv["slots"][1])
+        emit("throughput", path=key,
+             pipeline=f"DdcdServer {SERVER_PATHS[key][0]}", **cost,
+             drive_msps=SERVER_CHUNKS * sv["srv"].chunk_in / sv["wall"] / 1e6,
+             note="step_ms: CUDA events around back-to-back device steps "
+                  "as issued; device_ms: the same queued ahead of the card; "
+                  "run_chunk_ms: host clock, input up, rows up when changed, "
+                  "the step and every slot back to the host; "
+                  "retune_to_output_ms: host clock from set_shift to the "
+                  "next chunk's output on the host; spans: min and max of 7")
+        del sv["srv"]
+        servers[key] = sv
+    socket_run(torch)
+    return servers, [case]
+
+
+# ---------------------------------------------------------------------------
+# quiet channels: card and CPU, each against a float64 channelizer
+# ---------------------------------------------------------------------------
+
+def f64_frames(x: np.ndarray, ins: int, ov: int) -> np.ndarray:
+    """Overlap frames of one chunk from zero history, complex128."""
+    x = x.astype(np.complex128)
+    b = len(x) // ins
+    blk = x[: b * ins].reshape(b, ins)
+    prev = np.concatenate([np.zeros((1, ov)), blk[:-1, ins - ov:]], 0)
+    return np.concatenate([prev, blk], 1)
+
+
+def f64_factored(x, ddc, tq2, wdft, w, d, ramp) -> np.ndarray:
+    """The fused channelizer in float64 on the block's own complex64
+    matrices and float32 NCO phases: split DFT, fold, iDFT, diagonal,
+    per-frame NCO.  (C, B*M)."""
+    ins, ov = ddc.input_size, ddc.overlap_length
+    pre, inv = ddc.pre_decimation, ddc.fft_inv_size
+    frames = f64_frames(x, ins, ov)
+    b = frames.shape[0]
+    s = frames.reshape(b, inv, pre).transpose(0, 2, 1) @ \
+        wdft.astype(np.complex128)                       # (b, pre, inv)
+    z = np.einsum("bjm,cjm->cbm", s, tq2.astype(np.complex128))
+    y = (z @ w.astype(np.complex128)) * d.astype(np.complex128)[:, None, :]
+    y *= np.exp(2j * np.pi * ramp.astype(np.float64))[:, :, None]
+    return y.reshape(len(tq2), -1)
+
+
+def f64_classed(x, ddc, inv_blk) -> np.ndarray:
+    """The forward FFT and the classed inverse in float64 on the block's
+    own complex64 class matrices (kernel bin order) and float32 NCO
+    phases."""
+    from csdr_tpu_torch.kernels import fft_cuda
+
+    frames = f64_frames(x, ddc.input_size, ddc.overlap_length)
+    b, q = frames.shape[0], inv_blk.q
+    spectra = np.fft.fft(frames)[:, fft_cuda.gather_idx(ddc.fft_size)]
+    g = inv_blk.g.cpu().numpy().astype(np.complex128)
+    groups = b // q
+    z = np.matmul(spectra.reshape(groups, q, -1).transpose(1, 0, 2), g)
+    c, m = inv_blk.n_channels, inv_blk.m_max
+    z = z.reshape(q, groups, c, m).transpose(2, 1, 0, 3)
+    ramp = inv_blk._host_ramps(b)[0].astype(np.float64)
+    y = z * np.exp(2j * np.pi * ramp)[..., None]
+    sel = inv_blk.sel.cpu().numpy()
+    return y.reshape(c, groups, -1)[..., sel].reshape(c, -1)
+
+
+def quiet_line(key, ref, card, cpu, loud, quiet) -> dict:
+    """Per-channel SNRs of card and CPU against the float64 reference."""
+    sc, su = channel_snrs(ref, card), channel_snrs(ref, cpu)
+    row = {"path": key, "quiet_channels": len(quiet),
+           "card_vs_f64_quiet_min_db": float(sc[quiet].min()),
+           "cpu_vs_f64_quiet_min_db": float(su[quiet].min()),
+           "card_vs_f64_quiet_median_db": float(np.median(sc[quiet])),
+           "cpu_vs_f64_quiet_median_db": float(np.median(su[quiet])),
+           "card_vs_f64_loud_min_db": float(sc[loud].min()),
+           "cpu_vs_f64_loud_min_db": float(su[loud].min()),
+           "card_vs_cpu_quiet_min_db": float(
+               channel_snrs(cpu, card)[quiet].min()),
+           "card_further_off_on_quiet": bool(sc[quiet].min()
+                                             < su[quiet].min())}
+    emit("quiet_channels", **row)
+    return row
+
+
+def quiet_bank(torch, key, g):
+    """Chunk 1 of bank path G or G': its channel streams on the card and
+    on the CPU against float64; quiet = the channels without a BPSK31
+    carrier."""
+    bank = g["bank"]
+    x = g["xs"][0].cpu().numpy()
+    chan = bank.channelizer
+    if hasattr(chan, "tq2"):
+        b = len(x) // bank.ddc.input_size
+        ref = f64_factored(x, bank.ddc, *(t.cpu().numpy() for t in (
+            chan.tq2, chan.wdft, chan.w, chan.d)), chan._host_ramps(b)[0])
+    else:
+        ref = f64_classed(x, bank.ddc, chan.blocks[1])
+    loud = np.asarray(g["bpsk"])
+    quiet = np.setdiff1d(np.arange(len(ref)), loud)
+    return quiet_line(key, ref, g["y_card0"], g["y_cpu"][0].numpy(), loud,
+                      quiet)
+
+
+def quiet_server(torch):
+    """Path S's server, one chunk from a fresh state on the card and on
+    the CPU, its six tone slots claimed and six more at shifts whose
+    channels hold only the noise, against float64."""
+    from csdr_tpu_torch.ops import fastddc as fd
+    from csdr_tpu_torch.server.ddcd import DdcdServer
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        srv = DdcdServer(transition_bw=0.05, device=dev,
+                         **SERVER_PATHS["S"][0])
+        slots = server_slots(srv.max_channels)
+        quiet = [s for s in range(srv.max_channels)
+                 if s not in slots][:len(QUIET_RATES)]
+        for s, r in zip(slots + quiet, SERVER_RATES + QUIET_RATES):
+            srv.set_shift(s, r)
+        x = server_input(srv.chunk_in, srv.decimation, 80)
+        outs[dev] = srv._run_chunk(x)[0]
+    ddc, m = srv.ddc, srv.chan.m
+    b = srv.chunk_in // ddc.input_size
+    ramp = fd._frame_ramp(b, torch.from_numpy(srv.rate_np)).numpy()
+    ref = f64_factored(x, ddc, srv.tq_np, srv.chan.wdft.numpy(),
+                       srv.chan.w.numpy(), srv.d_np[:, :m], ramp)
+    keep = slots + quiet
+    loud_i, quiet_i = list(range(len(slots))), list(range(len(slots),
+                                                           len(keep)))
+    row = quiet_line("S", ref[keep], outs["cuda"][keep], outs["cpu"][keep],
+                     loud_i, quiet_i)
+    emit("quiet_channels", **quiet_inverse_split(torch, srv, x, ramp, keep,
+                                                 loud_i, quiet_i))
+    return row
+
+
+def quiet_inverse_split(torch, srv, x, ramp, keep, loud, quiet) -> dict:
+    """Which half of the card's channelizer sets its quiet-channel floor:
+    the card's own split-DFT spectra of the chunk through K4 and through
+    K4's plain version on the card (cuBLAS, full float32), each against
+    float64 on those same spectra."""
+    from csdr_tpu_torch.kernels import fastddc_cuda
+    from csdr_tpu_torch.ops import fastddc as fd
+
+    dev = torch.device("cuda")
+    ddc, chan = srv.ddc, srv.chan.to(dev)
+    b, m = srv.chunk_in // ddc.input_size, chan.m
+    xd = torch.from_numpy(x).to(dev)
+    frames = fd.overlap_frames(xd, torch.zeros(ddc.overlap_length,
+                                               dtype=torch.complex64,
+                                               device=dev),
+                               ddc.input_size, ddc.overlap_length)
+    x6 = frames.reshape(b, ddc.fft_inv_size, ddc.pre_decimation
+                        ).transpose(1, 2)
+    require_no_tf32(torch)
+    spectra = torch.matmul(x6, chan.wdft).reshape(b, ddc.fft_size)
+    tq = torch.from_numpy(srv.tq_np).to(dev)
+    d = torch.from_numpy(srv.d_np).to(dev)
+    rot = torch.polar(torch.ones(ramp.shape, device=dev),
+                      2 * np.pi * torch.from_numpy(ramp).to(dev))
+    with torch.no_grad():
+        k4 = fastddc_cuda.fastddc_inv(spectra, tq, chan.w, d, rot, m)
+        plain = fastddc_cuda.fastddc_inv_plain(spectra, tq, chan.w, d, rot,
+                                               m)
+    s128 = spectra.cpu().numpy().astype(np.complex128)
+    pre, inv = ddc.pre_decimation, ddc.fft_inv_size
+    z = np.einsum("bjm,cjm->cbm", s128.reshape(b, pre, inv),
+                  srv.tq_np.astype(np.complex128))
+    ref = (z @ chan.w.cpu().numpy().astype(np.complex128)) \
+        * srv.d_np[:, None, :m].astype(np.complex128) \
+        * np.exp(2j * np.pi * ramp.astype(np.float64))[:, :, None]
+    ref = ref.reshape(len(ref), -1)[keep]
+    sk = channel_snrs(ref, k4.reshape(len(k4), -1).cpu().numpy()[keep])
+    sp = channel_snrs(ref, plain.reshape(len(plain), -1).cpu().numpy()[keep])
+    return {"path": "S inverse alone", "on": "the card's split-DFT spectra",
+            "k4_vs_f64_quiet_min_db": float(sk[quiet].min()),
+            "plain_on_card_vs_f64_quiet_min_db": float(sp[quiet].min()),
+            "k4_vs_f64_loud_min_db": float(sk[loud].min()),
+            "plain_on_card_vs_f64_loud_min_db": float(sp[loud].min())}
 
 
 def _ssb_pre(make):
@@ -1601,10 +2175,13 @@ def run(torch) -> int:
     phase_receiver_throughput(torch, receivers)
     banks = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
+    servers, server_cases = phase_server_paths(torch)
+    quiet_server(torch)
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
-    # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D
+    # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
+    # K2 at D=16/T=79 from the td server
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
@@ -1615,22 +2192,29 @@ def run(torch) -> int:
         "B": ("B: fastddc50 fwd (kernel order) | classed inverse",
               paths["B"][0]),
         "C": ("C: ssb_receiver(agc_on=False)", ssb[0]),
-        "P": ("P: fir_decimate_poly_or_plain, D=10, T=1023", launches_p)}
+        "P": ("P: fir_decimate_poly_or_plain, D=10, T=1023", launches_p),
+        "S''": ("S'': DdcdServer(16, 0.05, max_channels=8, method='td', "
+                "frames=64)", servers["S''"]["launches"])}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
-    # G runs K3 forward at B's shape and G' runs K4 at A's
-    also = {("fft_ko", "B"): "G", ("fastddc_inv", "A"): "G'"}
+    # G and S' run K3 forward at B's shape, G' and S run K4 at A's
+    also = {("fft_ko", "B"): {"G": banks["G"]["launches"],
+                              "S'": servers["S'"]["launches"]},
+            ("fastddc_inv", "A"): {"G'": banks["G'"]["launches"],
+                                   "S": servers["S"]["launches"]}}
     table = []
-    for c in cases + new_cases + poly_cases:
+    for c in cases + new_cases + poly_cases + server_cases:
         path, counts = paths_of[c["path"]]
-        key, extra = c["path"], also.get((c["name"], c["path"]))
+        key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)
         require(c["launches"] > 0, f"{c['name']} not launched on its path")
         if extra:
-            n = banks[extra]["launches"][c["name"]]
-            require(n > 0, f"{c['name']} not launched on path {extra}")
-            c["launches_by_path"] = {key: c["launches"], extra: n}
+            c["launches_by_path"] = {key: c["launches"]}
+            for other, got in extra.items():
+                require(got[c["name"]] > 0,
+                        f"{c['name']} not launched on path {other}")
+                c["launches_by_path"][other] = got[c["name"]]
         table.append({k: c[k] for k in keys + ("bound_tc_ms",
                                                "launches_by_path")
                       if k in c})

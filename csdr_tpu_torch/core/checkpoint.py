@@ -223,15 +223,20 @@ def _state_from_jax(block, reader: JaxLeaves):
 
 
 def state_from_jax_leaves(block, leaves, device="cuda") -> object:
-    """The port's state for ``block`` (a block, a whole Pipeline, or the
-    config-5 bank ``models.multichannel.DdcBpsk31Bank``) from csdr_tpu's
-    flat state leaves (``jax.tree_util.tree_leaves`` of its state).
+    """The port's state for ``block`` (a block, a whole Pipeline, the
+    config-5 bank ``models.multichannel.DdcBpsk31Bank`` or the DDC server
+    ``server.ddcd.DdcdServer``) from csdr_tpu's flat state leaves
+    (``jax.tree_util.tree_leaves`` of its state).
     Blocks whose csdr_tpu state also carries constant matrices (the
     fastddc blocks, ``bandpass_fir_fft_block``) keep the history and check
     the matrix leaves against the port's buffers.  The timing recovery
     block takes its (tail re, tail im, occ, corr) for one stream or, with a
     leading channel axis, for a vmapped bank; the bank takes csdr_tpu's 6
-    arrays (9 with the Costas loop).  Every other block reads its leaves
+    arrays (9 with the Costas loop).  The dynamic fastddc blocks take their
+    history (the channelizer's tail and phases, the inverses' phases) and
+    check their matrix leaves (Wdft, the packed W); the server takes
+    ``srv.state`` of csdr_tpu's server of the same method and plan (the
+    td method's phases and tails).  Every other block reads its leaves
     as :func:`state_from_numpy_leaves` does (the AGC's float32 gain, int32
     hang and bool ``started``, fastagc's buffers and peaks, the FIR and
     de-emphasis tails).  Any shape, dtype or value mismatch raises."""

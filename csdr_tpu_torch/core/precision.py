@@ -1,4 +1,5 @@
-"""Full float32 for matrix products outside the port's kernels.
+"""Float32 arithmetic as csdr_tpu does it: full float32 for matrix
+products outside the port's kernels, and XLA's fused multiply-add.
 
 PyTorch may run float32 (and complex64) ``torch.matmul`` on the tensor
 cores in TF32, which keeps about three decimal digits, when
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -33,3 +35,25 @@ def full_f32_matmul():
         yield
     finally:
         cuda.allow_tf32 = prev
+
+
+def fma_f32(x, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x*y + z rounded once to float32, as the fused multiply-add that
+    XLA's CPU backend contracts ``a*b + c`` into inside a compiled
+    function (eager JAX rounds the product first).  ``x`` may be a float32
+    tensor or a Python number that float32 holds exactly.  The product is
+    exact in float64; the sum is rounded to odd there (an inexact sum with
+    an even last bit moves one ulp towards the exact value, whose error
+    TwoSum gives), and rounding that to float32 is the correctly rounded
+    fma (Boldo and Melquiond, "Emulation of FMA and correctly rounded
+    sums: proved algorithms using rounding to odd", 2008).  Separate
+    torch ops in float64: the same bits on the CPU and on the card."""
+    x = x.double() if isinstance(x, torch.Tensor) else float(x)
+    p = y.double() * x
+    z = z.double()
+    s = p + z
+    bb = s - p
+    e = (p - (s - bb)) + (z - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((e != 0) & even, torch.nextafter(s, e * np.inf), s)
+    return s.float()

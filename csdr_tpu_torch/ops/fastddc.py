@@ -21,7 +21,9 @@ device.  Device work:
   ``fastddc_channelizer_block`` puts the subsequence-split DFT (a plain
   ``torch.matmul``) in front of it and needs no forward FFT;
 - otherwise (D=20, D=50): the phase-classed inverse, plain batched
-  ``torch.matmul``s, taking natural or kernel-order spectra.
+  ``torch.matmul``s, taking natural or kernel-order spectra;
+- the retunable blocks of the DDC server (``fastddc_*_dynamic_*``): the
+  same inverses with each channel's rows and NCO rate as call arguments.
 
 Matrix products outside a kernel run inside
 :func:`~csdr_tpu_torch.core.precision.full_f32_matmul`, so they stay in
@@ -391,6 +393,32 @@ def _rotate(phases: torch.Tensor, cycles: torch.Tensor) -> torch.Tensor:
     return expj(2.0 * np.pi * torch.remainder(phases[tail] + cycles, 1.0))
 
 
+def _fused_product(spectra: torch.Tensor, g: torch.Tensor, c: int,
+                   m: int) -> torch.Tensor:
+    """spectra (B, fft) @ G (fft, C*M) as (C, B, M), in full float32."""
+    with full_f32_matmul():
+        z = torch.matmul(spectra, g)
+    return z.reshape(spectra.shape[0], c, m).permute(1, 0, 2)
+
+
+def _classed_product(spectra: torch.Tensor, g: torch.Tensor, q: int, c: int,
+                     m_max: int) -> torch.Tensor:
+    """q-aligned spectra (B, fft) by the class matrices G (q, fft,
+    C*m_max): frame b takes class b % q.  Returns (C, B/q, q, m_max)."""
+    groups = spectra.shape[0] // q
+    s = spectra.reshape(groups, q, -1).transpose(0, 1)     # (q, groups, fft)
+    with full_f32_matmul():
+        z = torch.matmul(s, g)                            # (q, groups, C*m)
+    return z.reshape(q, groups, c, m_max).permute(2, 1, 0, 3)
+
+
+def _compact(y: torch.Tensor, sel: torch.Tensor, ga: int) -> torch.Tensor:
+    """(C, groups, q, m_max) -> the taken samples (C, groups*ga): csdr_tpu's
+    0/1 selection product, as the gather it equals."""
+    c, groups = y.shape[:2]
+    return y.reshape(c, groups, -1)[..., sel].reshape(c, groups * ga)
+
+
 class _PhasedInverse(Block):
     """Base of the inverse blocks: C channels, each with an NCO phase in
     cycles (float32) carried on the stream's device; the per-frame ramps
@@ -458,14 +486,12 @@ class FastddcInvFusedBlock(_FrameRampInverse):
                                                        axis=1)))
 
     def forward(self, phases, spectra):
-        b, c, m = spectra.shape[0], self.n_channels, self.m
+        b, m = spectra.shape[0], self.m
         ramp, adv = self._ramps(b, spectra.device)
-        with full_f32_matmul():
-            z = torch.matmul(spectra, self.g)
-        z = z.reshape(b, c, m).permute(1, 0, 2)
-        y = z * _rotate(phases, ramp)[:, :, None]
+        y = _fused_product(spectra, self.g, self.n_channels, m) \
+            * _rotate(phases, ramp)[:, :, None]
         return (torch.remainder(phases + adv, 1.0),
-                VarOut(y.reshape(c, b * m), b * m))
+                VarOut(y.reshape(self.n_channels, b * m), b * m))
 
     def state_from_jax(self, leaves):
         phases = self._phases_from_jax(leaves)
@@ -602,17 +628,11 @@ class FastddcInvClassedBlock(_PhasedInverse):
         if bp != b:
             spectra = torch.cat([spectra, spectra.new_zeros(
                 bp - b, ddc.fft_size)])
-        groups = bp // q
-        s = spectra.reshape(groups, q, -1).transpose(0, 1)  # (q, groups, fft)
-        with full_f32_matmul():
-            z = torch.matmul(s, self.g)                     # (q, groups, C*m)
-        z = z.reshape(q, groups, c, self.m_max).permute(2, 1, 0, 3)
+        z = _classed_product(spectra, self.g, q, c, self.m_max)
         ramp, adv = self._ramps(bp, spectra.device)
-        y = z * _rotate(phases, ramp)[..., None]
-        y = y.reshape(c, groups, q * self.m_max)[..., self.sel]
+        y = _compact(z * _rotate(phases, ramp)[..., None], self.sel, self.ga)
         count = -(-(b * ddc.post_input_size) // ddc.post_decimation)
-        return (torch.remainder(phases + adv, 1.0),
-                VarOut(y.reshape(c, groups * self.ga), count))
+        return torch.remainder(phases + adv, 1.0), VarOut(y, count)
 
     def state_from_jax(self, leaves):
         phases = self._phases_from_jax(leaves)
@@ -648,3 +668,247 @@ def fastddc_inv_block(ddc: FastDDC, shift_rates, frames_per_chunk: int = 32,
                              "spectra (or run the fused channelizer)")
         return FastddcInvFactored2Block(ddc, rates)
     return _fastddc_inv_classed_block(ddc, rates, spectra_order)
+
+
+# ---------------------------------------------------------------------------
+# dynamic (retunable) blocks: per-channel rows are call arguments
+# ---------------------------------------------------------------------------
+#
+# The DDC server claims, releases and retunes channels at run time, so the
+# per-channel matrices and NCO rates are arguments of each call, not
+# buffers (csdr_tpu/ops/fastddc.py:323-578).  As in csdr_tpu, their NCO
+# ramps are float32 on the device from the argument ``cyc``, frac(k*cyc)
+# and the carried phase (phases + frac(B*cyc)) mod 1, not the static
+# blocks' float64 host ramps: the same float32 operations, so the carried
+# phases are csdr_tpu's bit for bit.
+
+def dynamic_channel_cols(ddc: FastDDC, shift_rate: float,
+                         spectra_order: str = "natural"):
+    """One channel's payload for :class:`FastddcInvDynamicBlock`: (G_block,
+    cyc float32).  Divisible post decimation: the fused (fft, M) matrix and
+    per-frame cycles; otherwise the classed (q, fft, m_max) matrices and
+    per-taken-sample cycles.  'kernel' order permutes the spectral rows for
+    K3's bin order."""
+    if ddc.post_input_size % ddc.post_decimation == 0:
+        g, fc = channel_fused_matrix(ddc, shift_rate)
+        ax, cyc = 0, np.float32(fc)
+    else:
+        g, dsa = channel_class_matrices(ddc, shift_rate)
+        ax, cyc = 1, np.float32(np.mod(dsa, 1.0))
+    if spectra_order == "kernel":
+        gk = np.empty_like(g)
+        idx = [slice(None)] * g.ndim
+        idx[ax] = fft_cuda.kernel_perm(ddc.fft_size)
+        gk[tuple(idx)] = g
+        g = gk
+    return g, cyc
+
+
+def _padded_row(d: np.ndarray, mpad: int) -> np.ndarray:
+    row = np.zeros((mpad,), np.complex64)
+    row[: d.shape[0]] = d
+    return row
+
+
+def dynamic_channel_rows(ddc: FastDDC, shift_rate: float,
+                         mpad: int | None = None):
+    """One channel's payload for :class:`FastddcInvDynamicFactoredBlock`
+    (divisible post only): (tq_row (pre, inv), d_row (mpad,), cyc
+    float32), d padded to csdr_tpu's ``mpad_for`` width."""
+    tq, _w, d, cyc = channel_factored2_arrays(ddc, [float(shift_rate)])
+    return (tq[0], _padded_row(d[0], mpad or mpad_for(ddc)),
+            np.float32(cyc[0]))
+
+
+def dynamic_channelizer_rows(ddc: FastDDC, shift_rate: float,
+                             mpad: int | None = None):
+    """One channel's payload for :class:`FastddcDynamicChannelizerBlock`:
+    (tq2_row (pre, inv), d_row (mpad,), cyc float32), from
+    :func:`channelizer_arrays` for this one rate, so a retune back to a
+    starting rate rewrites the rows bit for bit."""
+    tq2, _wdft, _w, d, cyc = channelizer_arrays(ddc, [float(shift_rate)])
+    return (tq2[0], _padded_row(d[0], mpad or mpad_for(ddc)),
+            np.float32(cyc[0]))
+
+
+def _frame_ramp(b: int, cyc: torch.Tensor) -> torch.Tensor:
+    """frac(k*cyc) for k < b, (C, b) float32, as csdr_tpu's dynamic
+    blocks compute it."""
+    k = torch.arange(b, dtype=torch.float32, device=cyc.device)
+    return torch.remainder(k[None, :] * cyc[:, None], 1.0)
+
+
+def _advance(phases: torch.Tensor, steps: int,
+             cyc: torch.Tensor) -> torch.Tensor:
+    """(phases + frac(steps*cyc)) mod 1, float32."""
+    return torch.remainder(phases + torch.remainder(steps * cyc, 1.0), 1.0)
+
+
+def _check_rows(what: str, c: int, **rows) -> None:
+    for name, t in rows.items():
+        if t.shape[0] != c:
+            raise ValueError(f"{what}: {name} has {t.shape[0]} rows for "
+                             f"{c} channels")
+
+
+class FastddcInvDynamicBlock(_PhasedInverse):
+    """The dynamic inverse of spectra (B, fft), csdr_tpu's
+    ``fastddc_inv_dynamic_block``.  Called as ``block(phases, spectra, g,
+    cyc)`` with ``g`` shaped ``g_shape`` (columns per channel from
+    :func:`dynamic_channel_cols`) and ``cyc`` (C,) float32:
+
+    - divisible post decimation: g (fft, C*M), one dense product, then the
+      per-frame NCO;
+    - otherwise: g (q, fft, C*m_max), the phase-classed product (B a
+      multiple of q), the per-taken-sample NCO and the compaction.
+
+    State: the NCO phases (C,) in cycles."""
+
+    def __init__(self, ddc: FastDDC, n_channels: int):
+        super().__init__("fastddc_inv_dynamic_cc", n_channels)
+        self.ddc = ddc
+        pis, post = ddc.post_input_size, ddc.post_decimation
+        self.divisible = pis % post == 0
+        if self.divisible:
+            self.m = pis // post
+            self.g_shape = (ddc.fft_size, n_channels * self.m)
+            return
+        q, t0s, _ms, m_max, s_np = _class_plan(ddc)
+        self.q, self.m_max, self.ga = q, m_max, q * pis // post
+        self.g_shape = (q, ddc.fft_size, n_channels * m_max)
+        self.register_buffer("g0_local", torch.tensor(
+            [(b * pis + t0s[b]) // post for b in range(q)],
+            dtype=torch.float32))
+        self.register_buffer("sel", torch.from_numpy(s_np.argmax(0)))
+
+    def forward(self, phases, spectra, g, cyc):
+        c, b = self.n_channels, spectra.shape[0]
+        _check_rows("fastddc_inv_dynamic", c, cyc=cyc)
+        if tuple(g.shape) != self.g_shape:
+            raise ValueError(f"g {tuple(g.shape)}, want {self.g_shape}")
+        if self.divisible:
+            m = self.m
+            y = _fused_product(spectra, g, c, m) \
+                * _rotate(phases, _frame_ramp(b, cyc))[:, :, None]
+            return (_advance(phases, b, cyc),
+                    VarOut(y.reshape(c, b * m), b * m))
+        q = self.q
+        if b % q:
+            raise ValueError(f"chunk frames {b} % q {q} != 0")
+        groups = b // q
+        z = _classed_product(spectra, g, q, c, self.m_max)
+        jj = torch.arange(groups, dtype=torch.float32, device=cyc.device)
+        per_group = torch.remainder(self.ga * cyc, 1.0)
+        base = torch.remainder(jj[None, :, None] * per_group[:, None, None]
+                               + self.g0_local[None, None, :]
+                               * cyc[:, None, None], 1.0)
+        y = _compact(z * _rotate(phases, base)[..., None], self.sel, self.ga)
+        return (_advance(phases, groups, per_group),
+                VarOut(y, groups * self.ga))
+
+    def state_from_jax(self, leaves):
+        return self._phases_from_jax(leaves)
+
+
+def fastddc_inv_dynamic_block(ddc: FastDDC, n_channels: int):
+    """The DDC server's inverse for spectra in (see
+    :class:`FastddcInvDynamicBlock`; its ``g_shape`` is the third value
+    csdr_tpu returns)."""
+    return FastddcInvDynamicBlock(ddc, n_channels)
+
+
+class FastddcInvDynamicFactoredBlock(_PhasedInverse):
+    """The factored-v2 dynamic inverse through K4 (divisible post only),
+    csdr_tpu's ``fastddc_inv_dynamic_factored_block``: called as
+    ``block(phases, spectra, tq, d, cyc)`` with tq (C, pre, inv), d (C,
+    mpad) (rows of :func:`dynamic_channel_rows`) and cyc (C,).  The shared
+    iDFT matrix W is a buffer."""
+
+    def __init__(self, ddc: FastDDC, n_channels: int):
+        pis, post = ddc.post_input_size, ddc.post_decimation
+        if pis % post:
+            raise ValueError(f"the factored inverse needs post_input_size "
+                             f"{pis} divisible by post_decimation {post}")
+        super().__init__("fastddc_inv_dynamic_cc", n_channels)
+        self.m = pis // post
+        self.register_buffer("w", _c64(channel_factored2_arrays(ddc,
+                                                                [0.0])[1]))
+
+    def _k4(self, phases, spectra, tq, d, cyc):
+        """K4 with this call's rows and the float32 frame ramp."""
+        _check_rows(self.name, self.n_channels, tq=tq, d=d, cyc=cyc)
+        b = spectra.shape[0]
+        y = fastddc_cuda.fastddc_inv(
+            spectra.contiguous(), tq.contiguous(), self.w, d.contiguous(),
+            _rotate(phases, _frame_ramp(b, cyc)), self.m)
+        return (_advance(phases, b, cyc),
+                VarOut(y.reshape(self.n_channels, b * self.m), b * self.m))
+
+    def forward(self, phases, spectra, tq, d, cyc):
+        return self._k4(phases, spectra, tq, d, cyc)
+
+    def state_from_jax(self, leaves):
+        phases = self._phases_from_jax(leaves)
+        leaves.matches_packed_w(self.w, f"{self.name} W")
+        return phases
+
+
+def fastddc_inv_dynamic_factored_block(ddc: FastDDC, n_channels: int,
+                                       precision: str = "HIGH"):
+    """See :class:`FastddcInvDynamicFactoredBlock`.  ``precision`` keeps
+    csdr_tpu's signature and changes nothing (K4 is 3xTF32 on the card,
+    float32 on the CPU)."""
+    if precision not in ("HIGH", "HIGHEST"):
+        raise ValueError(f"precision {precision!r}")
+    return FastddcInvDynamicFactoredBlock(ddc, n_channels)
+
+
+class FastddcDynamicChannelizerBlock(FastddcInvDynamicFactoredBlock):
+    """The dynamic fused channelizer (divisible post only), csdr_tpu's
+    ``fastddc_dynamic_channelizer_block``: wideband chunk in, per-channel
+    baseband out, called as ``block((tail, phases), x, tq2, d, cyc)`` with
+    the rows of :func:`dynamic_channelizer_rows`.  Overlap framing, the
+    subsequence-split DFT as one ``torch.matmul`` (TF32 off), then K4.  The
+    split-DFT matrix and W are buffers.  State: (tail, phases)."""
+
+    def __init__(self, ddc: FastDDC, n_channels: int):
+        super().__init__(ddc, n_channels)
+        self.name = "fastddc_dynamic_channelizer_cc"
+        self.ddc = ddc
+        self.register_buffer("wdft", _c64(channelizer_arrays(ddc,
+                                                             [0.0])[1]))
+
+    def init(self, device="cuda"):
+        dev = resolve_device(device)
+        return (torch.zeros(self.ddc.overlap_length, dtype=torch.complex64,
+                            device=dev), super().init(dev))
+
+    def forward(self, state, x, tq2, d, cyc):
+        tail, phases = state
+        ddc = self.ddc
+        ov, ins = ddc.overlap_length, ddc.input_size
+        b = _frames_in(x, ins)
+        n = b * ins
+        frames = overlap_frames(x, tail, ins, ov)
+        x6 = frames.reshape(b, ddc.fft_inv_size, ddc.pre_decimation
+                            ).transpose(1, 2)
+        with full_f32_matmul():
+            s = torch.matmul(x6, self.wdft).reshape(b, ddc.fft_size)
+        phases, out = self._k4(phases, s, tq2, d, cyc)
+        return (x[n - ov:].clone(), phases), out
+
+    def state_from_jax(self, leaves):
+        tail = leaves.complex((self.ddc.overlap_length,), f"{self.name} tail")
+        phases = self._phases_from_jax(leaves)
+        leaves.matches(self.wdft, f"{self.name} Wdft")
+        leaves.matches_packed_w(self.w, f"{self.name} W")
+        return tail, phases
+
+
+def fastddc_dynamic_channelizer_block(ddc: FastDDC, n_channels: int,
+                                      precision: str = "HIGH"):
+    """See :class:`FastddcDynamicChannelizerBlock`; ``precision`` as for
+    :func:`fastddc_inv_dynamic_factored_block`."""
+    if precision not in ("HIGH", "HIGHEST"):
+        raise ValueError(f"precision {precision!r}")
+    return FastddcDynamicChannelizerBlock(ddc, n_channels)

@@ -38,9 +38,12 @@ def _taps_list(taps) -> list[float]:
 def fir_decimate_cc(x: torch.Tensor, taps, decimation: int,
                     precision: str = DEFAULT_PRECISION) -> torch.Tensor:
     """Stateless valid-mode decimating FIR (reference libcsdr.c:528-549).
-    x: complex64 (N,); returns floor((N-T)/D)+1 outputs.  On the card this
-    is one launch of the fir_decimate kernel."""
-    taps = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    x: complex64 (N,); taps a float32 tensor or a sequence; returns
+    floor((N-T)/D)+1 outputs.  On the card this is one launch of the
+    fir_decimate kernel."""
+    if not isinstance(taps, torch.Tensor):
+        taps = np.asarray(taps, np.float32)
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
     kout = max(0, (x.shape[0] - taps.shape[0]) // decimation + 1)
     empty = x.new_empty(0)
     return fir_cuda.fir_decimate(empty, x.contiguous(), taps, decimation,

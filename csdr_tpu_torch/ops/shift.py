@@ -10,6 +10,12 @@ as the reference's shift_math_cc (libcsdr.c:186-207).
 The carried phase is a float32 0-dim CPU tensor advanced on the host with
 csdr_tpu's float32 arithmetic: it depends on the chunk length only, never
 on the samples, so a chunk costs no device sync.
+
+A rate given as a tensor (a live-retuned channel, the DDC server's rows)
+takes csdr_tpu's traced-rate path instead, on the rate's device in
+float32: frac(idx*rate) from 12-bit digits of idx (:func:`_frac_mul`),
+with the fused multiply-adds that compiled csdr_tpu gives (XLA contracts
+``a*b + c`` inside ``jit``), so the carried phases are its bit for bit.
 """
 
 from __future__ import annotations
@@ -19,14 +25,68 @@ import torch
 
 from csdr_tpu_torch.core.block import Block, resolve_device
 from csdr_tpu_torch.core.cplx import expj
+from csdr_tpu_torch.core.precision import fma_f32
 
 TWO_PI = 2.0 * np.pi
+TWO_PI_F32 = float(np.float32(TWO_PI))   # the constant as float32 holds it
 
 
 def _frac_cycles_static(n: int, rate: float) -> np.ndarray:
     """frac(arange(n)*rate) computed host-side in float64 — exact to 1 ULP."""
     return np.mod(np.arange(n, dtype=np.float64) * np.float64(rate),
                   1.0).astype(np.float32)
+
+
+def _frac_mul(idx, rate, max_val: int) -> torch.Tensor:
+    """frac(idx * rate) for a float32 tensor ``rate`` and non-negative
+    int32 ``idx`` (an int or a tensor; the two broadcast), with an error
+    of ~1 ULP of a cycle whatever idx (csdr_tpu/ops/shift.py:39-64).
+
+    idx splits into 12-bit digits d_k, and frac(idx*rate) = frac(sum
+    d_k*s_k) with s_k = frac(4096^k * rate), exact in float32; each s_k
+    splits into a 12-bit head, whose product with d_k is exact, and a tail
+    of less than 2^-12.  The tail's product is added in one rounding, as
+    the fma XLA contracts it into (:func:`fma_f32`).  A number becomes a
+    0-dim CPU tensor, which a CUDA op takes as a scalar: no copy, no
+    sync."""
+    rate = torch.as_tensor(rate, dtype=torch.float32)
+    idx = torch.as_tensor(idx, dtype=torch.int32)
+    dev = rate.device if rate.is_cuda else idx.device
+    rate = torch.remainder(rate, 1.0)
+    acc = torch.zeros(torch.broadcast_shapes(idx.shape, rate.shape),
+                      dtype=torch.float32, device=dev)
+    step = rate
+    for shift in range(0, 31, 12):
+        digit = ((idx >> shift) & 0xFFF).float()
+        s_hi = torch.floor(step * 4096.0) * (1.0 / 4096.0)
+        s_lo = step - s_hi
+        acc = torch.remainder(acc + torch.remainder(digit * s_hi, 1.0), 1.0)
+        acc = torch.remainder(fma_f32(digit, s_lo, acc), 1.0)
+        step = torch.remainder(step * 4096.0, 1.0)
+        if (1 << (shift + 12)) >= max_val:
+            break
+    return acc
+
+
+def _frac_cycles_dynamic(n: int, rate, device=None) -> torch.Tensor:
+    """frac(arange(n)*rate) for a tensor rate, on ``device`` (the rate's
+    by default); a rate of shape (C, 1) gives (C, n)."""
+    rate = torch.as_tensor(rate, dtype=torch.float32)
+    return _frac_mul(torch.arange(n, dtype=torch.int32,
+                                  device=device or rate.device), rate, n)
+
+
+def _wrap_phase(p: torch.Tensor) -> torch.Tensor:
+    """Wrap to (-pi, pi] like the reference's while-loops, in float32."""
+    return torch.remainder(torch.as_tensor(p, dtype=torch.float32) + np.pi,
+                           TWO_PI) - np.pi
+
+
+def _advance_phase(phase, frac: torch.Tensor) -> torch.Tensor:
+    """phase + 2*pi*frac (radians, ``frac`` in cycles) in one float32
+    rounding, as compiled csdr_tpu computes it, wrapped to (-pi, pi]."""
+    phase = torch.as_tensor(phase, dtype=torch.float32)
+    return _wrap_phase(fma_f32(TWO_PI_F32, frac, phase))
 
 
 def _next_phase(phase, n: int, rate: float) -> torch.Tensor:
@@ -42,11 +102,22 @@ def _next_phase(phase, n: int, rate: float) -> torch.Tensor:
     return torch.tensor(np.float32(np.mod(p + pi, two_pi) - pi))
 
 
-def shift_cc(x: torch.Tensor, rate: float, phase=0.0):
+def shift_cc(x: torch.Tensor, rate, phase=0.0):
     """Mix complex64 ``x`` by ``rate`` cycles/sample starting at ``phase``
-    (radians, float or 0-dim tensor); returns (y, next_phase) with
-    next_phase a float32 0-dim CPU tensor."""
-    n = x.shape[0]
+    (radians); returns (y, next_phase).
+
+    A Python-number rate takes exact float64 host ramps, and next_phase
+    is a float32 0-dim CPU tensor.  A tensor rate (or a numpy float32)
+    takes the traced-rate path on ``x``'s device (csdr_tpu/ops/shift.py:
+    87-92): x may be (C, n) with rate and phase shaped (C, 1), and
+    next_phase is a float32 tensor there."""
+    n = x.shape[-1]
+    if not isinstance(rate, (int, float)):
+        rate = torch.as_tensor(rate, dtype=torch.float32)
+        phase = torch.as_tensor(phase, dtype=torch.float32)
+        y = x * expj(phase + TWO_PI * _frac_cycles_dynamic(n, rate,
+                                                           x.device))
+        return y, _advance_phase(phase, _frac_mul(n, rate, n + 1))
     cycles = torch.from_numpy(_frac_cycles_static(n, rate)).to(x.device)
     # a 0-dim CPU phase enters a CUDA op as a scalar: no copy, no sync
     y = x * expj(torch.as_tensor(phase, dtype=torch.float32)
@@ -86,3 +157,39 @@ class ShiftBlock(Block):
 
 def shift_block(rate: float, name: str = "shift_cc") -> Block:
     return ShiftBlock(rate, name)
+
+
+def decimating_shift_cc(x: torch.Tensor, rate, decimation: int, phase=0.0,
+                        start_offset=0):
+    """Fused shift and decimate (reference libcsdr_gpl.c:126-160
+    decimating_shift_addition_cc; csdr_tpu/ops/shift.py:119-157): every
+    ``decimation``-th sample from ``start_offset`` on, rotated by an NCO
+    stepping ``rate`` cycles per taken sample (callers pass
+    rate*decimation, fastddc.c:69).
+
+    Returns (y, count, next_phase, next_offset): y has capacity
+    ceil(n/decimation) with zeros past ``count``; count is an int32
+    0-dim tensor on x's device, next_offset ``start_offset +
+    decimation*count - n`` likewise, and next_phase a float32 tensor
+    there.  ``start_offset`` may be an int or such a tensor, so a stream
+    of calls never waits on the device."""
+    n_in, d = x.shape[0], int(decimation)
+    cap = (n_in + d - 1) // d
+    dev = x.device
+    off = torch.as_tensor(start_offset, dtype=torch.int32)
+    idx = off + d * torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = idx < n_in
+    taken = torch.where(valid, x[idx.clamp(max=max(n_in - 1, 0)).long()],
+                        0) if n_in else x.new_zeros(cap)
+    if isinstance(rate, (int, float)):
+        cycles = torch.from_numpy(_frac_cycles_static(cap, rate)).to(dev)
+    else:
+        cycles = _frac_mul(torch.arange(cap, dtype=torch.int32, device=dev),
+                           rate, cap)
+    ph = torch.as_tensor(phase, dtype=torch.float32)
+    y = torch.where(valid, taken * expj(ph + TWO_PI * cycles), 0)
+    count = valid.sum(dtype=torch.int32)
+    # count is a tensor, so even a Python rate goes through the digit split
+    rate32 = np.float32(rate) if isinstance(rate, (int, float)) else rate
+    next_phase = _advance_phase(ph, _frac_mul(count, rate32, cap + 1))
+    return y, count, next_phase, off + d * count - n_in

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Block, VarOut, resolve_device
+from csdr_tpu_torch.core.precision import fma_f32
 
 TWO_PI = 2.0 * np.pi
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -31,26 +32,6 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 def _wrap_pi(p: torch.Tensor) -> torch.Tensor:
     """while(p>pi) p-=2pi; while(p<-pi) p+=2pi;"""
     return torch.remainder(p + np.pi, TWO_PI) - np.pi
-
-
-def _fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
-    """x*y + z rounded once to float32, as the fused multiply-add that
-    XLA's CPU backend contracts ``a*b + c*d`` into (``fma(a, b, c*d)``).
-    The product is exact in float64; the sum is rounded to odd there (an
-    inexact sum with an even last bit moves one ulp towards the exact
-    value, whose error TwoSum gives), and rounding that to float32 is the
-    correctly rounded fma (Boldo and Melquiond, "Emulation of FMA and
-    correctly rounded sums: proved algorithms using rounding to odd",
-    2008).  Separate torch ops in float64: the same bits on the CPU and
-    on the card."""
-    p = x.double() * y.double()
-    z = z.double()
-    s = p + z
-    bb = s - p
-    e = (p - (s - bb)) + (z - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((e != 0) & even, torch.nextafter(s, e * np.inf), s)
-    return s.float()
 
 
 def _loop_state(state, shape, device) -> tuple:
@@ -324,7 +305,7 @@ class TimingRecoveryBlock(Block):
             v = torch.gather(planes, 1, at).reshape(lead + (3, 2))
             diff = v[..., 0, :] - v[..., 1, :]
             if self.use_q:      # (d_re + d_im) / 2, d_re's product fused
-                error = _fma_f32(diff[..., 0], v[..., 2, 0],
+                error = fma_f32(diff[..., 0], v[..., 2, 0],
                                  diff[..., 1] * v[..., 2, 1]) / 2
             else:
                 error = diff[..., 0] * v[..., 2, 0]

@@ -207,9 +207,11 @@ def test_fastagc_three_block_latency_and_jax():
 
 @pytest.mark.parametrize("zero_run", [False, True])
 def test_simple_agc_matches_jax(zero_run):
-    """Held against csdr_tpu, which its own tests hold to the C
-    reference, the zero-run case included
-    (tests/test_agc.py::test_simple_agc_zero_run_matches_reference)."""
+    """Held against csdr_tpu.  csdr_tpu's own golden of the zero-run case
+    against the C reference
+    (tests/test_agc.py::test_simple_agc_zero_run_matches_reference) fails
+    in some tier-1 runs and passes in others, so the zero-run case rests
+    on csdr_tpu alone."""
     if zero_run:
         x = np.zeros(300, np.complex64)
         x[:100] = 0.5

@@ -45,8 +45,11 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
             "import csdr_tpu_torch.ops.sync, csdr_tpu_torch.ops.digital\n"
             "import csdr_tpu_torch.ops.noise, csdr_tpu_torch.models.bpsk31\n"
             "import csdr_tpu_torch.models.multichannel\n"
+            "import csdr_tpu_torch.ops.shift, csdr_tpu_torch.server.ddcd\n"
+            "import csdr_tpu_torch.server.nmux\n"
             "import chip_smoke, check_kernels\n"
             "assert callable(chip_smoke.phase_bank_paths)\n"
+            "assert callable(chip_smoke.phase_server_paths)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'csdr_tpu' "
             "or m.startswith('csdr_tpu.')]\n"
@@ -60,6 +63,8 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
 def test_port_source_has_no_jax_imports():
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 12
+    assert PKG / "server" / "ddcd.py" in sources
+    assert PKG / "server" / "nmux.py" in sources
     sources += [ROOT / "chip_smoke.py", ROOT / "check_kernels.py"]
     for p in sources:
         for i, line in enumerate(p.read_text().splitlines(), 1):
