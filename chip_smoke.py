@@ -100,6 +100,37 @@ prints one JSON line per phase and exits non-zero at the first failure:
    bypass=1), and path S's server with six tone slots and six noise-only
    slots, card and CPU against float64 per channel.
 
+12. the byte edge: K3 forward at the waterfall's N=4096, B=837 against its
+   plain version and cuFFT, and what W's fft_cc runs (K3 and the
+   natural-order gather, fft_natural) against cuFFT; the IMA ADPCM codec
+   kernel, encode and decode, against its plain version on the card bit
+   for bit (the 9 rows of a real waterfall chunk, dB rows holding -inf,
+   +inf, NaN and +-400 dB through compress_fft_adpcm_rows, a stream in
+   two chunks of 2048 with the state carried, W1's 48 000-sample audio
+   chunk), with its time beside its bound: the encoder's shortest step
+   chain and the decoder's scan depth, each timed in SM cycles by the
+   codec source's probe; then
+   W   OpenWebRX's waterfall at its defaults (fft_size 4096, fft_fps 9,
+       fft_voverlap_factor 0.3 at 2.4 Msps: 93 frames averaged, a frame
+       every 2867 samples) from raw u8 I/Q, 10 chunks of 2 399 679 samples
+       (1 s, 9 rows, 837 frames): convert_u8_c | fft_cc_block(4096, 2867)
+       | logaveragepower_block(-70, 4096, 93) | fft_exchange_sides_ff |
+       compress_fft_adpcm_rows: K3 once and the codec once a chunk, four
+       tones each in its column within 1 bin, the card's bytes equal to
+       the plain codec's on the card's dB rows, linear averaged power card
+       vs CPU >= 100 dB (the share of rows whose bytes equal the CPU's
+       reported, not gated), and run_offline from the host array bit for
+       bit the same;
+   W1  BASELINE config 1 with OpenWebRX's compressed audio from raw u8
+       I/Q: 10 s of the FM 1 kHz tone at 240 ksps, convert_u8_c |
+       wfm_basic() | convert_f_s16 | paired_encode_block() (whole sample
+       pairs, as csdr_tpu's CLI pumps them), the bytes decoded by
+       decode_block() as a client would: the codec once a chunk each way,
+       the tone at 1 kHz within 5 Hz, card vs CPU audio >= 60 dB, the
+       card's bytes equal to the plain codec's over 2 x 2048 samples, the
+       decoded tone at 1 kHz within 5 Hz;
+   and each one's cost a chunk (Msps, device-only ms, busy share).
+
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
 per-channel SNRs, the worst frame) to chiprun_out/mismatch_<path>.npz
@@ -445,7 +476,11 @@ def phase_kernels(torch):
         {"kernel": "K4 fastddc _inv_kernel", "status": "ported",
          "wrapper": "csdr_tpu_torch.kernels.fastddc_cuda.fastddc_inv"},
         {"kernel": "K5 _fir_poly_kernel", "status": "ported",
-         "wrapper": "csdr_tpu_torch.kernels.fir_cuda.fir_decimate_poly"}])
+         "wrapper": "csdr_tpu_torch.kernels.fir_cuda.fir_decimate_poly"},
+        {"kernel": "IMA ADPCM codec", "status": "ported",
+         "counterpart_of": "lax.scan in csdr_tpu/ops/adpcm.py:69, 82 (no "
+                           "Pallas kernel)",
+         "wrapper": "csdr_tpu_torch.kernels.adpcm_cuda.encode / decode"}])
     return cases, headline
 
 
@@ -734,14 +769,17 @@ def phase_throughput(torch, x, wall, chunks):
 # ---------------------------------------------------------------------------
 
 def reset_all() -> None:
-    from csdr_tpu_torch.kernels import fastddc_cuda, fft_cuda, fir_cuda
-    for mod in (fir_cuda, fft_cuda, fastddc_cuda):
+    from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
+                                        fir_cuda)
+    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda):
         mod.reset_launches()
 
 
 def launches_all() -> dict:
-    from csdr_tpu_torch.kernels import fastddc_cuda, fft_cuda, fir_cuda
-    return {**fir_cuda.LAUNCHES, **fft_cuda.LAUNCHES, **fastddc_cuda.LAUNCHES}
+    from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
+                                        fir_cuda)
+    return {**fir_cuda.LAUNCHES, **fft_cuda.LAUNCHES, **fastddc_cuda.LAUNCHES,
+            **adpcm_cuda.LAUNCHES}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
@@ -2143,6 +2181,473 @@ def quiet_inverse_split(torch, srv, x, ramp, keep, loud, quiet) -> dict:
             "plain_on_card_vs_f64_loud_min_db": float(sp[loud].min())}
 
 
+# ---------------------------------------------------------------------------
+# the byte edge: the waterfall (W) and BASELINE config 1 (W1), both from raw
+# u8 I/Q, and the ADPCM codec kernel they end in
+# ---------------------------------------------------------------------------
+
+ADPCM_SOURCE = "csdr_tpu_torch/csrc/adpcm.cu"
+W_FFT = 4096               # OpenWebRX's defaults: fft_size 4096,
+W_FPS = 9                  # fft_fps 9 and fft_voverlap_factor 0.3 at 2.4 Msps
+W_AVG = int(round(FS / W_FFT / W_FPS / (1 - 0.3)))     # fft_averages: 93
+W_EVERY = int(FS / W_FPS / W_AVG)                      # fft_block_size: 2867
+W_CHUNK = W_EVERY * W_AVG * W_FPS    # 2 399 679 samples: 1 s, 9 rows, 837 frames
+W_CHUNKS = 10
+W_ADD_DB = -70.0
+W_TONES = (-0.3125, -0.1, 0.05, 0.21)   # cycles/sample, loudest first
+W_POWER_BAR = 100.0        # card vs CPU, linear averaged power, dB (fastddc's)
+W1_FS = 240_000            # BASELINE config 1: 240 ksps u8 I/Q
+W1_CHUNK = 240_000
+W1_CHUNKS = 10
+ADPCM_CUT = 2048           # samples a chunk where the plain codec runs on a path
+SM_CLOCK_HZ = 1.98e9       # H100 SXM top SM clock
+INT32_OPS = 132 * 64 * SM_CLOCK_HZ   # H100 SXM: 132 SMs x 64 INT32 lanes
+# integer ops a codec step, counted from csdr_tpu's _encode_step and
+# _decode_step (csrc/adpcm.cu's note)
+STEP_OPS = {"adpcm_encode": 44, "adpcm_decode": 23}
+PROBE_LINKS = 1 << 16      # links of each chain the probe times
+
+
+def waterfall_u8(c: int) -> np.ndarray:
+    """Chunk ``c`` of W's input: the tones of W_TONES (float64 phase over the
+    whole stream) plus complex noise, quantised to interleaved u8 I/Q as an
+    RTL-SDR delivers it."""
+    rng = np.random.default_rng(100 + c)
+    s = np.arange(c * W_CHUNK, (c + 1) * W_CHUNK, dtype=np.float64)
+    x = 0.02 * (rng.standard_normal(W_CHUNK)
+                + 1j * rng.standard_normal(W_CHUNK))
+    for k, f in enumerate(W_TONES):
+        x += 0.25 / (k + 1) * np.exp(2j * np.pi * np.mod(f * s, 1.0))
+    return iq_to_u8(x, 127.5)
+
+
+def iq_to_u8(x: np.ndarray, scale: float) -> np.ndarray:
+    iq = np.empty(2 * len(x))
+    iq[0::2], iq[1::2] = x.real, x.imag
+    return np.clip(np.round(127.5 + scale * iq), 0, 255).astype(np.uint8)
+
+
+def waterfall_chain():
+    """OpenWebRX's waterfall from raw u8 I/Q: convert_u8_c | fft_cc 4096 2867
+    | logaveragepower_cf -70 4096 93 | fft_exchange_sides_ff 4096 |
+    compress_fft_adpcm_f_u8 4096; a chunk's dB rows are block 3's output."""
+    from csdr_tpu_torch import Pipeline, stateless
+    from csdr_tpu_torch.ops import convert, spectrum
+
+    return Pipeline([
+        stateless("convert_u8_c", convert.convert_u8_c),
+        spectrum.fft_cc_block(W_FFT, W_EVERY),
+        spectrum.logaveragepower_block(W_ADD_DB, W_FFT, W_AVG),
+        stateless("fft_exchange_sides_ff", lambda x: (
+            spectrum.fft_exchange_sides_ff(x.reshape(-1, W_FFT)))),
+        stateless("compress_fft_adpcm_f_u8", lambda rows: (
+            spectrum.compress_fft_adpcm_rows(rows, W_FFT))),
+    ], name="waterfall")
+
+
+def config1_chain():
+    """BASELINE config 1 with OpenWebRX's compressed audio, from raw u8
+    I/Q: convert_u8_c | wfm_basic | convert_f_s16 | encode_ima_adpcm, the
+    encoder fed whole sample pairs as csdr_tpu's CLI pumps it (cli.py:1303:
+    wfm_basic's first chunk gives an odd count; its last sample waits)."""
+    from csdr_tpu_torch import Pipeline, stateless
+    from csdr_tpu_torch.models import wfm
+    from csdr_tpu_torch.ops import adpcm, convert
+
+    return Pipeline([stateless("convert_u8_c", convert.convert_u8_c),
+                     wfm.wfm_basic(),
+                     stateless("convert_f_s16", convert.convert_f_s16),
+                     adpcm.paired_encode_block()], name="config 1")
+
+
+def drive_blocks(pipe, state, x):
+    """``pipe(state, x)`` as Pipeline.forward runs it, block by block,
+    keeping every block's output."""
+    states, outs = [], []
+    for blk, s in zip(pipe.blocks, state):
+        s, x = blk(s, x)
+        states.append(s)
+        outs.append(x)
+    return tuple(states), outs
+
+
+def adpcm_chains(torch):
+    """SM cycles a link of the two chains that set the codec's bounds
+    (csrc/adpcm.cu's note), the least of three runs of PROBE_LINKS links
+    each, and the SM clock the card ran them at (a long run against CUDA
+    events)."""
+    from csdr_tpu_torch.kernels import adpcm_cuda
+
+    enc = min(adpcm_cuda.chain_cycles(0, PROBE_LINKS) for _ in range(3))
+    lvl = min(adpcm_cuda.chain_cycles(1, PROBE_LINKS) for _ in range(3))
+    require(enc > 1.0 and lvl > 1.0, f"adpcm chain probe: {enc} and {lvl} "
+                                     "cycles a link")
+    links = 64 * PROBE_LINKS
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    per_link = adpcm_cuda.chain_cycles(1, links)
+    stop.record()
+    stop.synchronize()
+    mhz = per_link * links / (start.elapsed_time(stop) * 1e3)
+    return {"encode_step_cycles": enc, "scan_level_cycles": lvl,
+            "sm_mhz_during_probe": mhz}
+
+
+def adpcm_case(torch, name, x, state, chains):
+    """The codec kernel ``name`` on (B, L) input against its plain version
+    on the card, bit for bit (outputs and states); its time, the plain
+    version's (one call) and its bound at the top SM clock: the encoder's
+    steps x the cycles of its shortest step chain, the decoder's 2 x
+    ceil(log2 steps) scan levels (``chains``, from adpcm_chains), or the
+    bytes or the integer ops if longer."""
+    from csdr_tpu_torch.kernels import adpcm_cuda
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    op = name.split("_")[1]
+    kern, plain = (getattr(adpcm_cuda, op),
+                   getattr(adpcm_cuda, op + "_plain"))
+    yk, sk = kern(x, state)
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault("p", plain(x, state)),
+                         iters=1, warmup=0, repeats=1)
+    yp, sp = box["p"]
+    torch.cuda.synchronize()
+    rows, width = x.shape
+    require(torch.equal(yk, yp) and torch.equal(sk, sp),
+            f"{name} ({rows}, {width}): kernel differs from plain")
+    ms = time_cuda(lambda: kern(x, state), iters=20, queue_ahead_ms=20.0)
+    steps = width if op == "encode" else 2 * width
+    nbytes = x.numel() * x.element_size() + yk.numel() * yk.element_size() \
+        + 2 * state.numel() * 4
+    t_bytes = nbytes / HBM_BPS * 1e3
+    if op == "encode":
+        cycles = steps * chains["encode_step_cycles"]
+        note = (f"serial chain: {steps} steps x "
+                f"{chains['encode_step_cycles']:.2f} SM cycles (the "
+                f"shortest step chain, probed)")
+    else:
+        levels = 2 * int(np.ceil(np.log2(steps)))
+        cycles = levels * chains["scan_level_cycles"]
+        note = (f"prefix scan: {levels} levels x "
+                f"{chains['scan_level_cycles']:.2f} SM cycles (probed)")
+    t_ops = max(cycles / SM_CLOCK_HZ,
+                rows * steps * STEP_OPS[name] / INT32_OPS) * 1e3
+    return {
+        "name": name, "route": "cuda", "source": ADPCM_SOURCE,
+        "replaces": ("csdr_tpu/ops/adpcm.py:69" if op == "encode" else
+                     "csdr_tpu/ops/adpcm.py:82") + " (lax.scan; no Pallas "
+                    "kernel)",
+        "shape": {"rows": rows, "steps": steps},
+        "bit_exact": True, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_note": note + f" at {SM_CLOCK_HZ / 1e6:.0f} MHz",
+        "cycles_a_step": ms * 1e-3 * SM_CLOCK_HZ / steps,
+        "library_ms": None, "bytes": nbytes,
+    }
+
+
+def codec_stream_case(torch, x):
+    """(1, 2*ADPCM_CUT) samples in two chunks with the state carried,
+    encoded and decoded: kernel and plain on the card, bit for bit."""
+    from csdr_tpu_torch.kernels import adpcm_cuda
+
+    st0 = torch.zeros((1, 2), dtype=torch.int32, device=x.device)
+    out = {}
+    for key, enc, dec in (("kernel", adpcm_cuda.encode, adpcm_cuda.decode),
+                          ("plain", adpcm_cuda.encode_plain,
+                           adpcm_cuda.decode_plain)):
+        b1, s1 = enc(x[:, :ADPCM_CUT], st0)
+        b2, s2 = enc(x[:, ADPCM_CUT:], s1)
+        d1, t1 = dec(b1, st0)
+        d2, t2 = dec(b2, t1)
+        out[key] = (torch.cat([b1, b2], 1), s2, torch.cat([d1, d2], 1), t2)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(out["kernel"],
+                                                 out["plain"]))
+
+
+def phase_byte_edge_kernels(torch):
+    """K3 forward at the waterfall's N=4096, B=837; the ADPCM kernel, encode
+    and decode, against its plain version on the card: on the 9 rows of a
+    real waterfall chunk (W's first), through compress_fft_adpcm_rows on dB
+    rows holding -inf, +inf, NaN and +-400 dB, on a stream in two chunks
+    with the state carried, and at W1's 48 000-sample audio chunk."""
+    from csdr_tpu_torch.ops import adpcm, spectrum
+    from csdr_tpu_torch.kernels import adpcm_cuda
+
+    from csdr_tpu_torch.kernels import fft_cuda
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    frames = W_CHUNK // W_EVERY
+    case_k3 = dict(fft_case(torch, "fft_ko", W_FFT, frames, 41), path="W")
+    # what W's fft_cc runs: K3 and the natural-order gather, beside cuFFT
+    xs = torch.randn(frames, W_FFT, dtype=torch.complex64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(43))
+    nat = fft_cuda.fft_natural(xs)
+    ref = torch.fft.fft(xs)
+    torch.cuda.synchronize()
+    nat_snr = snr_db(ref.cpu().numpy(), nat.cpu().numpy())
+    require(nat_snr > SNR_BAR, f"fft_natural N={W_FFT}: SNR {nat_snr:.1f} "
+                               f"dB vs torch.fft.fft <= {SNR_BAR}")
+    nat_ms = time_cuda(lambda: fft_cuda.fft_natural(xs), iters=40,
+                       queue_ahead_ms=20.0)
+    cufft_ms = time_cuda(lambda: torch.fft.fft(xs), iters=40,
+                         queue_ahead_ms=20.0)
+    emit("kernels", name="fft_natural", shape={"N": W_FFT, "B": frames},
+         check="fft_ko then ko_to_natural, as W's fft_cc runs it, against "
+               "torch.fft.fft", snr_db=nat_snr, ms=nat_ms,
+         library_ms=cufft_ms, k3_ms=case_k3["ms"],
+         gather_bytes=2 * 8 * frames * W_FFT)
+    chains = adpcm_chains(torch)
+    emit("kernels", name="adpcm_chain_probe", check="SM cycles a link of "
+         "the chains that bound the codec (csrc/adpcm.cu)", **chains)
+    pipe = waterfall_chain().to(dev)
+    with torch.no_grad():
+        _, outs = drive_blocks(pipe, pipe.init(dev),
+                               torch.from_numpy(waterfall_u8(0)).to(dev))
+    rows = outs[3]
+    s16 = adpcm.compress_fft_s16(rows)
+    zeros = torch.zeros((s16.shape[0], 2), dtype=torch.int32, device=dev)
+    case_w = dict(adpcm_case(torch, "adpcm_encode", s16, zeros, chains),
+                  path="W")
+    packed, _ = adpcm_cuda.encode(s16, zeros)
+    dec_w = adpcm_case(torch, "adpcm_decode", packed, zeros, chains)
+
+    # dB rows with every edge of the saturating float32 -> int16 cast
+    gen = np.random.default_rng(42)
+    edge = gen.uniform(-130, -20, (4, W_FFT)).astype(np.float32)
+    edge[0, :6] = [-np.inf, np.inf, np.nan, 400.0, -400.0, 327.675]
+    edge[1, 0], edge[2, 0], edge[3, 0] = -np.inf, np.nan, 400.0
+    edge[3, 100:120] = -400.0
+    edge_t = torch.from_numpy(edge).to(dev)
+    got = spectrum.compress_fft_adpcm_rows(edge_t, W_FFT)
+    e16 = adpcm.compress_fft_s16(edge_t)
+    want, _ = adpcm_cuda.encode_plain(
+        e16, torch.zeros((4, 2), dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    edges_same = torch.equal(got, want)
+    require(edges_same, "compress_fft_adpcm_rows: kernel differs from plain "
+                        "on the edge rows")
+    require(int(e16[0, 10]) == -32768 and int(e16[0, 11]) == 32767
+            and int(e16[0, 12]) == 0 and int(e16[3, 0]) == 32767,
+            "compress_fft_s16 does not saturate")
+
+    # W1's audio chunk: a 1 kHz tone at 48 ksps with its noise
+    t = np.arange(2 * AUDIO_RATE) / AUDIO_RATE
+    audio = (0.5 * np.sin(2 * np.pi * 1000 * t)
+             + 0.01 * gen.standard_normal(len(t)))
+    a16 = torch.from_numpy(np.round(audio * 32767).astype(np.int16)).to(dev)
+    stream_same = codec_stream_case(torch, a16[None, : 2 * ADPCM_CUT])
+    require(stream_same, "adpcm: kernel differs from plain on a stream in "
+                         "two chunks with the state carried")
+    one = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    x1 = a16[None, :AUDIO_RATE].contiguous()
+    case_w1 = dict(adpcm_case(torch, "adpcm_encode", x1, one, chains),
+                   path="W1")
+    p1, _ = adpcm_cuda.encode(x1, one)
+    case_w1d = dict(adpcm_case(torch, "adpcm_decode", p1, one, chains),
+                    path="W1")
+    for c in (case_k3, case_w, dec_w, case_w1, case_w1d):
+        emit("kernels", **c)
+    emit("kernels", name="adpcm", check="edges and a carried stream",
+         edge_rows_bit_exact=edges_same, stream_two_chunks_bit_exact=
+         stream_same, stream_chunk=ADPCM_CUT)
+    return [case_k3, case_w, case_w1, case_w1d]
+
+
+def phase_waterfall_path(torch):
+    """Path W: 10 chunks of 1 s of u8 I/Q at 2.4 Msps through the waterfall
+    chain on the card, with every launch count zeroed just before and read
+    just after: K3 once and the codec once a chunk, each tone in its
+    column, the card's bytes equal to the plain codec's on the card's own
+    dB rows, the linear averaged power equal to the port's CPU run at
+    W_POWER_BAR (and the share of rows whose bytes equal the CPU's,
+    ungated); then the same through run_offline from the host array (the
+    host clock with the u8 upload), bit for bit the first run."""
+    from csdr_tpu_torch import run_offline
+    from csdr_tpu_torch.kernels import adpcm_cuda
+    from csdr_tpu_torch.ops import adpcm
+
+    dev = torch.device("cuda")
+    u8 = [waterfall_u8(c) for c in range(W_CHUNKS)]
+    pipe = waterfall_chain().to(dev)
+
+    def drive(device):
+        p = pipe.to(device)
+        state, rows, sent = p.init(device), [], []
+        with torch.no_grad():
+            for b in u8:
+                state, outs = drive_blocks(p, state,
+                                           torch.from_numpy(b).to(device))
+                rows.append(outs[3])
+                sent.append(outs[4])
+        return torch.cat(rows), torch.cat(sent)
+
+    reset_all()
+    t0 = time.perf_counter()
+    rows, sent = drive(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    nrows = W_CHUNKS * W_FPS
+    require_launches(launches, {"fft_ko": W_CHUNKS,
+                                "adpcm_encode": W_CHUNKS}, "path W")
+    require(rows.shape == (nrows, W_FFT) and sent.shape == (
+        nrows, (W_FFT + 10) // 2), f"path W: rows {tuple(rows.shape)}, "
+                                   f"bytes {tuple(sent.shape)}")
+    plain, _ = adpcm_cuda.encode_plain(adpcm.compress_fft_s16(rows), torch.zeros(
+        (nrows, 2), dtype=torch.int32, device=dev))
+    require(torch.equal(plain, sent), "path W: the card's bytes differ from "
+                                      "the plain codec's on its own rows")
+    db = rows.cpu().numpy()
+    require(np.all(np.isfinite(db)), "path W: dB rows not finite")
+    tone_cols = {}
+    for f in W_TONES:
+        col = (round(f * W_FFT) + W_FFT // 2) % W_FFT
+        win = db[:, col - 8: col + 9]
+        off = np.argmax(win, axis=1) - 8
+        above = win.max(axis=1) - np.median(db, axis=1)
+        require(np.all(np.abs(off) <= 1) and np.all(above > 20),
+                f"path W: tone {f} not in column {col} (offsets "
+                f"{sorted(set(off.tolist()))}, {above.min():.1f} dB above "
+                f"the median)")
+        tone_cols[str(f)] = {"column": col, "worst_offset": int(
+            np.abs(off).max()), "min_db_above_median": float(above.min())}
+    cpu_rows, cpu_sent = drive(torch.device("cpu"))
+    pipe.to(dev)
+    power_snr = require_match("path_W: card vs CPU linear averaged power",
+                              10 ** (db / 10), 10 ** (cpu_rows.numpy() / 10),
+                              W_POWER_BAR)
+    same_rows = float(np.mean(np.all(sent.cpu().numpy() == cpu_sent.numpy(),
+                                     axis=1)))
+    reset_all()
+    t0 = time.perf_counter()
+    out = run_offline(pipe, np.concatenate(u8), block_size=2 * W_CHUNK)
+    wall_ro = time.perf_counter() - t0
+    launches_ro = launches_all()
+    require_launches(launches_ro, {"fft_ko": W_CHUNKS,
+                                   "adpcm_encode": W_CHUNKS},
+                     "path W through run_offline")
+    require(np.array_equal(out, sent.cpu().numpy()),
+            "path W: run_offline's bytes differ from the first run's")
+    emit("path", path="W", pipeline="convert_u8_c | fft_cc_block(4096, "
+         "2867) | logaveragepower_block(-70, 4096, 93) | "
+         "fft_exchange_sides_ff | compress_fft_adpcm_rows",
+         chunks=W_CHUNKS, chunk=W_CHUNK, frames=W_CHUNK // W_EVERY,
+         rows=nrows, launches=launches, tones=tone_cols,
+         card_vs_cpu_power_snr_db=power_snr, power_bar_db=W_POWER_BAR,
+         rows_bytes_equal_cpu_share=same_rows, drive_s=wall,
+         run_offline_s=wall_ro,
+         host_clock_msps=W_CHUNKS * W_CHUNK / wall_ro / 1e6)
+    return {"launches": launches, "pipe": pipe, "u8": u8[:3],
+            "wall": wall_ro}
+
+
+def config1_u8(n: int) -> np.ndarray:
+    """The verify skill's FM 1 kHz tone (75 kHz deviation) at 240 ksps,
+    quantised to u8 I/Q."""
+    return iq_to_u8(fm_tone(n, fs=W1_FS, carrier=0.0), 120.0)
+
+
+def phase_config1_path(torch):
+    """Path W1: 10 s of u8 I/Q through config1_chain on the card, the bytes
+    decoded chunk by chunk by decode_block as a client would, launch
+    counts zeroed just before and read just after: the codec once a chunk
+    each way, the audio tone at 1 kHz, card vs CPU audio at AUDIO_BAR, the
+    card's bytes equal to the plain codec's on the card's s16 over 2 x
+    ADPCM_CUT samples (state carried), the decoded tone at 1 kHz."""
+    from csdr_tpu_torch import Pipeline, VarOut
+    from csdr_tpu_torch.kernels import adpcm_cuda
+    from csdr_tpu_torch.ops import adpcm
+
+    dev = torch.device("cuda")
+    b = config1_u8(W1_CHUNKS * W1_CHUNK)
+    chunks = [b[2 * c * W1_CHUNK: 2 * (c + 1) * W1_CHUNK]
+              for c in range(W1_CHUNKS)]
+    pipe = config1_chain()
+
+    def drive(device, blocks):
+        """The first ``blocks`` blocks over every chunk; with all four, the
+        bytes decoded chunk by chunk as a client decodes them."""
+        p = Pipeline(list(pipe.blocks)[:blocks]).to(device)
+        state, dec = p.init(device), adpcm.decode_block()
+        sd = dec.init(device)
+        got = [[] for _ in range(blocks + 1)]
+        with torch.no_grad():
+            for chunk in chunks:
+                state, outs = drive_blocks(p, state,
+                                           torch.from_numpy(chunk).to(device))
+                for k, y in enumerate(outs):
+                    got[k].append(y.compact() if isinstance(y, VarOut)
+                                  else y)
+                if blocks == len(pipe.blocks):
+                    sd, y = dec(sd, outs[-1])
+                    got[-1].append(y)
+        return [torch.cat(v).cpu().numpy() for v in got if v]
+
+    reset_all()
+    t0 = time.perf_counter()
+    _, audio, s16, sent, back = drive(dev, 4)
+    wall = time.perf_counter() - t0
+    launches = launches_all()
+    require_launches(launches, {"adpcm_encode": W1_CHUNKS,
+                                "adpcm_decode": W1_CHUNKS}, "path W1")
+    hz = tone_hz(audio)
+    require(np.all(np.isfinite(audio)) and abs(hz - 1000.0) < 5.0,
+            f"path W1: audio tone at {hz} Hz")
+    require(len(sent) == len(s16) // 2 and len(back) == len(sent) * 2,
+            "path W1: byte and sample counts")
+    cpu_audio = drive(torch.device("cpu"), 2)[1]
+    pipe.to(dev)
+    snr = require_match("path_W1: card vs CPU audio", audio, cpu_audio,
+                        AUDIO_BAR, frame=W1_CHUNK // 5)
+    cut = torch.from_numpy(s16[: 2 * ADPCM_CUT]).to(dev)[None]
+    st = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    p1, st = adpcm_cuda.encode_plain(cut[:, :ADPCM_CUT], st)
+    p2, _ = adpcm_cuda.encode_plain(cut[:, ADPCM_CUT:], st)
+    plain = torch.cat([p1, p2], 1)[0].cpu().numpy()
+    require(np.array_equal(plain, sent[:ADPCM_CUT]),
+            "path W1: the card's bytes differ from the plain codec's")
+    dec_hz = tone_hz(back.astype(np.float32))
+    require(abs(dec_hz - 1000.0) < 5.0,
+            f"path W1: decoded tone at {dec_hz} Hz")
+    emit("path", path="W1", pipeline="convert_u8_c | wfm_basic() | "
+         "convert_f_s16 | paired_encode_block(), decode_block() at the "
+         "client", chunks=W1_CHUNKS, chunk=W1_CHUNK, launches=launches,
+         adpcm_launches_a_chunk={k: v / W1_CHUNKS for k, v in
+                                 launches.items() if k.startswith("adpcm")},
+         audio_samples=len(audio), bytes=len(sent), tone_hz=hz,
+         decoded_tone_hz=dec_hz, card_vs_cpu_snr_db=snr,
+         plain_codec_samples=2 * ADPCM_CUT, drive_s=wall,
+         host_clock_msps=W1_CHUNKS * W1_CHUNK / wall / 1e6)
+    return {"launches": launches, "pipe": pipe,
+            "u8": chunks[:3], "wall": wall}
+
+
+def phase_byte_edge_paths(torch):
+    """Paths W and W1, then the cost of each a chunk."""
+    paths = {"W": phase_waterfall_path(torch),
+             "W1": phase_config1_path(torch)}
+    dev = torch.device("cuda")
+    for key, chunk, label in (("W", W_CHUNK, "waterfall"),
+                              ("W1", W1_CHUNK, "config 1")):
+        p = paths[key]
+        xs = [torch.from_numpy(b).to(dev) for b in p["u8"]]
+        tp = throughput(torch, p["pipe"], xs)
+        tp["chunk_samples"] = chunk
+        tp["msps"] = chunk / tp["step_ms"] / 1e3
+        emit("throughput", path=key, pipeline=label, **tp,
+             device_msps=chunk / tp["device_ms"] / 1e3,
+             note="chunk: u8 bytes a step (2 a sample); msps: complex "
+                  "samples over step_ms; " + TP_NOTE.replace(
+                      "run_offline_msps", "the path line's host_clock_msps"))
+    return {k: v["launches"] for k, v in paths.items()}
+
+
 def _ssb_pre(make):
     from csdr_tpu_torch import Pipeline
     pipe = make()
@@ -2177,11 +2682,15 @@ def run(torch) -> int:
     phase_bank_throughput(torch, banks)
     servers, server_cases = phase_server_paths(torch)
     quiet_server(torch)
+    edge_cases = phase_byte_edge_kernels(torch)
+    edge = phase_byte_edge_paths(torch)
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
     # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
-    # K2 at D=16/T=79 from the td server
+    # K2 at D=16/T=79 from the td server, K3 forward at N=4096 and the
+    # codec's encoder on 9 rows from W, the codec both ways on one audio
+    # stream from W1
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
@@ -2194,7 +2703,13 @@ def run(torch) -> int:
         "C": ("C: ssb_receiver(agc_on=False)", ssb[0]),
         "P": ("P: fir_decimate_poly_or_plain, D=10, T=1023", launches_p),
         "S''": ("S'': DdcdServer(16, 0.05, max_channels=8, method='td', "
-                "frames=64)", servers["S''"]["launches"])}
+                "frames=64)", servers["S''"]["launches"]),
+        "W": ("W: convert_u8_c | fft_cc_block(4096, 2867) | "
+              "logaveragepower_block(-70, 4096, 93) | fft_exchange_sides_ff "
+              "| compress_fft_adpcm_rows", edge["W"]),
+        "W1": ("W1: convert_u8_c | wfm_basic() | convert_f_s16 | "
+               "paired_encode_block(), decode_block() at the client",
+               edge["W1"])}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
@@ -2204,7 +2719,7 @@ def run(torch) -> int:
             ("fastddc_inv", "A"): {"G'": banks["G'"]["launches"],
                                    "S": servers["S"]["launches"]}}
     table = []
-    for c in cases + new_cases + poly_cases + server_cases:
+    for c in cases + new_cases + poly_cases + server_cases + edge_cases:
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)
@@ -2216,7 +2731,8 @@ def run(torch) -> int:
                         f"{c['name']} not launched on path {other}")
                 c["launches_by_path"][other] = got[c["name"]]
         table.append({k: c[k] for k in keys + ("bound_tc_ms",
-                                               "launches_by_path")
+                                               "launches_by_path",
+                                               "bound_note")
                       if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

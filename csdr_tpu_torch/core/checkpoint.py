@@ -239,7 +239,9 @@ def state_from_jax_leaves(block, leaves, device="cuda") -> object:
     td method's phases and tails).  Every other block reads its leaves
     as :func:`state_from_numpy_leaves` does (the AGC's float32 gain, int32
     hang and bool ``started``, fastagc's buffers and peaks, the FIR and
-    de-emphasis tails).  Any shape, dtype or value mismatch raises."""
+    de-emphasis tails, ``fft_cc_block``'s overlap tail from its planar
+    pair, the ADPCM blocks' int32 (prev, index)).  Any shape, dtype or
+    value mismatch raises."""
     reader = JaxLeaves(leaves, resolve_device(device))
     state = _state_from_jax(block, reader)
     reader.done()

@@ -26,9 +26,15 @@ def expj(theta: torch.Tensor) -> torch.Tensor:
 
 def from_numpy(x: np.ndarray, device="cuda") -> torch.Tensor:
     """Host array -> tensor on ``device``: complex input becomes complex64,
-    real input float32."""
+    floating input float32; integer input (u8 I/Q bytes, s16 audio) keeps
+    its type, as csdr_tpu's stream runner passes it."""
     x = np.asarray(x)
-    dtype = np.complex64 if np.iscomplexobj(x) else np.float32
+    if np.iscomplexobj(x):
+        dtype = np.complex64
+    elif np.issubdtype(x.dtype, np.integer):
+        dtype = x.dtype
+    else:
+        dtype = np.float32
     return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
 
 

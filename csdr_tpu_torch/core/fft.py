@@ -25,6 +25,12 @@ def ifft(x: torch.Tensor, normalize: bool = False) -> torch.Tensor:
     return torch.fft.ifft(x, norm="backward" if normalize else "forward")
 
 
+def rfft(x: torch.Tensor) -> torch.Tensor:
+    """Real-input forward DFT with the full-size output, as csdr_tpu's
+    (the reference's r2c keeps n/2+1 bins; callers slice)."""
+    return torch.fft.fft(x.to(torch.float32))
+
+
 def fft_swap_sides(x: torch.Tensor) -> torch.Tensor:
     """fftshift over the last axis (reference fastddc.c:91-104)."""
     return torch.roll(x, x.shape[-1] // 2, dims=-1)

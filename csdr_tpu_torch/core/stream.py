@@ -42,8 +42,7 @@ class StreamRunner:
                                       else y))
         if not outs:
             # no full block fit: run one zero block for the output dtype
-            zeros = np.zeros((n,), np.complex64 if np.iscomplexobj(x)
-                             else np.float32)
+            zeros = np.zeros((n,), np.asarray(x).dtype)
             _, y = self.pipeline(state, cplx.from_numpy(zeros, self.device))
             probe = cplx.to_numpy(y.data if isinstance(y, VarOut) else y)
             return np.zeros((0,) + probe.shape[1:], probe.dtype)

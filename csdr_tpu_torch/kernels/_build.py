@@ -41,6 +41,9 @@ _SIGNATURES = {
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _VP],
     "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _I, _I, _VP, _VP],
+    "csdr_adpcm_encode": [_VP, _VP, _VP, _VP, _I, _LL, _VP],
+    "csdr_adpcm_decode": [_VP, _VP, _VP, _VP, _I, _LL, _VP],
+    "csdr_adpcm_chain_probe": [_VP, _VP, _I, _I, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {

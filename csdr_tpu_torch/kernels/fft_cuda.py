@@ -167,6 +167,26 @@ def fft_ko(x: torch.Tensor) -> torch.Tensor:
     return _launch("fft_ko", x)
 
 
+def ko_to_natural(x: torch.Tensor) -> torch.Tensor:
+    """Kernel-bin-order spectra -> natural order (counterpart of
+    ``fft_pallas.ko_to_natural``): one gather by :func:`kernel_perm` over
+    the last axis, on either device.  csdr_tpu writes it as a tile shuffle
+    and a transpose because a bulk gather is slow on its TPU; the values
+    are the same."""
+    return x[..., _index(x.shape[-1], "perm", str(x.device))]
+
+
+def fft_natural(x: torch.Tensor) -> torch.Tensor:
+    """Forward DFT over the last axis in natural bin order (counterpart of
+    ``fft_pallas.fft_natural``): the kernel, then :func:`ko_to_natural`.
+    CUDA tensors launch the kernel and raise where it does not take N;
+    CPU tensors take ``torch.fft.fft``."""
+    _check(x)
+    if not x.is_cuda:
+        return torch.fft.fft(x)
+    return ko_to_natural(_launch("fft_ko", x))
+
+
 def ifft_ko(x: torch.Tensor) -> torch.Tensor:
     """Inverse DFT (unnormalized) from kernel bin order to natural order.
     CUDA tensors launch the kernel; CPU tensors take :func:`ifft_ko_plain`."""

@@ -47,9 +47,12 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
             "import csdr_tpu_torch.models.multichannel\n"
             "import csdr_tpu_torch.ops.shift, csdr_tpu_torch.server.ddcd\n"
             "import csdr_tpu_torch.server.nmux\n"
+            "import csdr_tpu_torch.ops.convert, csdr_tpu_torch.ops.spectrum\n"
+            "import csdr_tpu_torch.ops.adpcm, csdr_tpu_torch.kernels.adpcm_cuda\n"
             "import chip_smoke, check_kernels\n"
             "assert callable(chip_smoke.phase_bank_paths)\n"
             "assert callable(chip_smoke.phase_server_paths)\n"
+            "assert callable(chip_smoke.phase_byte_edge_paths)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'csdr_tpu' "
             "or m.startswith('csdr_tpu.')]\n"
@@ -65,6 +68,9 @@ def test_port_source_has_no_jax_imports():
     assert len(sources) >= 12
     assert PKG / "server" / "ddcd.py" in sources
     assert PKG / "server" / "nmux.py" in sources
+    for name in ("convert", "spectrum", "adpcm"):
+        assert PKG / "ops" / f"{name}.py" in sources
+    assert PKG / "kernels" / "adpcm_cuda.py" in sources
     sources += [ROOT / "chip_smoke.py", ROOT / "check_kernels.py"]
     for p in sources:
         for i, line in enumerate(p.read_text().splitlines(), 1):

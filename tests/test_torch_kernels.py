@@ -1,6 +1,7 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
-kernel-order FFT pair and the fastddc inverse) against float64 numpy, and on
-the card against their plain versions.
+kernel-order FFT pair, the fastddc inverse and the IMA ADPCM codec) against
+float64 numpy (the codec against the standard's integer steps in Python),
+and on the card against their plain versions.
 
 This file imports neither jax nor csdr_tpu, so it also runs on a machine
 with a card and no JAX:
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from csdr_tpu_torch import firdes
-from csdr_tpu_torch.kernels import _build, fastddc_cuda, fft_cuda, fir_cuda
+from csdr_tpu_torch.kernels import (_build, adpcm_cuda, fastddc_cuda,
+                                    fft_cuda, fir_cuda)
 
 torch.set_num_threads(2)
 
@@ -893,7 +895,7 @@ def test_fastddc_inv_checks_shapes():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,b", [(128, 9), (256, 270), (1024, 333),
-                                 (2048, 5), (16384, 3)])
+                                 (2048, 5), (4096, 837), (16384, 3)])
 def test_cuda_fft_ko_matches_plain(cuda, n, b):
     x = torch.from_numpy(_frames(b, n, seed=n)).to(cuda)
     n0 = dict(fft_cuda.LAUNCHES)
@@ -983,3 +985,174 @@ def test_cuda_fastddc_kernel_ignores_global_tf32(cuda, tf32_on):
     torch.backends.cuda.matmul.allow_tf32 = False
     y_off = fastddc_cuda.fastddc_inv(*args, 56)
     assert torch.equal(y_on, y_off)
+
+
+@pytest.mark.cuda
+def test_cuda_fft_natural_is_the_kernel_in_natural_order(cuda):
+    """fft_natural at the waterfall's N=4096: one K3 launch, the gather by
+    kernel_perm, equal to cuFFT's natural order at the K3 bar."""
+    x = torch.from_numpy(_frames(37, 4096, seed=5)).to(cuda)
+    n0 = fft_cuda.LAUNCHES["fft_ko"]
+    y = fft_cuda.fft_natural(x)
+    torch.cuda.synchronize()
+    assert fft_cuda.LAUNCHES["fft_ko"] == n0 + 1
+    assert torch.equal(y, fft_cuda.ko_to_natural(fft_cuda.fft_ko(x)))
+    assert _snr_db(torch.fft.fft(x).cpu().numpy(), y.cpu().numpy()) > 110
+
+
+# --------------------------------------------------------------------------
+# the IMA ADPCM codec (csrc/adpcm.cu): integer steps, bit for bit
+# --------------------------------------------------------------------------
+
+def _ima_encode_ref(samples, prev, index):
+    """The IMA/DVI encoder (reference ima_adpcm.c:91-174) in Python ints;
+    returns (nibbles, prev, index)."""
+    out = []
+    for s in samples:
+        step = int(adpcm_cuda.STEP_SIZES[index])
+        diff = int(s) - prev
+        delta = 8 if diff < 0 else 0
+        diff = abs(diff)
+        if diff >= step:
+            delta |= 4
+            diff -= step
+        if diff >= step >> 1:
+            delta |= 2
+            diff -= step >> 1
+        if diff >= step >> 2:
+            delta |= 1
+        prev, index = _ima_decode_ref1(delta, prev, index)
+        out.append(delta)
+    return out, prev, index
+
+
+def _ima_decode_ref1(delta, prev, index):
+    step = int(adpcm_cuda.STEP_SIZES[index])
+    diff = step >> 3
+    if delta & 1:
+        diff += step >> 2
+    if delta & 2:
+        diff += step >> 1
+    if delta & 4:
+        diff += step
+    if delta & 8:
+        diff = -diff
+    prev = min(max(prev + diff, -32768), 32767)
+    index = min(max(index + int(adpcm_cuda.INDEX_ADJUST[delta]), 0), 88)
+    return prev, index
+
+
+def _codec_rows(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 8000, (rows, n)) * np.sin(np.arange(n) / 40.0)
+    x[:, 10:20] = 32767
+    x[:, 20:26] = -32768
+    x[:, 30:40:2], x[:, 31:40:2] = 32767, -32768
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+CODEC_STATES = [[0, 0], [32767, 88], [-32768, 0], [1000, 45]]
+
+
+def test_adpcm_plain_matches_the_integer_steps():
+    x = _codec_rows(4, 300, 1)
+    st = torch.tensor(CODEC_STATES, dtype=torch.int32)
+    packed, ns = adpcm_cuda.encode(torch.from_numpy(x), st)
+    dec, ds = adpcm_cuda.decode(packed, st)
+    for k in range(4):
+        nib, prev, index = _ima_encode_ref(x[k], *CODEC_STATES[k])
+        want = [a | (b << 4) for a, b in zip(nib[0::2], nib[1::2])]
+        assert packed[k].tolist() == want
+        assert ns[k].tolist() == [prev, index] == ds[k].tolist()
+        p, i, samples = CODEC_STATES[k][0], CODEC_STATES[k][1], []
+        for d in nib:
+            p, i = _ima_decode_ref1(d, p, i)
+            samples.append(p)
+        assert dec[k].tolist() == samples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(4, 1000), (9, 4106), (1, 2048)])
+def test_cuda_adpcm_matches_plain(cuda, rows, n):
+    """Encode and decode, kernel against plain on the card, from edge
+    states and with the state carried into a second chunk."""
+    x = torch.from_numpy(_codec_rows(rows, 2 * n, rows)).to(cuda)
+    st = torch.tensor([CODEC_STATES[k % 4] for k in range(rows)],
+                      dtype=torch.int32, device=cuda)
+    n0 = dict(adpcm_cuda.LAUNCHES)
+    pk, sk = adpcm_cuda.encode(x[:, :n].contiguous(), st)
+    pk2, sk2 = adpcm_cuda.encode(x[:, n:].contiguous(), sk)
+    pp, sp = adpcm_cuda.encode_plain(x[:, :n], st)
+    pp2, sp2 = adpcm_cuda.encode_plain(x[:, n:], sp)
+    dk, tk = adpcm_cuda.decode(torch.cat([pk, pk2], 1), st)
+    dp, tp = adpcm_cuda.decode_plain(torch.cat([pp, pp2], 1), st)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(pk2, pp2)
+    assert torch.equal(sk, sp) and torch.equal(sk2, sp2)
+    assert torch.equal(dk, dp) and torch.equal(tk, tp)
+    assert adpcm_cuda.LAUNCHES == {"adpcm_encode": n0["adpcm_encode"] + 2,
+                                   "adpcm_decode": n0["adpcm_decode"] + 1}
+
+
+def test_adpcm_chain_probe_runs_on_the_card_only():
+    """The probe that times the codec's bound chains takes no CPU device."""
+    with pytest.raises(ValueError, match="CUDA"):
+        adpcm_cuda.chain_cycles(0, 16, device="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_adpcm_chain_probe_times_its_chains(cuda):
+    """Both probe chains take whole cycles a link, the same at two lengths
+    within 5 %, and a five-level encoder step more than a two-op scan
+    level; the probe launches no codec."""
+    n0 = dict(adpcm_cuda.LAUNCHES)
+    enc = [adpcm_cuda.chain_cycles(0, n) for n in (1 << 12, 1 << 16)]
+    lvl = [adpcm_cuda.chain_cycles(1, n) for n in (1 << 12, 1 << 16)]
+    for a, b in (enc, lvl):
+        assert a > 1.0 and abs(a - b) < 0.05 * b
+    assert enc[1] > lvl[1]
+    assert adpcm_cuda.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_cuda_adpcm_takes_an_unaligned_view(cuda):
+    """Samples at an odd int16 offset are copied to an aligned buffer."""
+    x = torch.from_numpy(_codec_rows(1, 513, 3)).to(cuda)[:, 1:]
+    st = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    assert x.data_ptr() % 4
+    pk, _ = adpcm_cuda.encode(x, st)
+    pp, _ = adpcm_cuda.encode_plain(x, st)
+    assert torch.equal(pk, pp)
+
+
+@pytest.mark.cuda
+def test_cuda_adpcm_writes_only_its_output(cuda):
+    """The C entry points write each row's bytes (or samples) and state
+    into the middle of guarded buffers; the guards survive and the middle
+    equals the wrapper's output."""
+    lib, guard = _build.lib(), 4096
+    rows, n = 9, 4106
+    x = torch.from_numpy(_codec_rows(rows, n, 7)).to(cuda)
+    st = torch.tensor([CODEC_STATES[k % 4] for k in range(rows)],
+                      dtype=torch.int32, device=cuda)
+    want, want_st = adpcm_cuda.encode(x, st)
+    back, back_st = adpcm_cuda.decode(want, st)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def guarded(dtype, count, sentinel):
+        return torch.full((2 * guard + count,), sentinel, dtype=dtype,
+                          device=cuda)
+
+    for fn, src, out, out_st, dtype, sentinel in (
+            (lib.csdr_adpcm_encode, x, want, want_st, torch.uint8, 0xA5),
+            (lib.csdr_adpcm_decode, want, back, back_st, torch.int16, -12345)):
+        buf = guarded(dtype, out.numel(), sentinel)
+        sbuf = guarded(torch.int32, st.numel(), -7)
+        code = fn(src.data_ptr(), buf[guard:].data_ptr(), st.data_ptr(),
+                  sbuf[guard:].data_ptr(), rows, want.shape[1], stream)
+        _build.check(code, "adpcm guarded")
+        torch.cuda.synchronize()
+        for b, body, s in ((buf, out, sentinel), (sbuf, out_st, -7)):
+            k = body.numel()
+            assert (b[:guard] == s).all() and (b[guard + k:] == s).all()
+            assert torch.equal(b[guard:guard + k], body.reshape(-1))
