@@ -131,6 +131,33 @@ prints one JSON line per phase and exits non-zero at the first failure:
        decoded tone at 1 kHz within 5 Hz;
    and each one's cost a chunk (Msps, device-only ms, busy share).
 
+13. the csdr-compatible CLI (python -m csdr_tpu_torch.cli):
+   X   the csdr-fm pipeline as a shell pipeline of seven processes over
+       10 s of the WFM FM tone as u8 I/Q (48 MB), the CLI's default
+       65 536-sample chunk: convert_u8_f | shift_addition_cc -0.2 |
+       fir_decimate_cc 10 0.05 HAMMING | fmdemod_quadri_cf |
+       fractional_decimator_ff 5 | deemphasis_wfm_ff 48000 50e-6 |
+       convert_f_s16; each stage alone first on the same bytes (its
+       wall-clock Msps), every process exits 0, the pipeline's audio equal
+       to the stages' bit for bit, the 1 kHz tone, the seconds to the first
+       output byte, and the same pipeline with --device cpu on the first
+       2 s: every int16 sample within 1, at most 0.1 % different;
+   X'  each kernel command in process (csdr_tpu_torch.cli.main, stdin and
+       stdout swapped for buffers), launch counts zeroed just before and
+       read just after, then with --device cpu: fir_decimate_cc (K2, and
+       K2 at its shape D=10/T=79/kout=6553 against its plain version),
+       bandpass_fir_fft_cc (K3 both ways), fft_cc 4096 2867 (K3 through
+       fft_natural), fastddc_fwd_cc 16 then fastddc_inv_cc 0.1 16 (K4),
+       the ADPCM codec both ways; a live --fd retune of shift_addition_cc
+       and of fastddc_inv_cc, the output after it equal to a fresh run at
+       the new rate up to the NCO's phase;
+   X'' every command of tests/test_cli_smoke.py's CASES in process on the
+       card and with --device cpu: exit 0, the same stderr, bytes bit for
+       bit, floats at 100 dB (Costas at 32 dB over its first 256 samples,
+       awgn_cc by its noise power), the pump's device check on every
+       chunk; the endless noise sources by their statistics, and
+       fft_benchmark.
+
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
 per-channel SNRs, the worst frame) to chiprun_out/mismatch_<path>.npz
@@ -2648,6 +2675,668 @@ def phase_byte_edge_paths(torch):
     return {k: v["launches"] for k, v in paths.items()}
 
 
+# ---------------------------------------------------------------------------
+# the csdr-compatible CLI (paths X, X', X'')
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+X_STAGES = (["convert_u8_f"], ["shift_addition_cc", "-0.2"],
+            ["fir_decimate_cc", "10", "0.05", "HAMMING"],
+            ["fmdemod_quadri_cf"], ["fractional_decimator_ff", "5"],
+            ["deemphasis_wfm_ff", "48000", "50e-6"], ["convert_f_s16"])
+X_CPU_SECONDS = 2          # the CPU pipeline's share of X's input
+X_CPU_FLIP_SHARE = 1e-3    # int16 samples card vs CPU that may differ by 1
+X_CHUNK = 1 << 16          # the CLI's default chunk (CSDR_FIXED_BUFSIZE)
+XP_SAMPLES = 16 * X_CHUNK + 97   # X' input: 16 chunks and an odd tail
+XP_CODEC = X_CHUNK // 4 + 97    # X' codec input (its plain loop on the CPU)
+X_TIMEOUT = 300.0          # seconds any CLI process of X may take
+NO_PUMP = {"normalized_timing_variance_u32_f", "shift_addition_cc_test",
+           "--help"}       # device commands that read all stdin, no pump
+
+
+def cli_cmd(args, device="cuda"):
+    return [sys.executable, "-m", "csdr_tpu_torch.cli", *args,
+            "--device", device]
+
+
+def _read_timed(stream, sink, box):
+    """Copy ``stream`` to the file ``sink``, noting when the first byte
+    came (box["first"], perf_counter seconds)."""
+    while True:
+        d = stream.read1(1 << 16)
+        if not d:
+            break
+        box.setdefault("first", time.perf_counter())
+        sink.write(d)
+    stream.close()
+
+
+def run_pipeline(cmds, in_path: Path, out_path: Path, env=None) -> dict:
+    """``cmds`` as one shell pipeline of processes, stdin from ``in_path``,
+    the last stdout to ``out_path``: wall seconds, seconds to the first
+    output byte, each exit code and standard error.  Every process is
+    waited for or killed."""
+    import threading
+
+    procs, box = [], {}
+    t0 = time.perf_counter()
+    try:
+        with open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+            for i, c in enumerate(cmds):
+                procs.append(subprocess.Popen(
+                    c, stdin=fin if i == 0 else procs[-1].stdout,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=ROOT,
+                    env=env))
+                if i:
+                    procs[-2].stdout.close()   # the next process owns it
+            reader = threading.Thread(target=_read_timed,
+                                      args=(procs[-1].stdout, fout, box))
+            reader.start()
+            errs = [p.stderr.read().decode() for p in procs]
+            rcs = [p.wait(timeout=X_TIMEOUT) for p in procs]
+            reader.join(timeout=X_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    return {"rcs": rcs, "stderr": errs, "wall_s": wall,
+            "first_byte_s": box.get("first", t0 + wall) - t0}
+
+
+def x_input() -> np.ndarray:
+    """X's input: SECONDS of WFM's FM 1 kHz tone at 2.4 Msps (carrier at
+    +0.2*fs) as rtl_sdr's u8 I/Q."""
+    return iq_to_u8(fm_tone(SECONDS * FS), 127.0)
+
+
+def phase_cli_pipeline(torch):
+    """Path X: the csdr-fm pipeline as a shell pipeline of seven CLI
+    processes on the card over SECONDS of u8 I/Q (48 MB), the default
+    chunk; each stage alone on the same bytes first (its wall-clock
+    rate; their outputs, chained, are also what the pipeline must give
+    bit for bit), then the pipeline (its rate and the seconds to its first
+    output byte), then the pipeline with --device cpu on the first
+    X_CPU_SECONDS: every int16 sample within 1 of the card's, at most
+    X_CPU_FLIP_SHARE of them different; the 1 kHz tone dominates."""
+    import os
+    import tempfile
+
+    n = SECONDS * FS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "x0").write_bytes(x_input().tobytes())
+        stages = []
+        for i, st in enumerate(X_STAGES):
+            r = run_pipeline([cli_cmd(st)], tmp / f"x{i}", tmp / f"x{i + 1}")
+            require(r["rcs"] == [0], f"path X: {st[0]} alone exited "
+                                     f"{r['rcs']}: {r['stderr'][0][-600:]}")
+            after = r["wall_s"] - r["first_byte_s"]
+            stages.append({"stage": " ".join(st),
+                           "input_bytes": (tmp / f"x{i}").stat().st_size,
+                           "wall_s": r["wall_s"],
+                           "first_byte_s": r["first_byte_s"],
+                           "msps": n / r["wall_s"] / 1e6,
+                           "msps_after_first_byte": n / after / 1e6
+                           if after > 0 else None})
+        alone = (tmp / f"x{len(X_STAGES)}").read_bytes()
+        r = run_pipeline([cli_cmd(st) for st in X_STAGES], tmp / "x0",
+                         tmp / "pipe")
+        require(r["rcs"] == [0] * len(X_STAGES),
+                f"path X: exit codes {r['rcs']}: "
+                + " | ".join(e[-300:] for e in r["stderr"] if e))
+        audio_b = (tmp / "pipe").read_bytes()
+        require(audio_b == alone, "path X: the pipeline's audio differs from "
+                                  "its stages run one after another")
+        cut = X_CPU_SECONDS * FS * 2
+        (tmp / "cpu0").write_bytes((tmp / "x0").read_bytes()[:cut])
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        rc = run_pipeline([cli_cmd(st, "cpu") for st in X_STAGES],
+                          tmp / "cpu0", tmp / "cpu", env)
+        require(rc["rcs"] == [0] * len(X_STAGES),
+                f"path X on the CPU: exit codes {rc['rcs']}")
+        cpu = np.frombuffer((tmp / "cpu").read_bytes(), np.int16)
+    audio = np.frombuffer(audio_b, np.int16)
+    hz = tone_hz(audio.astype(np.float32))
+    require(len(audio) > SECONDS * AUDIO_RATE * 0.99 and abs(hz - 1000) < 5,
+            f"path X: {len(audio)} samples, tone at {hz} Hz")
+    require(len(cpu) > X_CPU_SECONDS * AUDIO_RATE * 0.99,
+            f"path X on the CPU: {len(cpu)} samples")
+    diff = np.abs(audio[: len(cpu)].astype(np.int32) - cpu)
+    flips = float(np.mean(diff != 0))
+    require(int(diff.max()) <= 1 and flips <= X_CPU_FLIP_SHARE,
+            f"path X: card vs CPU int16 max |diff| {int(diff.max())}, "
+            f"share differing {flips}")
+    emit("path", path="X", pipeline=" | ".join(" ".join(s)
+                                               for s in X_STAGES),
+         input_mb=2 * n / 1e6, audio_samples=len(audio), tone_hz=hz,
+         pipeline_wall_s=r["wall_s"], pipeline_msps=n / r["wall_s"] / 1e6,
+         first_output_byte_s=r["first_byte_s"],
+         pipeline_msps_after_first_byte=n / (r["wall_s"] - r[
+             "first_byte_s"]) / 1e6, stages_alone=stages,
+         cpu_samples=len(cpu), cpu_wall_s=rc["wall_s"],
+         card_vs_cpu_max_abs_diff=int(diff.max()),
+         card_vs_cpu_share_differing=flips,
+         note="msps: input complex samples over wall seconds, process "
+              "start-up included; msps_after_first_byte: over the time "
+              "after the stage's first output byte")
+    return {"pipeline_msps": n / r["wall_s"] / 1e6}
+
+
+class _HookStdin:
+    """stdin over bytes; ``hook(pos)`` runs before each read that starts
+    at byte ``pos``."""
+
+    def __init__(self, data: bytes, hook):
+        self.buffer = self
+        self.data, self.pos, self.hook = data, 0, hook
+
+    def read(self, n=-1):
+        self.hook(self.pos)
+        end = len(self.data) if n is None or n < 0 else self.pos + n
+        out = self.data[self.pos:end]
+        self.pos += len(out)
+        return out
+
+
+def cli_run(argv, inp: bytes = b"", device="cuda", hook=None):
+    """``csdr_tpu_torch.cli.main`` in this process, stdin and stdout
+    swapped for temporary files (the fifo command selects on them) or
+    for ``_HookStdin``: (exit code, stdout bytes, stderr text, wall s)."""
+    import io
+    import os
+    import tempfile
+
+    from csdr_tpu_torch import cli
+
+    saved = (sys.stdin, sys.stdout, sys.stderr)
+    err = io.StringIO()
+    with tempfile.TemporaryFile() as fi, tempfile.TemporaryFile() as fo:
+        if hook is None:
+            fi.write(inp)
+            fi.seek(0)
+            sys.stdin = io.TextIOWrapper(open(os.dup(fi.fileno()), "rb"))
+        else:
+            sys.stdin = _HookStdin(inp, hook)
+        sys.stdout = io.TextIOWrapper(open(os.dup(fo.fileno()), "wb"),
+                                      write_through=True)
+        sys.stderr = err
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["csdr_tpu_torch", *argv, "--device", device])
+            sys.stdout.flush()
+        finally:
+            if device == "cuda":
+                torch_sync()
+            wall = time.perf_counter() - t0
+            if hook is None:
+                sys.stdin.close()
+            sys.stdout.close()
+            sys.stdin, sys.stdout, sys.stderr = saved
+        fo.seek(0)
+        return rc or 0, fo.read(), err.getvalue(), wall
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def pumped_chunks(samples: int, quantum: int, chunk: int = X_CHUNK) -> int:
+    """Chunks the CLI's pump runs for ``samples`` input samples: whole
+    chunks, and the EOF tail truncated to the quantum where any is left."""
+    n = max(quantum, chunk // quantum * quantum)
+    return samples // n + (1 if samples % n >= quantum else 0)
+
+
+def _c64(b: bytes) -> np.ndarray:
+    return np.frombuffer(b, np.complex64)
+
+
+def x_prime_case(name, argv, inp: bytes, want: dict, bar,
+                 kind=np.complex64) -> dict:
+    """One CLI command in process on the card with the launch counts zeroed
+    just before and read just after (``want``: kernel -> launches), then
+    with --device cpu on the same bytes: bit for bit (bar None) or card vs
+    CPU at ``bar`` dB."""
+    reset_all()
+    rc, out, err, wall = cli_run(argv, inp)
+    launches = launches_all()
+    require(rc == 0 and len(out) > 0, f"path X' {name}: rc {rc}: "
+                                      f"{err[-600:]}")
+    require_launches(launches, want, f"path X' {name}")
+    rc, cpu, err, wall_cpu = cli_run(argv, inp, device="cpu")
+    require(rc == 0, f"path X' {name} on the CPU: {err[-600:]}")
+    require(len(cpu) == len(out), f"path X' {name}: {len(out)} bytes on the "
+                                  f"card, {len(cpu)} on the CPU")
+    line = {"command": " ".join(argv), "launches": launches,
+            "card_s": wall, "cpu_s": wall_cpu, "out_bytes": len(out)}
+    if bar is None:
+        require(out == cpu, f"path X' {name}: card and CPU bytes differ")
+        line["bit_exact"] = True
+    else:
+        snr = require_match(f"path_Xp_{name}: card vs CPU",
+                            np.frombuffer(out, kind), np.frombuffer(cpu, kind),
+                            bar)
+        line.update(card_vs_cpu_snr_db=snr, bar_db=bar)
+    emit("path", path="X'", **line)
+    return {"launches": launches, "out": out}
+
+
+def retune_case(name, argv, inp: bytes, at: int, line: bytes,
+                fresh_argv, first: bytes | None = None, skip: int = 0):
+    """One live retune through --fd on the card: ``line`` written just
+    before the read of the chunk that starts at byte ``at`` (``first``
+    before the start); the output after it against a fresh run of
+    ``fresh_argv`` on the rest of the input, up to one constant phase,
+    at RETUNE_BAR."""
+    import os
+
+    r, w = os.pipe()
+    if first:
+        os.write(w, first)
+    todo = {at: line}
+
+    def hook(pos):
+        if pos in todo:
+            os.write(w, todo.pop(pos))
+
+    try:
+        rc, out, err, wall = cli_run([argv[0], "--fd", str(r), *argv[1:]],
+                                     inp, hook=hook)
+    finally:
+        os.close(r)
+        os.close(w)
+    require(rc == 0 and not todo, f"path X' retune {name}: rc {rc}, "
+                                  f"lines left {list(todo)}: {err[-400:]}")
+    rc, fresh, err, _ = cli_run(fresh_argv, inp[at:])
+    require(rc == 0, f"path X' fresh {name}: {err[-400:]}")
+    y, f = _c64(out), _c64(fresh)
+    after = y[len(y) - len(f):]
+    require(len(f) > 0 and len(after) == len(f),
+            f"path X' retune {name}: {len(y)} samples, fresh {len(f)}")
+    rot = np.mean(after[skip:] * np.conj(f[skip:]))
+    rot /= abs(rot)
+    snr = snr_db(f[skip:] * rot, after[skip:])
+    require(snr >= RETUNE_BAR, f"path X' retune {name}: after the retune "
+                               f"{snr:.1f} dB against a fresh run < "
+                               f"{RETUNE_BAR}")
+    emit("path", path="X'", retune=name, command=" ".join(argv),
+         retune_line=line.decode().strip(), at_byte=at,
+         after_vs_fresh_snr_db=snr, bar_db=RETUNE_BAR,
+         stderr=err.strip()[-200:])
+
+
+RETUNE_BAR = 100.0         # the output after a retune against a fresh run
+
+
+def xp_input() -> np.ndarray:
+    """X''s input: WFM's FM 1 kHz tone at baseband (inside every X'
+    command's passband) over complex noise 20 dB down, which fills the
+    bands the tone does not, XP_SAMPLES at 2.4 Msps."""
+    rng = np.random.default_rng(130)
+    noise = 0.1 * (rng.standard_normal(XP_SAMPLES)
+                   + 1j * rng.standard_normal(XP_SAMPLES))
+    return (fm_tone(XP_SAMPLES, carrier=0.0) + noise).astype(np.complex64)
+
+
+def phase_cli_kernels(torch):
+    """Path X': each kernel command in process on the card (stdin and
+    stdout swapped for byte buffers), launch counts zeroed just before
+    and read just after, then the same command with --device cpu:
+    fir_decimate_cc 10 0.05 HAMMING (K2; SSB_BAR, path C's bar for K2),
+    bandpass_fir_fft_cc 0 0.2 0.05 (K3 forward and inverse; SSB_BAR, C's
+    bar for K3), fft_cc 4096 2867 (K3 through fft_natural; W_POWER_BAR),
+    fastddc_fwd_cc 16 (no kernel: its natural-order forward is
+    torch.fft) then fastddc_inv_cc 0.1 16 on the card's spectra (K4;
+    CHANNEL_BAR), encode_ima_adpcm_i16_u8 and decode_ima_adpcm_u8_i16
+    (the codec on XP_CODEC samples; bit for bit).  K2 at the CLI's
+    shape (D=10, T=79, kout=6553) against its plain version as the
+    kernels phase runs it.  Then one live retune each through --fd:
+    shift_addition_cc and fastddc_inv_cc."""
+    from csdr_tpu_torch.ops import fastddc, fftfilt
+
+    cf = xp_input().tobytes()
+    k2 = dict(kernel_case(torch, "fir_decimate", 10, 79, X_CHUNK // 10,
+                          0.0, 0.0, 5), path="X'")
+    emit("kernels", **k2)
+    got = {}
+    got["fir_decimate_cc"] = x_prime_case(
+        "fir_decimate_cc", ["fir_decimate_cc", "10", "0.05", "HAMMING"], cf,
+        {"fir_decimate": pumped_chunks(XP_SAMPLES, 10)}, SSB_BAR)
+    ins = fftfilt.bandpass_fir_fft_block(0.0, 0.2, 0.05).input_size
+    nb = pumped_chunks(XP_SAMPLES, ins)
+    got["bandpass_fir_fft_cc"] = x_prime_case(
+        "bandpass_fir_fft_cc", ["bandpass_fir_fft_cc", "0", "0.2", "0.05"],
+        cf, {"fft_ko": nb, "ifft_ko": nb}, SSB_BAR)
+    got["fft_cc"] = x_prime_case(
+        "fft_cc", ["fft_cc", str(W_FFT), str(W_EVERY)], cf,
+        {"fft_ko": pumped_chunks(XP_SAMPLES, W_EVERY)}, W_POWER_BAR)
+    ddc = fastddc.fastddc_init(0.05, 16)
+    fwd = x_prime_case("fastddc_fwd_cc", ["fastddc_fwd_cc", "16"], cf,
+                       {}, CHANNEL_BAR)["out"]
+    got["fastddc_inv_cc"] = x_prime_case(
+        "fastddc_inv_cc", ["fastddc_inv_cc", "0.1", "16"], fwd,
+        {"fastddc_inv": pumped_chunks(len(fwd) // 8, ddc.fft_size)},
+        CHANNEL_BAR)
+    t = np.arange(XP_CODEC) / AUDIO_RATE
+    s16 = np.round(16000 * np.sin(2 * np.pi * 1000 * t)).astype(np.int16)
+    enc = x_prime_case("encode_ima_adpcm_i16_u8",
+                       ["encode_ima_adpcm_i16_u8"], s16.tobytes(),
+                       {"adpcm_encode": pumped_chunks(XP_CODEC, 2)}, None)
+    got["encode_ima_adpcm_i16_u8"] = enc
+    got["decode_ima_adpcm_u8_i16"] = x_prime_case(
+        "decode_ima_adpcm_u8_i16", ["decode_ima_adpcm_u8_i16"],
+        enc["out"], {"adpcm_decode": pumped_chunks(len(enc["out"]), 1)},
+        None)
+
+    # live retunes: shift_addition_cc half way, fastddc_inv_cc at its
+    # third chunk
+    retune_case("shift_addition_cc", ["shift_addition_cc", "0.1"], cf,
+                XP_SAMPLES // X_CHUNK // 2 * X_CHUNK * 8, b"-0.2\n",
+                ["shift_addition_cc", "-0.2"])
+    per = X_CHUNK // ddc.fft_size * ddc.fft_size * 8
+    retune_case("fastddc_inv_cc", ["fastddc_inv_cc", "16"], fwd,
+                2 * per, b"-0.3\n", ["fastddc_inv_cc", "-0.3", "16"],
+                first=b"0.1\n")
+    return k2, {k: v["launches"] for k, v in got.items()}
+
+
+def sweep_cases() -> dict:
+    """tests/test_cli_smoke.py's CASES, rebuilt here without importing
+    csdr_tpu (the test file does): the same seeded inputs, arguments and
+    output expectations; tests/test_torch_cli_sweep.py holds the two
+    tables equal."""
+    n = 4096
+    rng = np.random.default_rng(0)
+    f32 = (0.3 * rng.standard_normal(n)).astype(np.float32).tobytes()
+    cf64 = np.stack([0.3 * rng.standard_normal(n),
+                     0.3 * rng.standard_normal(n)],
+                    -1).astype(np.float32).tobytes()
+    u8 = (rng.integers(0, 2, n)).astype(np.uint8).tobytes()
+    s16 = (rng.integers(-1000, 1000, n)).astype(np.int16).tobytes()
+    return {
+        "convert_u8_f": ([], bytes(range(256)) * 16, True),
+        "convert_f_u8": ([], f32, True),
+        "convert_s8_f": ([], u8, True),
+        "convert_f_s8": ([], f32, True),
+        "convert_s16_f": ([], s16, True),
+        "convert_f_s16": ([], f32, True),
+        "convert_s24_f": ([], u8 * 3, True),
+        "convert_f_s24": ([], f32, True),
+        "convert_f_samplerf": (["100"], f32, True),
+        "realpart_cf": ([], cf64, True),
+        "mono2stereo_s16": ([], s16, True),
+        "stereo2mono_s16": ([], s16, True),
+        "clone": ([], u8, True),
+        "setbuf": (["1024"], u8, True),
+        "through": ([], f32, True),
+        "dump_f": ([], f32[:64], True),
+        "dump_u8": ([], u8[:64], True),
+        "yes_f": (["1.0", "64"], b"", True),
+        "tee": (["/dev/null"], u8, True),
+        "fifo": (["256", "16"], u8, True),
+        "flowcontrol": (["1000000", "100"], u8[:2048], True),
+        "none": ([], b"", False),
+        "gain_ff": (["2.0"], f32, True),
+        "limit_ff": ([], f32, True),
+        "clipdetect_ff": ([], f32, True),
+        "detect_nan_ff": ([], f32, True),
+        "dcblock_ff": ([], f32, True),
+        "fastdcblock_ff": ([], f32, True),
+        "add_n_zero_samples_at_beginning_f": (["16"], f32, True),
+        "add_const_cc": (["0.1", "0.2"], cf64, True),
+        "shift_math_cc": (["0.1"], cf64, True),
+        "shift_addition_cc": (["0.1"], cf64, True),
+        "shift_table_cc": (["0.1", "1024"], cf64, True),
+        "shift_addfast_cc": (["0.1"], cf64, True),
+        "shift_unroll_cc": (["0.1"], cf64, True),
+        "shift_addition_fc": (["0.1"], f32, True),
+        "shift_addition_cc_test": ([], b"", False),
+        "decimating_shift_addition_cc": (["0.1", "4"], cf64, True),
+        "fir_decimate_cc": (["4", "0.05", "HAMMING"], cf64, True),
+        "fir_interpolate_cc": (["4", "0.05", "HAMMING"], cf64, True),
+        "plain_interpolate_cc": (["4"], cf64, True),
+        "rational_resampler_ff": (["5", "2"], f32, True),
+        "suboptimal_rational_resampler_ff": (["5", "2"], f32, True),
+        "fractional_decimator_ff": (["2.5"], f32, True),
+        "old_fractional_decimator_ff": (["2.5"], f32, True),
+        "bandpass_fir_fft_cc": (["0.0", "0.2", "0.05"], cf64 * 4, True),
+        "peaks_fir_cc": (["33", "0.1"], cf64, True),
+        "pulse_shaping_filter_cc": (["RRC", "8", "33", "0.25"], cf64, True),
+        "firdes_lowpass_f": (["0.1", "21"], b"", True),
+        "firdes_bandpass_c": (["-0.1", "0.1", "21"], b"", True),
+        "firdes_peak_c": (["0.1", "21"], b"", True),
+        "firdes_pulse_shaping_filter_f": (["RRC", "8", "33", "0.25"], b"",
+                                          True),
+        "fmdemod_atan_cf": ([], cf64, True),
+        "fmdemod_quadri_cf": ([], cf64, True),
+        "amdemod_cf": ([], cf64, True),
+        "amdemod_estimator_cf": ([], cf64, True),
+        "deemphasis_wfm_ff": (["48000", "50e-6"], f32, True),
+        "deemphasis_nfm_ff": (["8000"], f32, True),
+        "fmmod_fc": ([], f32, True),
+        "dsb_fc": (["0.0"], f32, True),
+        "add_dcoffset_cc": ([], cf64, True),
+        "fixed_amplitude_cc": (["0.5"], cf64, True),
+        "agc_ff": ([], f32, True),
+        "fastagc_ff": ([], f32 * 4, True),
+        "simple_agc_cc": (["0.01"], cf64, True),
+        "squelch_and_smeter_cc": (["1", "1"], cf64, True),
+        "fft_cc": (["256", "256"], cf64, True),
+        "fft_fc": (["256", "256"], f32, True),
+        "logpower_cf": (["0"], cf64, True),
+        "logaveragepower_cf": (["0", "256", "2"], cf64, True),
+        "fft_exchange_sides_ff": (["256"], f32, True),
+        "fft_one_side_ff": (["256"], f32, True),
+        "compress_fft_adpcm_f_u8": (["256"], f32, True),
+        "encode_ima_adpcm_i16_u8": ([], s16, True),
+        "decode_ima_adpcm_u8_i16": ([], u8, True),
+        "psk31_varicode_encoder_u8_u8": ([], b"HELLO", True),
+        "psk31_varicode_decoder_u8_u8": ([], u8, False),
+        "differential_encoder_u8_u8": ([], u8, True),
+        "differential_decoder_u8_u8": ([], u8, True),
+        "psk_modulator_u8_c": (["2"], u8, True),
+        "psk31_interpolate_sine_cc": (["8"], cf64, True),
+        "duplicate_samples_ntimes_u8_u8": (["1", "4"], u8, True),
+        "pack_bits_1to8_u8_u8": ([], u8, True),
+        "pack_bits_8to1_u8_u8": ([], u8, True),
+        "invert_u8_u8": ([], u8, True),
+        "binary_slicer_f_u8": ([], f32, True),
+        "generic_slicer_f_u8": (["4"], f32, True),
+        "dbpsk_decoder_c_u8": ([], cf64, True),
+        "bfsk_demod_cf": (["0.2", "33"], cf64, True),
+        "timing_recovery_cc": (["GARDNER", "8"], cf64, True),
+        "bpsk_costas_loop_cc": (["0.01"], cf64, True),
+        "pll_cc": (["2", "0.01"], cf64, True),
+        "normalized_timing_variance_u32_f": (
+            ["8", "0"], np.arange(0, 512, 8, dtype=np.uint32).tobytes(),
+            False),
+        "serial_line_decoder_f_u8": (["8"], f32, False),
+        "pattern_search_u8_u8": (["4", "1", "0", "1"], u8, False),
+        "syncword_search": (["af", "8"], u8, False),
+        "awgn_cc": (["10"], cf64, True),
+        "octave_complex_c": (["16", "32"], cf64, True),
+        "_fft2octave": (["256"], cf64, True),
+        "rtty_line_decoder_u8_u8": ([], u8, False),
+        "rtty_baudot2ascii_u8_u8": ([], u8, False),
+        "fastddc_fwd_cc": (["4"], cf64 * 2, True),
+        "--help": ([], b"", False),
+    }
+
+
+# output wire format of the sweep's float commands (the rest compare as
+# bytes or text)
+SWEEP_F32 = set("""convert_u8_f convert_s8_f convert_s16_f convert_s24_f
+realpart_cf gain_ff limit_ff clipdetect_ff detect_nan_ff dcblock_ff
+fastdcblock_ff rational_resampler_ff suboptimal_rational_resampler_ff
+fractional_decimator_ff old_fractional_decimator_ff fmdemod_atan_cf
+fmdemod_quadri_cf amdemod_cf amdemod_estimator_cf deemphasis_wfm_ff
+deemphasis_nfm_ff agc_ff fastagc_ff logpower_cf logaveragepower_cf
+fft_exchange_sides_ff fft_one_side_ff bfsk_demod_cf pll_cc
+normalized_timing_variance_u32_f add_n_zero_samples_at_beginning_f through
+yes_f""".split())
+SWEEP_C64 = set("""add_const_cc shift_math_cc shift_addition_cc shift_table_cc
+shift_addfast_cc shift_unroll_cc shift_addition_fc
+decimating_shift_addition_cc fir_decimate_cc fir_interpolate_cc
+plain_interpolate_cc bandpass_fir_fft_cc peaks_fir_cc
+pulse_shaping_filter_cc fmmod_fc dsb_fc add_dcoffset_cc fixed_amplitude_cc
+simple_agc_cc squelch_and_smeter_cc fft_cc fft_fc psk_modulator_u8_c
+psk31_interpolate_sine_cc timing_recovery_cc bpsk_costas_loop_cc awgn_cc
+fastddc_fwd_cc""".split())
+SWEEP_BAR = 100.0          # float outputs card vs CPU, dB
+NOISE_SOURCES = ("uniform_noise_f", "gaussian_noise_c")
+
+
+def sweep_match(name, out, cpu, x: bytes) -> dict:
+    """The card's output of ``name`` against the CPU's: bit for bit for
+    bytes, integers and text (shift_addition_cc_test's error vectors
+    within 0.5 dB); floats at SWEEP_BAR; Costas at its first bar over 256
+    samples and |y| = |x| (a rotation; the loop does not lock to noise);
+    awgn_cc by its noise power and mean."""
+    import re
+
+    if name in SWEEP_F32 or name in SWEEP_C64:
+        dt = np.float32 if name in SWEEP_F32 else np.complex64
+        a, b = np.frombuffer(cpu, dt), np.frombuffer(out, dt)
+        require(len(a) == len(b), f"path X'' {name}: {len(b)} samples on the "
+                                  f"card, {len(a)} on the CPU")
+        if name == "awgn_cc":
+            r = 10 ** 0.5
+            xs = _c64(x) * r / (r + 1)
+            p = [float(np.mean(np.abs(y - xs) ** 2)) for y in (a, b)]
+            want = 2 * (0.707 / (r + 1)) ** 2
+            ok = all(abs(v / want - 1) < 0.05 for v in p) and abs(
+                np.mean(b - xs)) < 0.01
+            require(ok, f"path X'' awgn_cc: noise power {p}, want {want}")
+            return {"noise_power": p, "noise_power_want": want}
+        if name == "bpsk_costas_loop_cc":
+            first = snr_db(a[:256], b[:256])
+            ok = first >= COSTAS_BARS[0] and np.allclose(
+                np.abs(b), np.abs(a), rtol=1e-5, atol=1e-7)
+            require(ok, f"path X'' costas: first 256 at {first:.1f} dB")
+            return {"snr_db_first_256": first,
+                    "snr_db_all": snr_db(a, b)}
+        snr = snr_db(a, b)
+        require(snr >= SWEEP_BAR, f"path X'' {name}: card vs CPU {snr:.1f} "
+                                  f"dB < {SWEEP_BAR}")
+        return {"snr_db": snr}
+    if name == "shift_addition_cc_test":
+        num = re.compile(r"-?\d+\.\d+ dB")
+        la, lb = cpu.decode().splitlines(), out.decode().splitlines()
+        ok = len(la) == len(lb) == 2 and all(
+            num.sub("", u) == num.sub("", v) and abs(
+                float(num.search(u).group()[:-3])
+                - float(num.search(v).group()[:-3])) < 0.5
+            for u, v in zip(la, lb))
+        require(ok, f"path X'' shift_addition_cc_test: {lb} vs {la}")
+        return {"lines": lb}
+    require(out == cpu, f"path X'' {name}: card and CPU bytes differ")
+    return {"bit_exact": True}
+
+
+def phase_cli_sweep(torch):
+    """Path X'': every command of the smoke sweep (tests/test_cli_smoke.py's
+    CASES, sweep_cases()) once in process on the card and once with
+    --device cpu on the same stdin: exit 0, the same stderr, and the
+    outputs matched by sweep_match; the pump's device check held on every
+    chunk of every pumped command (a chunk output off the card fails the
+    command).  Then the endless noise sources stopped after 4 writes, by
+    their statistics, and fft_benchmark timed with CUDA events."""
+    from csdr_tpu_torch import cli
+
+    rows, total = [], 0.0
+    for name, (args, inp, expect) in sweep_cases().items():
+        before = cli.PUMP_CHECKS["chunks"]
+        rc, out, err, wall = cli_run([name, *args], inp)
+        checked = cli.PUMP_CHECKS["chunks"] - before
+        require(rc == 0, f"path X'' {name}: rc {rc}: {err[-600:]}")
+        require(len(out) > 0 or not expect, f"path X'' {name}: no output")
+        require(checked > 0 or name in cli.HOST_ONLY or name in NO_PUMP,
+                f"path X'' {name}: the pump checked no chunk on the card")
+        rc, cpu, err_cpu, wall_cpu = cli_run([name, *args], inp, "cpu")
+        require(rc == 0, f"path X'' {name} on the CPU: {err_cpu[-600:]}")
+        if name == "shift_addition_cc_test":
+            require(err.count("\n") == err_cpu.count("\n"),
+                    f"path X'' {name}: stderr lines differ")
+        elif name != "--help":
+            require(err == err_cpu, f"path X'' {name}: stderr differs: "
+                                    f"{err[-300:]!r} vs {err_cpu[-300:]!r}")
+        got = sweep_match(name, out, cpu, inp)
+        total += wall
+        rows.append(name)
+        emit("sweep", command=name, args=args, card_s=wall, cpu_s=wall_cpu,
+             out_bytes=len(out), pump_chunks_checked=checked, **got)
+    for name in NOISE_SOURCES:
+        stats = noise_source_stats(name)
+        emit("sweep", command=name, **stats)
+    rc, _, err, wall = cli_run(["fft_benchmark", "4096", "200"])
+    require(rc == 0 and "seconds each" in err, f"fft_benchmark: {err}")
+    emit("sweep", command="fft_benchmark 4096 200", card_s=wall,
+         stderr=err.strip().splitlines())
+    emit("path", path="X''", commands=len(rows), card_s_total=total,
+         pump_chunks_checked=cli.PUMP_CHECKS["chunks"])
+
+
+class _Enough(Exception):
+    pass
+
+
+class _Sink:
+    """stdout that stops an endless source after ``limit`` bytes."""
+
+    def __init__(self, limit):
+        self.buffer, self.parts, self.limit = self, [], limit
+
+    def write(self, b):
+        self.parts.append(bytes(b))
+        if sum(map(len, self.parts)) >= self.limit:
+            raise _Enough
+
+    def flush(self):
+        pass
+
+
+def noise_source_stats(name) -> dict:
+    """``name`` on the card stopped after 4 writes of 65 536 samples:
+    uniform on [-1, 1) with variance 1/3, or unit-variance complex
+    gaussian parts; each write its own draw."""
+    from csdr_tpu_torch import cli
+
+    dt = np.float32 if name == "uniform_noise_f" else np.complex64
+    saved = sys.stdout
+    sink = sys.stdout = _Sink(4 * 65536 * np.dtype(dt).itemsize)
+    try:
+        cli.main(["csdr_tpu_torch", name, "--device", "cuda"])
+        raise SmokeFailure(f"{name} ended")
+    except _Enough:
+        pass
+    finally:
+        sys.stdout = saved
+    y = np.frombuffer(b"".join(sink.parts), dt)
+    w = y.reshape(4, -1)
+    if dt == np.float32:
+        ok = y.min() >= -1 and y.max() < 1 and abs(y.mean()) < 0.01 and \
+            abs(y.var() - 1 / 3) < 0.01
+        stats = {"mean": float(y.mean()), "var": float(y.var())}
+    else:
+        ok = all(abs(p.mean()) < 0.01 and abs(p.var() - 1) < 0.02
+                 for p in (y.real, y.imag))
+        stats = {"var_re": float(y.real.var()), "var_im": float(y.imag.var())}
+    require(ok and not np.array_equal(w[0], w[1]),
+            f"{name}: statistics {stats}")
+    return stats
+
+
+def phase_cli(torch):
+    """Paths X, X', X''."""
+    x = phase_cli_pipeline(torch)
+    k2, launches = phase_cli_kernels(torch)
+    phase_cli_sweep(torch)
+    return x, k2, launches
+
+
 def _ssb_pre(make):
     from csdr_tpu_torch import Pipeline
     pipe = make()
@@ -2684,6 +3373,7 @@ def run(torch) -> int:
     quiet_server(torch)
     edge_cases = phase_byte_edge_kernels(torch)
     edge = phase_byte_edge_paths(torch)
+    _, k2_cli, cli_launches = phase_cli(torch)
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
@@ -2709,17 +3399,31 @@ def run(torch) -> int:
               "| compress_fft_adpcm_rows", edge["W"]),
         "W1": ("W1: convert_u8_c | wfm_basic() | convert_f_s16 | "
                "paired_encode_block(), decode_block() at the client",
-               edge["W1"])}
+               edge["W1"]),
+        "X'": ("X': python -m csdr_tpu_torch.cli fir_decimate_cc 10 0.05 "
+               "HAMMING, in process, 65 536-sample chunks",
+               cli_launches["fir_decimate_cc"])}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
     # G and S' run K3 forward at B's shape, G' and S run K4 at A's
+    # the CLI's kernel commands of X' (csdr_tpu_torch.cli in process):
+    # K3 at N=256 through bandpass_fir_fft_cc, at N=4096 through fft_cc,
+    # K4 at D=16 through fastddc_inv_cc, the codec both ways
+    xp = {k: {"X' " + k: v} for k, v in cli_launches.items()}
     also = {("fft_ko", "B"): {"G": banks["G"]["launches"],
                               "S'": servers["S'"]["launches"]},
             ("fastddc_inv", "A"): {"G'": banks["G'"]["launches"],
-                                   "S": servers["S"]["launches"]}}
+                                   "S": servers["S"]["launches"],
+                                   **xp["fastddc_inv_cc"]},
+            ("fft_ko", "C"): xp["bandpass_fir_fft_cc"],
+            ("ifft_ko", "C"): xp["bandpass_fir_fft_cc"],
+            ("fft_ko", "W"): xp["fft_cc"],
+            ("adpcm_encode", "W1"): xp["encode_ima_adpcm_i16_u8"],
+            ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"]}
     table = []
-    for c in cases + new_cases + poly_cases + server_cases + edge_cases:
+    for c in (cases + new_cases + poly_cases + server_cases + edge_cases
+              + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)

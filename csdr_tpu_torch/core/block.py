@@ -161,3 +161,8 @@ class Pipeline(Block):
                 return None
             r *= b.rate_ratio
         return r
+
+
+def chain(*blocks: Block, name: str = "pipeline") -> Pipeline:
+    """The blocks composed in order (csdr_tpu's ``chain``)."""
+    return Pipeline(blocks, name=name)

@@ -5,7 +5,8 @@ them started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ctypes: no PyTorch headers, so a
 build takes seconds.  The library is built at first use into
 ``build/csdr_tpu_torch/`` beside the package (``build/`` is git-ignored) and
-named by a hash of its sources and flags, so an edited source rebuilds.
+named by a hash of its sources and flags, so an edited source rebuilds;
+a lock file there lets one process build while the others wait.
 
 No fallback: on a machine without ``nvcc``, or when the build fails, this
 raises.  Nothing here runs at import time.
@@ -14,6 +15,7 @@ raises.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -96,16 +98,26 @@ def _run(cmd: list[str]) -> None:
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns
     the library path.  One nvcc per source, in parallel, then one link."""
-    global build_seconds
     sources = _sources()
     out = BUILD_DIR / f"libcsdr_kernels_{_digest(sources)}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build at a time: the processes of a CLI pipeline start together,
+    # and the first builds while the others wait for its library
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.is_file():
+            _build_locked(sources, out)
+    return out
+
+
+def _build_locked(sources: list[Path], out: Path) -> None:
+    global build_seconds
     t0 = time.perf_counter()
     nvcc = nvcc_path()
-    # build under a private directory, then rename: a concurrent process
-    # never loads a half-written library
+    # build under a private directory, then rename: a process that does
+    # not take the lock never loads a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp, p.stem + ".o")) for p in sources]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
@@ -116,7 +128,6 @@ def build() -> Path:
         _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
         os.replace(so, out)
     build_seconds = time.perf_counter() - t0
-    return out
 
 
 def lib() -> ctypes.CDLL:

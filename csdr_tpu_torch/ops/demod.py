@@ -1,6 +1,6 @@
 """Analog demodulators and de-emphasis (counterpart of csdr_tpu.ops.demod):
-FM (quadri-correlator), AM (magnitude and its estimator), the SSB real
-part, and the WFM and NFM de-emphasis filters.
+FM (quadri-correlator and phase difference), AM (magnitude and its
+estimator), the SSB real part, and the WFM and NFM de-emphasis filters.
 
 The discriminator is elementwise with a one-sample carry.  The WFM
 de-emphasis 1-pole IIR runs, as in csdr_tpu, as the short FIR it equals at
@@ -58,6 +58,38 @@ class FmdemodQuadriBlock(Block):
 
 def fmdemod_quadri_block() -> Block:
     return FmdemodQuadriBlock()
+
+
+def fmdemod_atan_cf(x: torch.Tensor, last_phase=0.0):
+    """Phase-difference discriminator (reference libcsdr.c:1004-1019):
+    y = wrap(arg(x[n]) - arg(x[n-1]))/pi, arg = atan2(q, i) as the
+    reference's argof.  Returns (y float32, next last_phase float32
+    0-dim)."""
+    phase = torch.atan2(x.imag, x.real)
+    last = torch.as_tensor(last_phase, dtype=torch.float32, device=x.device)
+    d = phase - torch.cat([last.reshape(1), phase[:-1]])
+    d = torch.where(d < -np.pi, d + 2 * np.pi, d)
+    d = torch.where(d > np.pi, d - 2 * np.pi, d)
+    return d / np.pi, phase[-1].clone()
+
+
+class FmdemodAtanBlock(Block):
+    """Streaming fmdemod_atan_cf; state the last sample's phase."""
+
+    def __init__(self):
+        super().__init__("fmdemod_atan_cf")
+
+    def init(self, device="cuda"):
+        return torch.zeros((), dtype=torch.float32,
+                           device=resolve_device(device))
+
+    def forward(self, last, x):
+        y, last = fmdemod_atan_cf(x, last)
+        return last, y
+
+
+def fmdemod_atan_block() -> Block:
+    return FmdemodAtanBlock()
 
 
 def amdemod_cf(x: torch.Tensor) -> torch.Tensor:

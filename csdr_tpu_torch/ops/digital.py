@@ -9,7 +9,6 @@ rates); everything else is torch on the input's device.  The elementwise
 ops, ``psk31_interpolate_sine_cc``, ``dbpsk_decoder_c_u8`` and the RTTY
 decoder take leading batch axes (one row per channel); the varicode
 decoder and ``rtty_baudot2ascii_u8_u8`` take one stream, as csdr_tpu's.
-``bfsk_demod_cf`` is not ported yet: it needs ``ops/fir.apply_fir_cc``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import torch
 from csdr_tpu_torch.core.block import VarOut
 from csdr_tpu_torch.core.cplx import expj
 from csdr_tpu_torch.ops._varicode_table import VARICODE
+from csdr_tpu_torch.ops.fir import apply_fir_cc
 
 
 def _compact(hit: torch.Tensor, values: torch.Tensor, cap: int):
@@ -330,6 +330,15 @@ def dbpsk_decoder_c_u8(x: torch.Tensor, last_input: torch.Tensor | None = None,
     at = torch.clamp(count - 1, min=0).to(torch.int64)[..., None]
     lv = torch.gather(x, -1, at)[..., 0]
     return bits, torch.where(count > 0, lv, last_input)
+
+
+def bfsk_demod_cf(x: torch.Tensor, mark_filter, space_filter) -> torch.Tensor:
+    """|mark FIR|^2 - |space FIR|^2, valid mode (reference
+    libcsdr.c:2335-2351), on ``ops/fir.apply_fir_cc``."""
+    m = apply_fir_cc(x, mark_filter)
+    s = apply_fir_cc(x, space_filter)
+    return (m.real * m.real + m.imag * m.imag) \
+        - (s.real * s.real + s.imag * s.imag)
 
 
 def normalized_timing_variance_u32_f(indexes: torch.Tensor,

@@ -236,3 +236,48 @@ def fractional_decimator_block(rate: float, num_poly_points: int = 12,
     if q_den is not None:
         return RationalFractionalDecimatorBlock(rate, q_den, p, taps)
     return FractionalDecimatorBlock(rate, p, taps)
+
+
+def old_fractional_decimator_ff(x, rate: float, taps=None,
+                                remain: float = 0.0):
+    """Deprecated linear-interpolation fractional decimator (reference
+    old_fractional_decimator_ff, libcsdr.c:682-713), kept for CLI parity.
+
+    Host numpy, as in csdr_tpu: a serial loop whose every step depends on
+    the last, at audio rates, that the CLI runs between stdin and stdout.
+    One-shot over an array; returns (y float32, input_processed,
+    remain')."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    x = np.asarray(x, np.float32)
+    taps_np = None if taps is None else np.asarray(taps, np.float32)
+    t = 0 if taps_np is None else len(taps_np)
+
+    def firv(i):
+        if taps_np is None:
+            return x[i]
+        return float(np.dot(taps_np, x[i:i + t]))
+
+    out = []
+    where = remain
+    n = len(x)
+    if where == 0.0:
+        out.append(firv(0))
+        where += rate
+    prev_ih = -1
+    result_high = 0.0
+    ih = int(np.ceil(where))
+    while ih + t < n:
+        if prev_ih == ih - 1:
+            result_low = result_high
+        else:
+            result_low = firv(ih - 1)
+        result_high = firv(ih)
+        frac = where - ih + 1
+        out.append(result_low * (1 - frac) + result_high * frac)
+        prev_ih = ih
+        where += rate
+        ih = int(np.ceil(where))
+    input_processed = ih - 1
+    return (np.asarray(out, np.float32), input_processed,
+            where - input_processed)

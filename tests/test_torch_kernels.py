@@ -112,12 +112,14 @@ def test_cuda_wrapper_raises_on_shapes_the_kernel_refuses(cuda):
         fir_cuda.fir_decimate(x[:0], x, taps, 2000, 10)
 
 
-# (name, D, T, kout): the WFM front end fused and unfused, and the D=50
-# front ends of paths D (T=81) and C, E, F (T=801), at their chunk sizes
+# (name, D, T, kout): the WFM front end fused and unfused, the D=50
+# front ends of paths D (T=81) and C, E, F (T=801), at their chunk sizes,
+# and the CLI's fir_decimate_cc 10 0.05 at its 65 536-sample chunk
 PATH_SHAPES = (("shift_fir_decimate", 10, 79, 240_000),
                ("fir_decimate", 10, 79, 240_000),
                ("fir_decimate", 50, 81, 48_000),
-               ("fir_decimate", 50, 801, 48_060))
+               ("fir_decimate", 50, 801, 48_060),
+               ("fir_decimate", 10, 79, 6553))
 
 
 @pytest.mark.cuda
@@ -153,11 +155,12 @@ def _parent_smem(t, d):
     return 4 * ((t + 1) & ~1) + 8 * (255 * d + t)
 
 
-# (T, D, kout): the path shapes, kout = 1, kout = one planned tile + 1,
-# T < D, T = 1, and the BASELINE headline
+# (T, D, kout): the path shapes (the CLI's fir_decimate_cc among them),
+# kout = 1, kout = one planned tile + 1, T < D, T = 1, and the BASELINE
+# headline
 PLAN_CASES = ((79, 10, 240_000), (801, 50, 48_060), (81, 50, 48_000),
               (1023, 10, 262_144), (79, 10, 1), (801, 50, 129), (7, 50, 500),
-              (1, 10, 1000), (1, 1, 77), (1023, 10, 1025))
+              (1, 10, 1000), (1, 1, 77), (1023, 10, 1025), (79, 10, 6553))
 
 
 @pytest.mark.parametrize("t,d,kout", PLAN_CASES)
