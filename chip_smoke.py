@@ -80,7 +80,35 @@ prints one JSON line per phase and exits non-zero at the first failure:
 10. the cost of G and G' a chunk: Msps, step ms as issued, device-only
    ms and busy share, the channelizer's and the modem's ms, and launches
    and host syncs a chunk from torch.profiler.
-11. the ddcd DDC server, driven through server.ddcd.DdcdServer: K2 at the
+11. the sharded banks over torch.distributed (parallel/), one spawn of
+   ranks for the 1x1 meshes (NCCL) and one for the 2x2 (gloo, four ranks
+   on the one card: NCCL refuses two ranks on one device, and gloo's
+   send/recv takes host tensors, so the halo, fixup and corner turn copy
+   their tensors through the host; python3
+   tools/comm_probe.py checks both), the kernel library
+   built in this process first:
+   M   build_ddc_bpsk31_bank(64 rates, D, sps=256, mesh=1x1) at D=50 and
+       D=16 over the first 2 chunks of G's and G''s input: bits, counts
+       and channel streams bit for bit those of G and G', BER < 0.02 over
+       > 200 bits a BPSK31 channel, streams card vs CPU >= 100 dB on them;
+       the DDC bank (sharded_ddc) on chunk 1 equal to G's channelizer;
+       K3 forward (D=50) and K4 (D=16) once a chunk;
+   M'  the same on a 2x2 mesh: the DDC bank at D=50 and D=16 within atol
+       2e-4 of M's and >= 100 dB on each BPSK31 channel, the flagship at
+       D=50 within 2 bit errors a channel of M's; every launch counted
+       over the ranks, collective bytes equal to the halo's and corner
+       turn's shapes;
+   M'' sharded_wfm at 64 channels (firdes_lowpass_f(81, 0.05), D1=10,
+       D2=5) over one 2.4 M-sample chunk of FM 1 kHz tones on 8 channels,
+       1x1 and 2x2: at both shapes the bank against the same step with
+       K1's plain version in K1's place >= 100 dB and atol 5e-5 on each
+       of the 64 channels, the tones within 5 Hz, 2x2 vs 1x1 >= 90 dB
+       and atol 5e-3, K1 once a channel a time shard, bytes as predicted;
+   and per path each rank's step ms (CUDA events and host clock), the
+   mesh's wideband Msps, its collective bytes a step, the staged
+   collectives' host ms, and each rank's start-up apart from the steps.
+
+12. the ddcd DDC server, driven through server.ddcd.DdcdServer: K2 at the
    shape of S'' (D=16, T=79, kout=16 384) against its plain version, then
    S   DdcdServer(16, 0.05, max_channels=64, frames=1024), the dynamic
        channelizer: K4 once a chunk;
@@ -100,7 +128,7 @@ prints one JSON line per phase and exits non-zero at the first failure:
    bypass=1), and path S's server with six tone slots and six noise-only
    slots, card and CPU against float64 per channel.
 
-12. the byte edge: K3 forward at the waterfall's N=4096, B=837 against its
+13. the byte edge: K3 forward at the waterfall's N=4096, B=837 against its
    plain version and cuFFT, and what W's fft_cc runs (K3 and the
    natural-order gather, fft_natural) against cuFFT; the IMA ADPCM codec
    kernel, encode and decode, against its plain version on the card bit
@@ -131,7 +159,7 @@ prints one JSON line per phase and exits non-zero at the first failure:
        decoded tone at 1 kHz within 5 Hz;
    and each one's cost a chunk (Msps, device-only ms, busy share).
 
-13. the csdr-compatible CLI (python -m csdr_tpu_torch.cli):
+14. the csdr-compatible CLI (python -m csdr_tpu_torch.cli):
    X   the csdr-fm pipeline as a shell pipeline of seven processes over
        10 s of the WFM FM tone as u8 I/Q (48 MB), the CLI's default
        65 536-sample chunk: convert_u8_f | shift_addition_cc -0.2 |
@@ -170,6 +198,7 @@ result object.  Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1603,9 +1632,17 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
          card_vs_cpu_bit_errors_other_channels_max=int(max(
              slips[c] for c in range(CHANNELS) if c not in set(bpsk))),
          stream_s=wall)
+    # what the mesh paths (M, M') are held against: the first MESH_CHUNKS
+    # chunks' input, bits and counts, and channel streams card and CPU
+    mesh_ref = {"x": x[:MESH_CHUNKS * chunk].cpu().numpy(),
+                "tx_bits": tx_bits,
+                "outs": [(b.cpu().numpy(), k.cpu().numpy())
+                         for b, k in outs[:MESH_CHUNKS]],
+                "y_card": [v.cpu().numpy() for v in y_card[:MESH_CHUNKS]],
+                "y_cpu": [v.numpy() for v in y_cpu[:MESH_CHUNKS]]}
     return {"launches": launches, "bank": bank, "step": step, "init": init,
             "xs": xs, "y_cpu": y_cpu, "y_card0": y_card[0].cpu().numpy(),
-            "bpsk": bpsk, "wall": wall, "chunk": chunk}
+            "bpsk": bpsk, "wall": wall, "chunk": chunk, "mesh_ref": mesh_ref}
 
 
 def costas_case(torch, g):
@@ -1667,6 +1704,417 @@ def phase_bank_throughput(torch, banks):
                   "split by an event between the halves; device_ms: the "
                   "union of the kernels' intervals in one profiled step; "
                   "launches and host syncs from torch.profiler")
+
+
+# ---------------------------------------------------------------------------
+# the sharded banks (paths M, M', M''), one rank a process
+# ---------------------------------------------------------------------------
+
+MESH_CHUNKS = 2            # M, M': G's (G''s) first chunks (depth cut from 3)
+MESH_TIMED_STEPS = 3       # steps a rank times after the counted run
+MESH_DDC_ATOL = 2e-4       # sharded vs one shard (tests/test_sharded.py)
+WFM_BANK_CHANNELS = 64     # bench_scaling.py's default --channels
+WFM_BANK_BARS = (90.0, 5e-3)   # 2x2 vs 1x1, dB and atol (test_sharded.py)
+# the bank against itself with K1's plain version in K1's place, per
+# channel: dB and atol
+WFM_PLAIN_BARS = (100.0, 5e-5)
+WFM_D1, WFM_D2 = 10, 5
+C64 = 8                    # bytes of a complex64 sample
+
+
+def rank_info(mesh, info: dict) -> list:
+    """Every rank's ``info`` in rank order (an uncounted gather)."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, info)
+    return out
+
+
+def summed_launches(mesh) -> dict:
+    """Kernel launches since the last reset, summed over the ranks."""
+    per = rank_info(mesh, launches_all())
+    return {k: sum(p[k] for p in per) for k in per[0]}
+
+
+def mesh_startup(mesh) -> list:
+    """Each rank's host clock as it reaches its first job (so start-up =
+    this minus the parent's clock at the spawn)."""
+    return rank_info(mesh, {"first_job_at": time.time()})
+
+
+def timed_steps(torch, mesh, run, steps: int = MESH_TIMED_STEPS) -> dict:
+    """``run()`` ``steps`` times, each between two CUDA events and under
+    the host clock to a synchronise: per rank the median event ms, host
+    ms, and the collectives' host ms a step (staging included)."""
+    from csdr_tpu_torch.utils import collectives
+    ev_ms, host_ms = [], []
+    collectives.reset_collectives()
+    for _ in range(steps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(a.elapsed_time(b))
+    coll = collectives.read_collectives()["host_ms"]
+    return rank_info(mesh, {
+        "rank": mesh.coords, "event_ms": float(np.median(ev_ms)),
+        "host_ms": float(np.median(host_ms)),
+        "collective_host_ms_a_step": {k: v / steps for k, v in coll.items()}})
+
+
+def counted_run(torch, mesh, run):
+    """``run()`` with every kernel count and collective count zeroed just
+    before and read just after: (its result, launches summed over the
+    ranks, the mesh's collective bytes)."""
+    from csdr_tpu_torch.utils import collectives
+    reset_all()
+    collectives.reset_collectives()
+    out = run()
+    torch.cuda.synchronize()
+    launches = summed_launches(mesh)
+    return out, launches, collectives.mesh_total(mesh)
+
+
+def mesh_bank_job(mesh, decim: int, frames: int, x_path: str,
+                  flagship: bool) -> dict:
+    """One rank of path M (1x1) or M' (2x2) at one decimation, on G's (or
+    G''s) first MESH_CHUNKS chunks (``x_path``, saved by the parent): the
+    DDC bank (``sharded_ddc``) on chunk 1, then, where ``flagship``,
+    ``build_ddc_bpsk31_bank(..., mesh=mesh)`` over the chunks and its
+    channel streams."""
+    import torch
+    from csdr_tpu_torch.models import multichannel
+    from csdr_tpu_torch.ops import fastddc as fd
+    from csdr_tpu_torch.parallel import mesh as pm, sharded_ddc
+
+    rates, _, _ = bank_plan()
+    ddc = fd.fastddc_init(0.05, decim)
+    chunk = frames * ddc.input_size
+    x = torch.from_numpy(np.load(x_path))
+    xs = [pm.shard_input(x[c * chunk:(c + 1) * chunk], mesh)
+          for c in range(MESH_CHUNKS)]
+    del x
+    where = {"comm": mesh.comm, "mesh": dict(mesh.shape)}
+    out = {"decim": decim, "chunk": chunk, **where}
+    ddc_step, _ = sharded_ddc.build_ddc_bank_step(mesh, ddc, rates)
+    with torch.no_grad():
+        y, launches, nbytes = counted_run(torch, mesh,
+                                          lambda: ddc_step(xs[0]))
+        out["ddc"] = {"y": pm.gather_output(y, mesh), "launches": launches,
+                      "bytes": nbytes, **where,
+                      "ranks": timed_steps(torch, mesh,
+                                           lambda: ddc_step(xs[0]))}
+    if not flagship:
+        return out
+    init, step, meta = multichannel.build_ddc_bpsk31_bank(
+        rates, decim, SPS, mesh=mesh)
+    bank = meta["bank"]
+
+    def drive():
+        st, outs = init(chunk), []
+        for v in xs:
+            st, o = step(st, v)
+            outs.append(o)
+        return st, outs
+
+    with torch.no_grad():
+        (st, outs), launches, nbytes = counted_run(torch, mesh, drive)
+        box = {"state": st}
+
+        def one_step():
+            box["state"], _ = step(box["state"], xs[0])
+
+        ranks = timed_steps(torch, mesh, one_step)
+        streams = [pm.gather_output(bank.channelize(v), mesh,
+                                    time_sharded=False) for v in xs]
+    out["flagship"] = {
+        "outs": [(pm.gather_output(b, mesh, time_sharded=False),
+                  pm.gather_output(k, mesh, time_sharded=False))
+                 for b, k in outs],
+        "streams": streams, "launches": launches, "bytes": nbytes,
+        "ranks": ranks, "m": bank.samples_per_chunk(chunk), **where}
+    return out
+
+
+def wfm_bank_input(torch, centres, n: int = CHUNK):
+    """One 2.4 M-sample chunk: an FM 1 kHz tone on each centre (fm_tone,
+    75 kHz for a full-scale tone) plus complex noise of 0.01 a part."""
+    x = sum(fm_tone(n, carrier=float(f)).astype(np.complex128)
+            for f in centres)
+    rng = np.random.default_rng(61)
+    x = x + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return torch.from_numpy(x.astype(np.complex64))
+
+
+@contextlib.contextmanager
+def k1_plain():
+    """K1's plain version in the kernel's place
+    (``fir_cuda.shift_fir_decimate``, what ``sharded_wfm`` calls) inside
+    the ``with`` block: the same step on the same shards and halos, with
+    the reference FIR."""
+    from csdr_tpu_torch.kernels import fir_cuda
+    kernel = fir_cuda.shift_fir_decimate
+    fir_cuda.shift_fir_decimate = fir_cuda.shift_fir_decimate_plain
+    try:
+        yield
+    finally:
+        fir_cuda.shift_fir_decimate = kernel
+
+
+def wfm_bank_job(mesh) -> dict:
+    """One rank of path M'': ``sharded_wfm`` at 64 channels over one 2.4
+    M-sample chunk, firdes_lowpass_f(81, 0.05), D1=10, D2=5; then the
+    same step with K1's plain version (not counted, not timed)."""
+    import torch
+    from csdr_tpu_torch import firdes
+    from csdr_tpu_torch.parallel import mesh as pm, sharded_wfm
+
+    # bank_plan's rates: its 8 BPSK31 channels carry the FM tones here
+    rates, _, centres = bank_plan()
+    step = sharded_wfm.build_wfm_bank_step(
+        mesh, rates, firdes.firdes_lowpass_f(81, 0.05), WFM_D1, WFM_D2)
+    xl = pm.shard_input(wfm_bank_input(torch, centres), mesh)
+    with torch.no_grad():
+        y, launches, nbytes = counted_run(torch, mesh, lambda: step(xl))
+        ranks = timed_steps(torch, mesh, lambda: step(xl))
+        with k1_plain():
+            y_plain = step(xl)
+    return {"audio": pm.gather_output(y, mesh),
+            "audio_plain": pm.gather_output(y_plain, mesh),
+            "launches": launches,
+            "bytes": nbytes, "ranks": ranks, "tail_ext": step.tail_ext,
+            "comm": mesh.comm, "mesh": dict(mesh.shape)}
+
+
+def predicted_bytes(kind: str, chan: int, time_: int, **shape) -> dict:
+    """The collective bytes a step of a bank must send on a (chan, time)
+    mesh: a halo of ``halo`` samples from every time shard but the last
+    of each chan row; the WFM bank's fixup, a (2, C_l) float32 pair from
+    every rank to its time-1 peers; the flagship's corner turn, each
+    rank's (C_l, m/time) streams to its time-1 peers."""
+    out = {"halo": chan * (time_ - 1) * shape["halo"] * C64, "fixup": 0,
+           "corner_turn": 0, "gather": 0}
+    if kind == "wfm":
+        out["fixup"] = time_ * (time_ - 1) * 2 * 4 * shape["channels"]
+    if kind == "flagship":
+        out["corner_turn"] = (time_ - 1) * shape["channels"] * shape["m"] \
+            * C64
+    return out
+
+
+def mesh_line(key: str, pipeline: str, res: dict, wide: int, steps: int,
+              startup: list, t_spawn: float, **extra) -> dict:
+    """A path's printed line: per rank the event and host ms a step, the
+    wideband Msps of the whole mesh (the chunk over the slowest rank's
+    host step), the collective bytes a step, the staged collectives' host
+    ms, and each rank's start-up apart from the steps."""
+    ranks = res["ranks"]
+    slowest = max(r["host_ms"] for r in ranks)
+    line = {"path": key, "pipeline": pipeline, "mesh": res["mesh"],
+            "comm": res["comm"], "launches": res["launches"],
+            "collective_bytes_a_step": {k: v / steps for k, v in
+                                        res["bytes"].items()},
+            "event_ms_by_rank": [r["event_ms"] for r in ranks],
+            "host_ms_by_rank": [r["host_ms"] for r in ranks],
+            "wideband_msps_mesh": wide / slowest / 1e3,
+            "collective_host_ms_a_step_by_rank": [
+                r["collective_host_ms_a_step"] for r in ranks],
+            "rank_startup_s": [s["first_job_at"] - t_spawn
+                               for s in startup], **extra}
+    emit("path", **line)
+    return line
+
+
+def run_mesh_jobs(jobs, chan: int, time_: int, backend: str) -> tuple:
+    """The jobs on one spawn of ``chan*time_`` ranks on the card; rank 0's
+    results and the parent's clock at the spawn.  A failing rank fails
+    the run."""
+    import functools
+    from csdr_tpu_torch.parallel import mesh as pm
+    t_spawn = time.time()
+    res = pm.run_mesh(functools.partial(pm.run_jobs,
+                                        jobs=[mesh_startup] + jobs),
+                      chan, time_, backend=backend, device="cuda")
+    return res[0], res[1:], t_spawn
+
+
+def bits_of(outs, c: int) -> np.ndarray:
+    return np.concatenate([b[c, :k[c]] for b, k in outs])
+
+
+def mesh_flagship_gates(key: str, f: dict, ref_outs, tx_bits, bpsk,
+                        slip_bar: int) -> dict:
+    """BER < BER_BAR over > 200 bits on every BPSK31 channel, and every
+    channel's bits within ``slip_bar`` errors of ``ref_outs`` after
+    alignment."""
+    from csdr_tpu_torch.models import bpsk31
+    bers = {}
+    for i, c in enumerate(bpsk):
+        errs, total = bpsk31.align_errors(tx_bits[i][8:],
+                                          bits_of(f["outs"], c)[8:],
+                                          range(-6, 6))
+        require(total > 200 and errs / total < BER_BAR,
+                f"path {key}: channel {c} BER {errs}/{total}")
+        bers[int(c)] = errs / total
+    slips = [bpsk31.align_errors(bits_of(ref_outs, c), bits_of(f["outs"], c),
+                                 range(-6, 6))[0] for c in range(CHANNELS)]
+    require(max(slips) <= slip_bar, f"path {key}: bits {max(slips)} errors "
+            f"from the reference on channel {int(np.argmax(slips))}")
+    return {"ber": bers, "bits_vs_ref_errors_max": int(max(slips))}
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_mesh_paths(torch, banks) -> dict:
+    """Paths M (1x1, NCCL), M' (2x2, gloo: four ranks on the one card,
+    collectives staged through the host) and M'' (sharded_wfm at 64
+    channels, 1x1 and 2x2): one spawn for the 1x1 jobs and one for the
+    2x2 jobs; the kernel library is built in this process before either.
+    Returns each path's launches for the kernel table."""
+    import functools
+    import tempfile
+
+    from csdr_tpu_torch.ops import fastddc as fd
+
+    require_no_tf32(torch)
+    cases = ((50, "G", FRAMES_G, "fft_ko"), (16, "G'", FRAMES_GP,
+                                             "fastddc_inv"))
+
+    def jobs(flagship16: bool) -> list:
+        return [functools.partial(
+            mesh_bank_job, decim=d, frames=frames, x_path=f"{tmp}/x{d}.npy",
+            flagship=d == 50 or flagship16)
+            for d, g, frames, _ in cases] + [wfm_bank_job]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for d, g, _, _ in cases:
+            np.save(f"{tmp}/x{d}.npy", banks[g]["mesh_ref"]["x"])
+        start1, (m50, m16, w1), t1 = run_mesh_jobs(jobs(True), 1, 1, "nccl")
+        start4, (p50, p16, w4), t4 = run_mesh_jobs(jobs(False), 2, 2,
+                                                   "gloo")
+    _, bpsk, _ = bank_plan()
+    launches = {"M": [], "M'": []}
+
+    # M: the 1x1 mesh is paths G and G' bit for bit
+    for res, (d, g, _, kernel) in zip((m50, m16), cases):
+        ref, f = banks[g]["mesh_ref"], res["flagship"]
+        ov = fd.fastddc_init(0.05, d).overlap_length
+        require(np.array_equal(res["ddc"]["y"], ref["y_card"][0]),
+                f"path M D={d}: the 1x1 DDC bank differs from path {g}'s "
+                "channelizer")
+        for (b, k), (rb, rk) in zip(f["outs"], ref["outs"]):
+            require(np.array_equal(k, rk) and np.array_equal(b, rb),
+                    f"path M D={d}: bits or counts differ from path {g}'s")
+        for s, rs in zip(f["streams"], ref["y_card"]):
+            require(np.array_equal(s, rs), f"path M D={d}: channel streams "
+                    f"differ from path {g}'s")
+        snr = min(require_match(f"path_M_D{d}: card vs CPU channel streams",
+                                s[bpsk], c[bpsk], CHANNEL_BAR)
+                  for s, c in zip(f["streams"], ref["y_cpu"]))
+        gates = mesh_flagship_gates(f"M D={d}", f, ref["outs"],
+                                    ref["tx_bits"], bpsk, 0)
+        require_launches(res["ddc"]["launches"], {kernel: 1},
+                         f"path M D={d} DDC bank")
+        require_launches(f["launches"], {kernel: MESH_CHUNKS},
+                         f"path M D={d}")
+        require(f["bytes"] == predicted_bytes("flagship", 1, 1, halo=ov,
+                                              channels=CHANNELS, m=f["m"]),
+                f"path M D={d}: collective bytes {f['bytes']} on a 1x1 mesh")
+        launches["M"] += [res["ddc"]["launches"], f["launches"]]
+        mesh_line("M", f"build_ddc_bpsk31_bank(64 rates, {d}, sps={SPS}, "
+                  "mesh=1x1)", f, res["chunk"], MESH_CHUNKS, start1, t1,
+                  chunks=MESH_CHUNKS, chunk=res["chunk"],
+                  bits_and_streams_vs_path=f"{g}: equal",
+                  card_vs_cpu_bpsk_channel_min_snr_db=snr, **gates)
+
+    # M': 2x2 on the one card against M's 1x1
+    for res, one, (d, g, frames, kernel) in zip((p50, p16), (m50, m16),
+                                                 cases):
+        ov = fd.fastddc_init(0.05, d).overlap_length
+        y, y1 = res["ddc"]["y"], one["ddc"]["y"]
+        err = float(np.abs(y - y1).max())
+        require(err <= MESH_DDC_ATOL, f"path M' D={d}: DDC bank 2x2 vs 1x1 "
+                f"max abs error {err} > {MESH_DDC_ATOL}")
+        snr = require_match(f"path_M'_D{d}: DDC bank 2x2 vs 1x1",
+                            y[bpsk], y1[bpsk], CHANNEL_BAR)
+        require_launches(res["ddc"]["launches"], {kernel: 4},
+                         f"path M' D={d} DDC bank")
+        want = predicted_bytes("ddc", 2, 2, halo=ov)
+        require(res["ddc"]["bytes"] == want, f"path M' D={d}: DDC bank "
+                f"collective bytes {res['ddc']['bytes']}, predicted {want}")
+        launches["M'"].append(res["ddc"]["launches"])
+        extra = {"ddc_bank_vs_1x1_max_abs": err,
+                 "ddc_bank_vs_1x1_bpsk_min_snr_db": snr,
+                 "ddc_bank_collective_bytes": res["ddc"]["bytes"],
+                 "ddc_bank_host_ms_by_rank": [
+                     r["host_ms"] for r in res["ddc"]["ranks"]]}
+        if "flagship" not in res:
+            mesh_line("M'", f"sharded_ddc.build_ddc_bank_step(64 rates, "
+                      f"D={d}), mesh=2x2", res["ddc"], res["chunk"], 1,
+                      start4, t4, **extra)
+            continue
+        f = res["flagship"]
+        gates = mesh_flagship_gates(f"M' D={d}", f,
+                                    one["flagship"]["outs"],
+                                    banks[g]["mesh_ref"]["tx_bits"], bpsk,
+                                    BANK_SLIP_BAR)
+        require_launches(f["launches"], {kernel: 4 * MESH_CHUNKS},
+                         f"path M' D={d}")
+        want = {k: v * MESH_CHUNKS for k, v in predicted_bytes(
+            "flagship", 2, 2, halo=ov, channels=CHANNELS, m=f["m"]).items()}
+        require(f["bytes"] == want, f"path M' D={d}: collective bytes "
+                f"{f['bytes']}, predicted {want}")
+        launches["M'"].append(f["launches"])
+        mesh_line("M'", f"build_ddc_bpsk31_bank(64 rates, {d}, sps={SPS}, "
+                  "mesh=2x2)", f, res["chunk"], MESH_CHUNKS, start4, t4,
+                  chunks=MESH_CHUNKS, predicted_bytes=want, **gates,
+                  **extra)
+
+    # M'': the WFM bank against itself with K1's plain version at both
+    # mesh shapes, then tones, 2x2 against 1x1, K1 once a channel a shard
+    vs_plain = {}
+    for res, name in ((w1, "1x1"), (w4, "2x2")):
+        a, p = res["audio"], res["audio_plain"]
+        err = float(np.abs(a - p).max())
+        db = require_match(f"path_M''_{name}: the WFM bank vs K1's plain "
+                           "version", a, p, WFM_PLAIN_BARS[0])
+        require(err <= WFM_PLAIN_BARS[1], f"path M'' {name}: the WFM bank "
+                f"vs K1's plain version, max abs {err} > "
+                f"{WFM_PLAIN_BARS[1]}")
+        vs_plain[name] = {"vs_k1_plain_min_snr_db": db,
+                          "vs_k1_plain_max_abs": err}
+    hz = [tone_hz(w1["audio"][c]) for c in bpsk]
+    require(all(abs(h - 1000.0) < 5.0 for h in hz),
+            f"path M'': tones at {hz} Hz")
+    db, atol = WFM_BANK_BARS
+    wfm_snr = snr_db(w1["audio"], w4["audio"])
+    wfm_err = float(np.abs(w1["audio"] - w4["audio"]).max())
+    require(wfm_snr >= db and wfm_err <= atol, f"path M'': 2x2 vs 1x1 "
+            f"{wfm_snr:.1f} dB, max abs {wfm_err}")
+    for res, (chan, time_), start, t0 in ((w1, (1, 1), start1, t1),
+                                          (w4, (2, 2), start4, t4)):
+        name = f"{chan}x{time_}"
+        require_launches(res["launches"], {
+            "shift_fir_decimate": WFM_BANK_CHANNELS * time_},
+            f"path M'' {name}")
+        want = predicted_bytes("wfm", chan, time_, halo=res["tail_ext"],
+                               channels=WFM_BANK_CHANNELS)
+        require(res["bytes"] == want, f"path M'' {name}: collective "
+                f"bytes {res['bytes']}, predicted {want}")
+        mesh_line("M''", f"sharded_wfm.build_wfm_bank_step(64 rates, "
+                  f"firdes_lowpass_f(81, 0.05), {WFM_D1}, {WFM_D2}), "
+                  f"mesh={name}", res, CHUNK, 1, start, t0,
+                  tones_hz=hz, vs_1x1_snr_db=wfm_snr, vs_1x1_max_abs=wfm_err,
+                  predicted_bytes=want, **vs_plain[name])
+    return {"M": add_launches(*launches["M"]),
+            "M'": add_launches(*launches["M'"]),
+            "M'' 1x1": w1["launches"], "M'' 2x2": w4["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3369,6 +3817,9 @@ def run(torch) -> int:
     phase_receiver_throughput(torch, receivers)
     banks = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
+    mesh = phase_mesh_paths(torch, banks)
+    g_launches = {k: b["launches"] for k, b in banks.items()}
+    del banks
     servers, server_cases = phase_server_paths(torch)
     quiet_server(torch)
     edge_cases = phase_byte_edge_kernels(torch)
@@ -3411,10 +3862,14 @@ def run(torch) -> int:
     # K3 at N=256 through bandpass_fir_fft_cc, at N=4096 through fft_cc,
     # K4 at D=16 through fastddc_inv_cc, the codec both ways
     xp = {k: {"X' " + k: v} for k, v in cli_launches.items()}
-    also = {("fft_ko", "B"): {"G": banks["G"]["launches"],
-                              "S'": servers["S'"]["launches"]},
-            ("fastddc_inv", "A"): {"G'": banks["G'"]["launches"],
+    also = {("shift_fir_decimate", "wfm"): {"M'' 1x1": mesh["M'' 1x1"],
+                                            "M'' 2x2": mesh["M'' 2x2"]},
+            ("fft_ko", "B"): {"G": g_launches["G"],
+                              "S'": servers["S'"]["launches"],
+                              "M": mesh["M"], "M'": mesh["M'"]},
+            ("fastddc_inv", "A"): {"G'": g_launches["G'"],
                                    "S": servers["S"]["launches"],
+                                   "M": mesh["M"], "M'": mesh["M'"],
                                    **xp["fastddc_inv_cc"]},
             ("fft_ko", "C"): xp["bandpass_fir_fft_cc"],
             ("ifft_ko", "C"): xp["bandpass_fir_fft_cc"],

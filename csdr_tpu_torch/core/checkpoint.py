@@ -232,7 +232,10 @@ def state_from_jax_leaves(block, leaves, device="cuda") -> object:
     the matrix leaves against the port's buffers.  The timing recovery
     block takes its (tail re, tail im, occ, corr) for one stream or, with a
     leading channel axis, for a vmapped bank; the bank takes csdr_tpu's 6
-    arrays (9 with the Costas loop).  The dynamic fastddc blocks take their
+    arrays (9 with the Costas loop), and its mesh form
+    (``models.multichannel.MeshDdcBpsk31Bank``) the same global (C, ...)
+    arrays of csdr_tpu's mesh bank, keeping its rank's chan rows (pass
+    the mesh's device).  The dynamic fastddc blocks take their
     history (the channelizer's tail and phases, the inverses' phases) and
     check their matrix leaves (Wdft, the packed W); the server takes
     ``srv.state`` of csdr_tpu's server of the same method and plan (the

@@ -9,8 +9,14 @@ order (K3) with the classed inverse for D=50.  As csdr_tpu's bank does,
 every chunk is channelized from zero history (no overlap tail, NCO ramps
 from the chunk's first frame); the carried state is the modem's alone.
 The modem is ``ops/sync`` and ``ops/digital`` over the channel axis.
-csdr_tpu shards channels and time over a device mesh; that form waits for
-the port's sharded banks.
+
+With a ``mesh`` (``parallel/mesh.init_mesh``) the bank is csdr_tpu's mesh
+form: each rank channelizes its time slice of the chunk for its channel
+rows (``parallel/sharded_ddc``), the decimated channel streams are
+gathered along "time" (the corner turn, csdr_tpu's resharding to
+P('chan', None) and the reference ddcd's per-client pipes,
+ddcd_old.h:59-61), and the modem runs on the rank's rows with its state
+sharded by chan.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from csdr_tpu_torch.core.block import Pipeline, resolve_device
 from csdr_tpu_torch.ops import digital, fastddc as fd, sync
+from csdr_tpu_torch.parallel import mesh as pmesh, sharded_ddc
 
 
 class DdcBpsk31Bank:
@@ -50,15 +57,20 @@ class DdcBpsk31Bank:
             ga = q * pis // post
         self.channelizer = chan.to(self.device)
         self.ddc, self.channels, self.q, self.group_out = ddc, len(rates), q, ga
+        self._modem_setup(sps, use_costas, costas_bw, tr_segments,
+                          tr_subchunks)
+        self.meta = dict(input_size=ddc.input_size, overlap=ddc.overlap_length,
+                         post_input=pis, post=post, channels=len(rates), q=q,
+                         group_out=ga, bank=self)
+
+    def _modem_setup(self, sps, use_costas, costas_bw, tr_segments,
+                     tr_subchunks) -> None:
         self.tr = sync.timing_recovery_block(
             "GARDNER", sps, loop_gain=0.5, max_error=2.0, use_q=True,
             segments=tr_segments)
         self.tr_subchunks = tr_subchunks
         self.costas = sync.costas_loop_params(costas_bw) if use_costas \
             else None
-        self.meta = dict(input_size=ddc.input_size, overlap=ddc.overlap_length,
-                         post_input=pis, post=post, channels=len(rates), q=q,
-                         group_out=ga, bank=self)
 
     def _zero_state(self) -> tuple:
         c = self.channels
@@ -147,11 +159,66 @@ class DdcBpsk31Bank:
             return self.modem(state, self.channelize(x))
 
 
+class MeshDdcBpsk31Bank(DdcBpsk31Bank):
+    """The bank on one rank of a (chan, time) mesh: the sharded
+    channelizer on the rank's time slice for its channel rows, the corner
+    turn (an all-gather of the (C_l, m_l) channel streams along "time",
+    counted under "corner_turn"), and the modem on its C_l rows.  The
+    state is :class:`DdcBpsk31Bank`'s for those rows; ``step`` takes the
+    rank's slice of the chunk (``mesh.shard_input``) and returns its rows'
+    bits and counts (``mesh.gather_output(..., time_sharded=False)``
+    collects them)."""
+
+    def __init__(self, mesh, shift_rates, decimation: int, sps: int,
+                 use_costas: bool, costas_bw: float, tr_segments: int,
+                 tr_subchunks: int):
+        self.mesh, self.device = mesh, mesh.device
+        ddc = fd.fastddc_init(0.05, decimation)
+        self.bank_step, meta = sharded_ddc.build_ddc_bank_step(
+            mesh, ddc, shift_rates)
+        self.rows = pmesh.chan_rows(len(shift_rates), mesh)
+        self.ddc, self.q, self.group_out = ddc, meta["q"], meta["group_out"]
+        self.channels = self.rows.stop - self.rows.start
+        self._modem_setup(sps, use_costas, costas_bw, tr_segments,
+                          tr_subchunks)
+        self.meta = dict(meta, bank=self)
+
+    def samples_per_chunk(self, n_wideband: int) -> int:
+        """Per-channel samples of a whole chunk of ``n_wideband`` samples,
+        whose every time shard must hold whole q-frame groups."""
+        p = self.mesh.shape["time"]
+        if n_wideband % p:
+            raise ValueError(f"a chunk of {n_wideband} samples does not "
+                             f"split over {p} time shards")
+        return p * super().samples_per_chunk(n_wideband // p)
+
+    def state_from_jax(self, leaves) -> tuple:
+        """csdr_tpu's mesh bank state (6 or 9 global (C, ...) arrays): this
+        rank's chan rows of each."""
+        from csdr_tpu_torch.core.checkpoint import JaxLeaves
+
+        rest = leaves.leaves[leaves.pos:]
+        mine = JaxLeaves([a[self.rows] for a in rest], leaves.device)
+        state = mine.like(self._zero_state())
+        leaves.pos += mine.pos
+        return state
+
+    def channelize(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of the chunk -> (C_l, m) complex64: its rows of
+        the channel streams over the whole chunk."""
+        DdcBpsk31Bank.samples_per_chunk(self, x.shape[-1])
+        y = self.bank_step(x)
+        if self.mesh.shape["time"] == 1:
+            return y
+        return torch.cat(pmesh.all_gather(y, self.mesh, "time",
+                                          "corner_turn"), -1)
+
+
 def build_ddc_bpsk31_bank(shift_rates, decimation: int, sps: int = 256,
                           use_costas: bool = False,
                           costas_bw: float = 2 * np.pi / 100,
                           tr_segments: int = 1, tr_subchunks: int = 1,
-                          device="cuda"):
+                          device="cuda", mesh=None):
     """Returns (init, step, meta): ``init(n_wideband)`` the zero state for
     chunks of that many wideband samples, ``step(state, x)`` ->
     (state', (bits (C, cap) uint8, counts (C,) int32)) for a complex64
@@ -165,7 +232,35 @@ def build_ddc_bpsk31_bank(shift_rates, decimation: int, sps: int = 256,
     steps once per channel sample, so keep it to low channel rates.
     tr_segments > 1: the TED's segmented mode.  tr_subchunks > 1: each
     channel chunk fed to the TED as that many sequential calls (same
-    bits); a count that does not divide the chunk warns and runs one."""
-    bank = DdcBpsk31Bank(shift_rates, decimation, sps, use_costas, costas_bw,
-                         tr_segments, tr_subchunks, device)
+    bits); a count that does not divide the chunk warns and runs one.
+
+    mesh: a ``parallel.mesh.Mesh`` for csdr_tpu's mesh form
+    (:class:`MeshDdcBpsk31Bank`, on the mesh's device; ``device`` is not
+    read): ``init`` takes the whole chunk's length, ``step`` the rank's
+    time slice and returns its channel rows."""
+    if mesh is not None:
+        bank = MeshDdcBpsk31Bank(mesh, shift_rates, decimation, sps,
+                                 use_costas, costas_bw, tr_segments,
+                                 tr_subchunks)
+    else:
+        bank = DdcBpsk31Bank(shift_rates, decimation, sps, use_costas,
+                             costas_bw, tr_segments, tr_subchunks, device)
     return bank.init, bank.step, bank.meta
+
+
+def example_flagship(mesh, frames_per_shard: int = 4, c_total: int = 8,
+                     decimation: int = 16, sps: int = 256,
+                     tr_segments: int = 1):
+    """The mesh bank and an example input (csdr_tpu's seed and draws):
+    returns (state, step, x global complex64 on the CPU, rates); give
+    ``step`` the rank's slice, ``mesh.shard_input(x, mesh)``."""
+    rng = np.random.default_rng(3)
+    rates = rng.uniform(-0.35, 0.35, c_total)
+    init, step, meta = build_ddc_bpsk31_bank(rates, decimation, sps,
+                                             tr_segments=tr_segments,
+                                             mesh=mesh)
+    n = mesh.shape["time"] * frames_per_shard * meta["input_size"]
+    re = rng.standard_normal(n).astype(np.float32)
+    im = rng.standard_normal(n).astype(np.float32)
+    x = torch.from_numpy((re + 1j * im).astype(np.complex64))
+    return init(n), step, x, rates

@@ -26,10 +26,13 @@ def fmdemod_quadri_cf(x: torch.Tensor, last_sample=None):
     """Quadri-correlator FM discriminator (reference libcsdr.c:1039-1071):
     y = K*(i*dq - q*di)/(i^2+q^2), dq/di against the previous sample; the
     first sample differentiates against ``last_sample`` (0 at stream
-    start).  Returns (y float32, new_last_sample complex64 0-dim)."""
+    start).  Along the last axis; leading axes are independent streams,
+    each with its ``last_sample``.  Returns (y float32, new_last_sample
+    complex64, x's shape without its last axis)."""
     if last_sample is None:
-        last_sample = torch.zeros((), dtype=torch.complex64, device=x.device)
-    prev = torch.cat([last_sample.reshape(1), x[:-1]])
+        last_sample = torch.zeros(x.shape[:-1], dtype=torch.complex64,
+                                  device=x.device)
+    prev = torch.cat([last_sample[..., None], x[..., :-1]], -1)
     re, im = x.real, x.imag
     di = re - prev.real
     dq = im - prev.imag
@@ -40,7 +43,7 @@ def fmdemod_quadri_cf(x: torch.Tensor, last_sample=None):
     y = torch.where(nz, FMDEMOD_QUADRI_K * num
                     / torch.where(nz, den, torch.ones_like(den)),
                     torch.zeros_like(den))
-    return y, x[-1].clone()
+    return y, x[..., -1].clone()
 
 
 class FmdemodQuadriBlock(Block):
@@ -112,19 +115,28 @@ def realpart_cf(x: torch.Tensor) -> torch.Tensor:
     return x.real
 
 
-def _affine_scan(b: torch.Tensor, a: torch.Tensor, y0) -> torch.Tensor:
-    """Prefix of y <- b*y + a from y0 along the last axis: a log-depth
-    (Hillis-Steele) scan over the (mul, add) pairs, each step one pass of
-    vector ops.  Leading axes are independent scans, with ``y0`` their
-    entry values (a scalar, or one per scan)."""
+def affine_prefix(b: torch.Tensor, a: torch.Tensor):
+    """Inclusive prefix of the affine maps y <- b*y + a along the last
+    axis: a log-depth (Hillis-Steele) scan over the (mul, add) pairs, each
+    step one pass of vector ops.  Returns (B, A), the composed maps, so
+    the output for an entry carry y0 is B*y0 + A."""
     b, a = b.clone(), a.clone()
-    a[..., 0] = a[..., 0] + b[..., 0] * y0
     off, n = 1, a.shape[-1]
     while off < n:
         a[..., off:] = a[..., off:] + b[..., off:] * a[..., :-off]
         b[..., off:] = b[..., off:] * b[..., :-off]
         off *= 2
-    return a
+    return b, a
+
+
+def _affine_scan(b: torch.Tensor, a: torch.Tensor, y0) -> torch.Tensor:
+    """Prefix of y <- b*y + a from y0 along the last axis (y0 folded into
+    the first pair, then :func:`affine_prefix`).  Leading axes are
+    independent scans, with ``y0`` their entry values (a scalar, or one
+    per scan)."""
+    a = a.clone()
+    a[..., 0] = a[..., 0] + b[..., 0] * y0
+    return affine_prefix(b, a)[1]
 
 
 def _one_pole_scan(x, alpha, y0):

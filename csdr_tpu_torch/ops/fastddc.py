@@ -23,7 +23,11 @@ device.  Device work:
 - otherwise (D=20, D=50): the phase-classed inverse, plain batched
   ``torch.matmul``s, taking natural or kernel-order spectra;
 - the retunable blocks of the DDC server (``fastddc_*_dynamic_*``): the
-  same inverses with each channel's rows and NCO rate as call arguments.
+  same inverses with each channel's rows and NCO rate as call arguments;
+- csdr_tpu's r2 batch functions (``fastddc_inv_batch`` and its ``_mxu``
+  form, ``fastddc_inv_factored_batch``): the inverse's readable
+  specification and two matrix forms of it, plain torch, which no block
+  runs.
 
 Matrix products outside a kernel run inside
 :func:`~csdr_tpu_torch.core.precision.full_f32_matmul`, so they stay in
@@ -261,6 +265,45 @@ def channel_fused_matrix(ddc: FastDDC, shift_rate: float):
     return g, np.mod(m * dsa, 1.0)
 
 
+def channel_factored_arrays(ddc: FastDDC, rates):
+    """Host arrays of the r2 factored inverse
+    (:func:`fastddc_inv_factored_batch`): TQ (C, pre, inv) complex64, the
+    raw-order taps spectrum / pre, so TQ[c, j, m] multiplies raw bin
+    j*inv + m; E (C, inv, M) complex64, the shared swap + iFFT +
+    post-select + in-frame NCO matrix with its rows rolled by each
+    channel's fold shift cc = (-offsetbin + inv/2) mod inv; frame_cyc
+    (C,) float64.  Factored-v2 (:func:`channel_factored2_arrays`) turns
+    the roll into a column scaling of one shared W."""
+    inv, fft, pre = ddc.fft_inv_size, ddc.fft_size, ddc.pre_decimation
+    pis, post = ddc.post_input_size, ddc.post_decimation
+    assert pis % post == 0
+    m = pis // post
+    tq_list, e_list, cyc_list = [], [], []
+    half_bw = 0.5 / (ddc.pre_decimation * ddc.post_decimation)
+    k = np.arange(inv)[:, None]
+    t_sel = ddc.scrap + post * np.arange(m)[None, :]
+    w = np.exp(2j * np.pi * (k + inv // 2) * t_sel / inv) / inv
+    for rate in map(float, rates):
+        ch = fastddc_init(ddc.transition_bw,
+                          ddc.pre_decimation * ddc.post_decimation, rate,
+                          ddc.window)
+        taps = firdes.firdes_bandpass_c(ch.taps_length, -rate - half_bw,
+                                        -rate + half_bw, ddc.window)
+        padded = np.zeros(fft, np.complex128)
+        padded[: ch.taps_length] = taps
+        tq = (np.fft.fft(padded) / pre).astype(np.complex64)
+        cc = (-ch.offsetbin + inv // 2) % inv
+        dsa = np.float64(np.float32(ch.post_shift)) * post
+        b_nco = np.exp(2j * np.pi * np.mod(np.arange(m) * dsa, 1.0))
+        wb = w * b_nco[None, :]
+        e = wb[(np.arange(inv) + cc) % inv, :].astype(np.complex64)
+        tq_list.append(tq.reshape(pre, inv))
+        e_list.append(e)
+        cyc_list.append(np.mod(m * dsa, 1.0))
+    return (np.stack(tq_list), np.stack(e_list),
+            np.asarray(cyc_list, np.float64))
+
+
 def channel_factored2_arrays(ddc: FastDDC, rates):
     """Host arrays of the shared-iDFT factored inverse (factored-v2):
 
@@ -374,6 +417,78 @@ def channel_class_matrices(ddc: FastDDC, shift_rate: float):
         w = np.exp(2j * np.pi * (k + inv // 2) * t[None, :] / inv) / inv
         g[o, :, : ms[o]] = f @ (w * bvec[None, : ms[o]])
     return g, dsa
+
+
+# ---------------------------------------------------------------------------
+# the inverse as batch functions: the readable specification and its
+# matrix forms (csdr_tpu's r2 functions; the blocks below run the fused,
+# factored-v2 and classed forms)
+# ---------------------------------------------------------------------------
+
+def _check_precision(precision: str) -> None:
+    if precision not in ("HIGH", "HIGHEST"):
+        raise ValueError(f"precision {precision!r}")
+
+
+def _swap_ifft_scrap(folded: torch.Tensor, ddc: FastDDC) -> torch.Tensor:
+    """Folded bins (..., inv) -> the inverse's time samples (..., pis):
+    side swap, normalized iFFT, overlap scrap (fastddc.c:146-157)."""
+    td = cfft.ifft(cfft.fft_swap_sides(folded), normalize=True)
+    return td[..., ddc.scrap:]
+
+
+def fastddc_inv_batch(spectra: torch.Tensor, ddc: FastDDC,
+                      taps_eff: torch.Tensor, fold_perm) -> torch.Tensor:
+    """B spectra for C channels -> time samples (B, C, post_input_size),
+    step by step as the reference inverse (fastddc.c:106-166): the
+    readable specification, which the production forms
+    (:func:`channel_fused_matrix`, :func:`channel_class_matrices`) compute
+    as matrix products.
+
+    spectra (B, fft) complex64 RAW (not side-swapped); taps_eff (C, fft)
+    complex64, the side-swapped taps already permuted into fold-slot order
+    (:func:`channel_arrays`); fold_perm (C, fft) integer, the raw-spectrum
+    gather in the same slot order.  Slot (k, j) = k*inv + j adds
+    S_swapped[i]*T_swapped[i] into folded bin j."""
+    b, c = spectra.shape[0], taps_eff.shape[0]
+    pre, inv = ddc.pre_decimation, ddc.fft_inv_size
+    idx = torch.as_tensor(np.asarray(fold_perm), dtype=torch.int64,
+                          device=spectra.device)
+    z = spectra[:, idx] * taps_eff[None]                       # (B, C, fft)
+    folded = z.reshape(b, c, pre, inv).sum(2) / pre
+    return _swap_ifft_scrap(folded, ddc)
+
+
+def fastddc_inv_batch_mxu(spectra: torch.Tensor, ddc: FastDDC,
+                          fold_mat: torch.Tensor,
+                          precision: str = "HIGH") -> torch.Tensor:
+    """:func:`fastddc_inv_batch` with the fold and taps as one product by
+    the dense fold matrix: spectra (B, fft) @ fold_mat (fft, C*inv) (the
+    :func:`channel_matrix` blocks side by side), in full float32.
+    ``precision`` keeps csdr_tpu's signature ("HIGH" and "HIGHEST" both run
+    in float32).  Returns (B, C, post_input_size)."""
+    _check_precision(precision)
+    with full_f32_matmul():
+        z = torch.matmul(spectra, fold_mat)
+    return _swap_ifft_scrap(z.reshape(spectra.shape[0], -1,
+                                      ddc.fft_inv_size), ddc)
+
+
+def fastddc_inv_factored_batch(spectra: torch.Tensor, tq: torch.Tensor,
+                               e: torch.Tensor,
+                               precision: str = "HIGH") -> torch.Tensor:
+    """The r2 factored inverse before the per-frame NCO: the class sum
+    Z[b,c,m] = sum_j spectra[b, j*inv + m] * TQ[c,j,m] (pre products a
+    bin), then Z[b,c,:] @ E_c (inv a sample), the fused G_c of
+    :func:`channel_fused_matrix` taken apart.  spectra (B, fft); tq (C,
+    pre, inv); e (C, inv, M), from :func:`channel_factored_arrays`.
+    Returns (C, B, M); ``precision`` as :func:`fastddc_inv_batch_mxu`."""
+    _check_precision(precision)
+    b = spectra.shape[0]
+    c, pre, inv = tq.shape
+    with full_f32_matmul():
+        z = torch.einsum("bjm,cjm->bcm", spectra.reshape(b, pre, inv), tq)
+        return torch.einsum("bcm,cmo->cbo", z, e)
 
 
 # ---------------------------------------------------------------------------
@@ -579,8 +694,7 @@ def fastddc_channelizer_block(ddc: FastDDC, shift_rates,
     """The fused channelizer (see channelizer_arrays).  ``precision`` keeps
     csdr_tpu's signature and changes nothing: "HIGH" and "HIGHEST" both run
     in float32 here."""
-    if precision not in ("HIGH", "HIGHEST"):
-        raise ValueError(f"precision {precision!r}")
+    _check_precision(precision)
     return FastddcChannelizerBlock(ddc, list(map(float, shift_rates)))
 
 
@@ -858,8 +972,7 @@ def fastddc_inv_dynamic_factored_block(ddc: FastDDC, n_channels: int,
     """See :class:`FastddcInvDynamicFactoredBlock`.  ``precision`` keeps
     csdr_tpu's signature and changes nothing (K4 is 3xTF32 on the card,
     float32 on the CPU)."""
-    if precision not in ("HIGH", "HIGHEST"):
-        raise ValueError(f"precision {precision!r}")
+    _check_precision(precision)
     return FastddcInvDynamicFactoredBlock(ddc, n_channels)
 
 
@@ -909,6 +1022,5 @@ def fastddc_dynamic_channelizer_block(ddc: FastDDC, n_channels: int,
                                       precision: str = "HIGH"):
     """See :class:`FastddcDynamicChannelizerBlock`; ``precision`` as for
     :func:`fastddc_inv_dynamic_factored_block`."""
-    if precision not in ("HIGH", "HIGHEST"):
-        raise ValueError(f"precision {precision!r}")
+    _check_precision(precision)
     return FastddcDynamicChannelizerBlock(ddc, n_channels)
