@@ -7,6 +7,18 @@ Builds the CUDA kernels from csdr_tpu_torch/csrc (nvcc, at first use), then
 prints one JSON line per phase and exits non-zero at the first failure:
 
 1. env: the card, its power limit, the CUDA and nvcc versions, build time.
+   measure: the card's ceilings measured by utils/roofline (device memory
+   by a 256 MB sum, matrix products at HIGHEST, DEFAULT and BF16, FP32 by
+   the probe kernel of csrc/roofline_probe.cu), each beside its published
+   peak (utils/roofline.PUBLISHED) with the SM clock and power nvidia-smi
+   samples during it, each finite, > 0 and at most 1.05x the published;
+   the probe against its plain version bit for bit.  Every kernel row
+   below also runs through utils/timing.time_kernel(perturb="rotate") and
+   utils/roofline.account against the published and the measured peaks
+   (at most 105 % of its published bound), and one step of each path
+   WFM, A, B, C, D, E, F, G, G', S, W and W1 through utils/dispatch_lint
+   on the card (no cross-device finding, no finding outside LINT_ALLOW);
+   the phase's seconds are summed over its parts.
 2. kernels: each kernel against its plain PyTorch version on the same
    inputs on the card (SNR bar stated per entry), with its time, the plain
    version's, a one-call library yardstick (TF32 off) and the least time
@@ -213,9 +225,6 @@ SECONDS = 10
 SHIFT = -0.2               # the carrier sits at +0.2*FS
 SNR_BAR = 110.0            # kernel vs plain, dB
 AUDIO_BAR = 60.0           # card vs CPU audio, dB (tests/test_torch_wfm.py)
-HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
-FP32_FLOPS = 67e12         # H100 SXM FP32 outside the tensor cores
-TF32_FLOPS = 495e12        # H100 SXM dense TF32 on the tensor cores
 KERNEL_SOURCE = "csdr_tpu_torch/csrc/fir_decimate.cu"
 FFT_SOURCE = "csdr_tpu_torch/csrc/fft_ko.cu"
 INV_SOURCE = "csdr_tpu_torch/csrc/fastddc_inv.cu"
@@ -243,6 +252,21 @@ BER_BAR = 0.02             # per BPSK31 channel (tests/test_multichannel.py)
 BANK_SLIP_BAR = 2          # card vs CPU bits after alignment, a channel
 COSTAS_SAMPLES = 4096
 COSTAS_BARS = (32.0, 28.0)  # dB, first 256 samples and whole (csdr_tpu's)
+CEILING_BAR = 1.05         # a measured ceiling over its published peak, most
+SHARE_BAR = 105.0          # % of its published bound a kernel row may read
+LOOP_MS = 40.0             # time_kernel's k_big: ~this many ms of loop
+PROBE_SOURCE = "csdr_tpu_torch/csrc/roofline_probe.cu"
+# the cliffs each path's step may show on the card (dispatch_lint.
+# KNOWN_CLIFFS; tests/test_torch_dispatch_lint.py holds the same lists for
+# the same pipelines on the CPU)
+LINT_ALLOW = {"WFM": ("per-tap-fir",), "A": (), "B": (), "C": (),
+              "D": ("per-tap-fir",), "E": ("agc",), "F": ("agc",),
+              "G": ("ted",), "G'": ("ted",), "S": (), "W": (),
+              "W1": ("per-tap-fir",)}
+# the measure phase's state: its seconds (summed over its parts, which
+# run where their inputs are), the published and measured peaks, and the
+# lint's findings by path
+MEASURE = {"seconds": 0.0, "published": None, "peaks": None, "lint": {}}
 
 
 class SmokeFailure(RuntimeError):
@@ -378,6 +402,243 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def measured():
+    """Adds the enclosed seconds to the measure phase's."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        MEASURE["seconds"] += time.perf_counter() - t0
+
+
+def published(torch) -> dict:
+    """The card's data-sheet peaks (utils/roofline.PUBLISHED); an unknown
+    card raises."""
+    from csdr_tpu_torch.utils import roofline
+    if MEASURE["published"] is None:
+        MEASURE["published"] = roofline.published_peaks(
+            torch.cuda.get_device_name(0))
+    return MEASURE["published"]
+
+
+def least_ms(torch, nbytes: float, fp32_flops: float) -> tuple:
+    """The least time of a kernel at the published peaks, ms, and what
+    sets it ("bytes": each input read and each output written once over
+    the memory rate, or "operations": its FP32 flops over the FP32 rate),
+    through utils/roofline.least_seconds."""
+    from csdr_tpu_torch.utils import roofline
+    sec, by = roofline.least_seconds(nbytes, published(torch),
+                                     fp32_flops=fp32_flops)
+    return sec * 1e3, "bytes" if by == "hbm" else "operations"
+
+
+def roofline_row(torch, name, kernel, x, aux, nbytes, fp32_flops, ms,
+                 ops_s: float = 0.0) -> dict:
+    """Part (c) of the measure phase for one kernel-table row: the row's
+    kernel by utils/timing.time_kernel(perturb="rotate"), beside its
+    time_cuda ``ms``, and utils/roofline.account against the published
+    and the measured peaks (FP32 flops ``fp32_flops``; ``ops_s`` a bound
+    in seconds of the row's own, the codec's chains).  Fails when a
+    reading exceeds SHARE_BAR % of the published bound: the row's bytes
+    or flops are then wrong.  Outside run() (the tools/ scripts call the
+    case functions) there are no measured peaks and it returns {}."""
+    if MEASURE["peaks"] is None:
+        return {}
+    from csdr_tpu_torch.utils import roofline
+    from csdr_tpu_torch.utils.timing import time_kernel
+    k_big = int(min(2000, max(64, LOOP_MS / max(ms, 1e-4))))
+    k_pair = (k_big // 8, k_big)
+    with measured():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk = time_kernel(kernel, x, aux=aux, k_pair=k_pair, perturb="rotate")
+        out = {"tk_ms": tk * 1e3, "tk_k_pair": list(k_pair),
+               "tk_peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    for key, peaks in (("published", MEASURE["published"]),
+                       ("measured", MEASURE["peaks"])):
+        acc = roofline.account(name, tk, nbytes, 0.0, peaks,
+                               fp32_flops=fp32_flops)
+        light = max(roofline.least_seconds(nbytes, peaks,
+                                           fp32_flops=fp32_flops)[0], ops_s)
+        out[f"share_{key}"] = light / tk
+        out[f"share_{key}_time_cuda"] = light / (ms / 1e3)
+        out[f"account_{key}"] = acc
+    worst = 100 * max(out["share_published"],
+                      out["share_published_time_cuda"])
+    require(worst <= SHARE_BAR,
+            f"{name}: {worst:.1f} % of its published bound > {SHARE_BAR} "
+            "%: its byte or FLOP count is wrong")
+    return out
+
+
+def sample_smi(fn):
+    """``fn()`` with nvidia-smi sampling clocks.sm, power.draw and
+    power.limit every 50 ms beside it; returns (fn's value, the samples'
+    SM clock range in MHz, highest power in W and the power limit)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        value = fn()
+    finally:
+        proc.terminate()
+        lines = proc.communicate(timeout=30)[0].strip().splitlines()
+    rows = [[float(v) for v in ln.split(",")] for ln in lines
+            if ln.count(",") == 2 and "[" not in ln]
+    smi = {"samples": len(rows),
+           "sm_mhz_max": max((r[0] for r in rows), default=None),
+           "sm_mhz_min": min((r[0] for r in rows), default=None),
+           "power_w_max": max((r[1] for r in rows), default=None),
+           "power_limit_w": rows[-1][2] if rows else None}
+    return value, smi
+
+
+def phase_measure(torch):
+    """The measure phase: (a) the card's ceilings measured by
+    utils/roofline, each beside its published peak with nvidia-smi's SM
+    clock and power sampled during it (each must be finite, > 0 and at
+    most CEILING_BAR x the published); (b) the FP32 probe kernel
+    (csrc/roofline_probe.cu) against its plain version, bit for bit, as a
+    kernel-table row.  Parts (c), the kernel rows, and (d), the lint of
+    every path's step, run where their inputs are (roofline_row,
+    lint_step) and add their seconds to the phase's."""
+    from csdr_tpu_torch.kernels import probe_cuda
+    from csdr_tpu_torch.utils import roofline
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    t0, s0 = time.perf_counter(), MEASURE["seconds"]
+    pub = published(torch)
+    probe_cuda.reset_launches()
+    ceilings, measured_peaks = {}, {"device": pub["device"]}
+    for key, fn, scale in (
+            ("hbm_bw_GBps", roofline.measure_hbm_bw, 1e9),
+            ("matmul_highest_Tflops",
+             lambda: roofline.measure_matmul_flops("HIGHEST"), 1e12),
+            ("matmul_default_Tflops",
+             lambda: roofline.measure_matmul_flops("DEFAULT"), 1e12),
+            ("matmul_bf16_Tflops",
+             lambda: roofline.measure_matmul_flops("BF16"), 1e12),
+            ("fp32_Tflops", roofline.measure_fp32_flops, 1e12)):
+        value, smi = sample_smi(fn)
+        value /= scale
+        ratio = value / pub[key]
+        require(np.isfinite(value) and value > 0
+                and ratio <= CEILING_BAR,
+                f"ceiling {key}: measured {value} against published "
+                f"{pub[key]} (ratio {ratio:.3f} > {CEILING_BAR} or not "
+                "finite and > 0)")
+        measured_peaks[key] = value
+        ceilings[key] = {"measured": value, "published": pub[key],
+                         "ratio": ratio, **smi}
+    require_no_tf32(torch)
+    probe_launches = dict(probe_cuda.LAUNCHES)
+    measured_peaks["matmul_high_Tflops"] = \
+        measured_peaks["matmul_default_Tflops"] / 3
+    measured_peaks["matmul_high_derived"] = True
+    MEASURE["peaks"] = measured_peaks
+    # the FP32 rate as an SM clock: 132 SMs x 128 FP32 lanes x 2 flops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceilings["fp32_Tflops"]["sm_mhz_implied"] = \
+        measured_peaks["fp32_Tflops"] * 1e12 / (sms * 128 * 2) / 1e6
+    emit("measure", part="ceilings", card=pub["device"],
+         published_power_w=pub["power_W"], ceilings=ceilings,
+         ceiling_bar=CEILING_BAR, seconds=time.perf_counter() - t0)
+
+    # (b) the probe at its ceiling's shape against its plain version
+    n, chain = 1 << 22, 2048
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    x = torch.randn(n, device="cuda", generator=gen)
+    yk = probe_cuda.fma_chain(x, chain)
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault(
+        "p", probe_cuda.fma_chain_plain(x, chain)), iters=1, warmup=0,
+        repeats=1)
+    torch.cuda.synchronize()
+    require(torch.equal(yk, box["p"]),
+            "fma_chain: kernel differs from its plain version")
+    ms = time_cuda(lambda: probe_cuda.fma_chain(x, chain), iters=20,
+                   queue_ahead_ms=20.0)
+    nbytes, flops = 8 * n, 2 * chain * n
+    bound, by = least_ms(torch, nbytes, flops)
+    row = {"name": "fma_chain", "route": "cuda", "source": PROBE_SOURCE,
+           "replaces": "no Pallas kernel: the fused chain of csdr_tpu/"
+                       "utils/roofline.py:89-93 (measure_vpu_flops)",
+           "shape": {"n": n, "chain": chain}, "bit_exact": True,
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "bytes": nbytes, "flops": flops, "path": "measure",
+           **roofline_row(torch, "fma_chain",
+                          lambda v: probe_cuda.fma_chain(v, chain), x, None,
+                          nbytes, flops, ms)}
+    emit("kernels", **row)
+    MEASURE["seconds"] = s0 + time.perf_counter() - t0
+    return row, probe_launches
+
+
+def lint_step(torch, key: str, fn, *args):
+    """Part (d) of the measure phase: utils/dispatch_lint over one call of
+    path ``key``'s step on the card; every finding must be of a kind
+    LINT_ALLOW[key]'s cliffs allow, and none cross-device.  Returns the
+    step's result."""
+    from csdr_tpu_torch.utils import dispatch_lint
+    with measured():
+        trace, out = dispatch_lint.trace_fn(fn, *args)
+        torch.cuda.synchronize()
+    found = dispatch_lint.findings_of(trace)
+    allowed = dispatch_lint.allowed_kinds(LINT_ALLOW[key])
+    bad = [str(f) for f in found
+           if f.kind == "cross-device" or f.kind not in allowed]
+    MEASURE["lint"][key] = {
+        "launching": trace.launching, "kernel_launches":
+            dict(trace.kernel_launches), "syncs": len(trace.syncs),
+        "uploads": len(trace.uploads),
+        "findings": [str(f) for f in found],
+        "allowed": list(LINT_ALLOW[key])}
+    emit("measure", part="lint", path=key, **MEASURE["lint"][key])
+    require(not bad, f"lint of path {key}: findings outside its allow-list "
+                     f"{LINT_ALLOW[key]}: {bad}")
+    return out
+
+
+def lint_pipeline(torch, key: str, pipe, chunk: np.ndarray):
+    """lint_step over one call of ``pipe`` on the card from a fresh state,
+    on ``chunk`` uploaded as a user's stream runner uploads it."""
+    dev = torch.device("cuda")
+    pipe = pipe.to(dev)
+    with torch.no_grad():
+        return lint_step(torch, key, pipe, pipe.init(dev),
+                         torch.from_numpy(chunk).to(dev))
+
+
+def lint_vs_profiler(torch, key: str, pipe, chunk: np.ndarray) -> None:
+    """The lint's launching ops on path ``key``'s step beside what
+    torch.profiler counts on the same call from the same fresh state: the
+    kernels the card ran and the launch calls the host made (an op may
+    launch none, as a copy of a scalar, or several)."""
+    dev = torch.device("cuda")
+    pipe = pipe.to(dev)
+    x = torch.from_numpy(chunk).to(dev)
+    with torch.no_grad(), measured():
+        prof = profile_call(torch, lambda: pipe(pipe.init(dev), x))
+    lint = MEASURE["lint"][key]
+    emit("measure", part="lint_vs_profiler", path=key,
+         lint_launching=lint["launching"],
+         profiler_device_kernels=prof["device_kernels"],
+         profiler_launch_calls=prof["cuda_launch_calls"],
+         device_kernels_minus_lint=prof["device_kernels"]
+         - lint["launching"])
+
+
+def phase_measure_report() -> None:
+    """The measure phase's total seconds and every path's lint."""
+    missing = sorted(set(LINT_ALLOW) - set(MEASURE["lint"]))
+    require(not missing, f"lint: paths not linted: {missing}")
+    emit("measure", part="summary", seconds=MEASURE["seconds"],
+         lint={k: v["findings"] for k, v in MEASURE["lint"].items()})
+
+
 def phase_env(torch, build):
     smi = nvidia_smi_line()
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
@@ -485,7 +746,7 @@ def kernel_case(torch, name, d, t, kout, rate, theta, seed):
     # operations: 2 FMA (4 flops) per tap per output, 6 per mixed sample
     nbytes = 8 * (tail_len + n) + 4 * t + 8 * kout
     flops = 4 * t * kout + (6 * (tail_len + n) if mix else 0)
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    bound, bound_by = least_ms(torch, nbytes, flops)
     plan = fir_cuda.plan_tile(t, d, kout, mix, torch.cuda.
                               get_device_properties(0).multi_processor_count)
     return {
@@ -498,16 +759,18 @@ def kernel_case(torch, name, d, t, kout, rate, theta, seed):
                                                 "blocks")}},
         "snr_db": snr, "snr_bar_db": SNR_BAR, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
-        "share_of_bound": max(t_bytes, t_ops) / kernel_ms,
+        "share_of_bound": bound / kernel_ms,
         "times_faster_than_library": lib_ms / kernel_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": bound_by,
         "library_ms": lib_ms,
         "library_call": "torch.nn.functional.conv1d(stride=D), cuDNN, "
                         "TF32 off" + (", on the pre-mixed stream" if mix
                                       else ""),
         "library_snr_db": lib_snr,
         "bytes": nbytes, "flops": flops,
+        **roofline_row(torch, name,
+                       lambda v, h: kern(*v, h, d, kout, *phase), sets[0],
+                       taps, nbytes, flops, kernel_ms),
     }
 
 
@@ -580,7 +843,7 @@ def fft_case(torch, name, n, b, seed):
     # 5 N log2 N per radix-2 transform
     nbytes = 16 * b * n
     flops = 5 * b * n * int(np.log2(n))
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    bound, bound_by = least_ms(torch, nbytes, flops)
     return {
         "name": name, "route": "cuda", "source": FFT_SOURCE,
         "replaces": ("csdr_tpu/kernels/fft_pallas.py:265" if inverse
@@ -591,14 +854,14 @@ def fft_case(torch, name, n, b, seed):
         "snr_db": snr, "snr_bar_db": SNR_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": bound_by,
         "library_ms": lib_ms,
         "library_call": ("torch.fft.ifft(norm='forward')" if inverse
                          else "torch.fft.fft") + " on (B, N) complex64 in "
                         "natural order (cuFFT); the kernel-order gather is "
                         "not in it",
         "bytes": nbytes, "flops": flops,
+        **roofline_row(torch, name, kern, sets[0], None, nbytes, flops, ms),
     }
 
 
@@ -656,11 +919,13 @@ def inv_case(torch, d, b, rates, seed):
                   + c * b * m)
     fold, idft = 8 * b * c * pre * inv, 8 * b * c * inv * m
     flops = fold + idft
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    bound, bound_by = least_ms(torch, nbytes, flops)
     # the same with the iDFT on the tensor cores in 3xTF32, as the kernel
     # runs it: the fold over the FP32 rate plus three TF32 products of
     # the iDFT's operations over the dense TF32 rate
-    t_tc = (fold / FP32_FLOPS + 3 * idft / TF32_FLOPS) * 1e3
+    pub = published(torch)
+    t_tc = (fold / (pub["fp32_Tflops"] * 1e12)
+            + 3 * idft / (pub["matmul_default_Tflops"] * 1e12)) * 1e3
     return {
         "name": "fastddc_inv", "route": "cuda", "source": INV_SOURCE,
         "replaces": "csdr_tpu/kernels/fastddc_pallas.py:54",
@@ -669,15 +934,17 @@ def inv_case(torch, d, b, rates, seed):
         "snr_db": snr, "snr_bar_db": SNR_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_tc_ms": max(t_bytes, t_tc),
+        "bound_ms": bound, "bound_by": bound_by,
+        "bound_tc_ms": max(least_ms(torch, nbytes, 0)[0], t_tc),
         "library_ms": lib_ms,
         "library_call": "torch.matmul(spectra (B, fft), fused G (fft, C*M)) "
                         "complex64, TF32 off: the same map before the "
                         "per-frame NCO",
         "library_snr_db": lib_snr,
         "bytes": nbytes, "flops": flops,
+        **roofline_row(torch, "fastddc_inv",
+                       lambda v, mm: fastddc_cuda.fastddc_inv(v, *mm, m),
+                       sets[0], mats, nbytes, flops, ms),
     }
 
 
@@ -765,6 +1032,9 @@ def phase_path(torch):
     emit("path", pipeline="wfm_advanced(shift_rate=-0.2, fuse_shift=False)",
          chunks=n_unfused, tone_hz=hz_u, launches=launches_u,
          fused_vs_unfused_snr_db=unf_snr, run_offline_s=wall_u)
+    lint_pipeline(torch, "WFM", wfm.wfm_advanced(shift_rate=SHIFT), x[:CHUNK])
+    lint_vs_profiler(torch, "WFM", wfm.wfm_advanced(shift_rate=SHIFT),
+                     x[:CHUNK])
     return x, launches, launches_u, wall, chunks
 
 
@@ -957,6 +1227,7 @@ def phase_fastddc_paths(torch):
          tf32_on_bitwise_equal=bool(np.array_equal(card_tf32, card0)),
          stream_s=wall)
     result["A"] = (launches, chan, x, chunk, wall)
+    lint_pipeline(torch, "A", chan, x[:chunk])
 
     # A': the forward block and the inverse block at D=16
     pipe = Pipeline([fd.fastddc_fwd_block(ddc),
@@ -1008,6 +1279,7 @@ def phase_fastddc_paths(torch):
          tone_want=delta * 50,
          card_vs_cpu_min_channel_snr_db=snr_cpu, stream_s=wall)
     result["B"] = (launches, pipe, x, chunk, wall)
+    lint_pipeline(torch, "B", pipe, x[:chunk])
     return result
 
 
@@ -1054,6 +1326,8 @@ def phase_ssb_path(torch):
          launches=launches, tone_cycles=peak, tone_want=0.025,
          out_of_band_ratio=reject, card_vs_cpu_snr_db=cpu_snr,
          run_offline_s=wall)
+    lint_pipeline(torch, "C", receivers.ssb_receiver(
+        0.0, 0.1, 0.05, decimation=50, agc_on=False), x[:CHUNK_C])
     return launches, pipe, x, wall
 
 
@@ -1128,7 +1402,7 @@ def poly_case(torch, d, t, kout, seed, xlen=None):
     # FP32 operations: 2 FMA (4 flops) per tap per output
     nbytes = 8 * n + 4 * t + 8 * kout
     flops = 4 * t * kout
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    bound, bound_by = least_ms(torch, nbytes, flops)
     return {
         "name": "fir_poly", "route": "cuda", "source": POLY_SOURCE,
         "replaces": "csdr_tpu/kernels/fir_pallas.py:37",
@@ -1140,13 +1414,15 @@ def poly_case(torch, d, t, kout, seed, xlen=None):
         "snr_vs_k2_bar_db": POLY_K2_BAR,
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_share": max(t_bytes, t_ops) / ms,
+        "bound_ms": bound, "bound_by": bound_by,
+        "bound_share": bound / ms,
         "library_ms": lib_ms, "library_over_kernel": lib_ms / ms,
         "library_call": "torch.nn.functional.conv1d(stride=D), cuDNN, "
                         "TF32 off, on (re, im) planes",
         "bytes": nbytes, "flops": flops,
+        **roofline_row(torch, "fir_poly",
+                       lambda v, h: fir_cuda.fir_decimate_poly(v, h, d, kout),
+                       sets[0], taps, nbytes, flops, ms),
     }
 
 
@@ -1276,6 +1552,7 @@ def receiver_path(torch, key, make, x, chunk, per_chunk, cpu_chunks,
                         x[: cpu_chunks * chunk],
                         lambda: on("cuda")[settle:],
                         lambda: on("cpu")[settle:], frame=chunk // 50)
+    lint_pipeline(torch, key, make(), x[:chunk])
     return audio, launches, wall, snr, cpu
 
 
@@ -1561,6 +1838,8 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
     wall = time.perf_counter() - t0
     launches = launches_all()
     require_launches(launches, {kernel: chunks}, f"path {key}")
+    with torch.no_grad():
+        lint_step(torch, key, step, init(chunk), xs[0])
 
     bers = {}
     for i, c in enumerate(bpsk):
@@ -2218,6 +2497,12 @@ def server_path(torch, key):
     launches = launches_all()
     require_launches(launches, {kernel: per_chunk * SERVER_CHUNKS},
                      f"path {key}")
+    if key in LINT_ALLOW:
+        # the card step of _run_chunk, past its upload and before its
+        # download to the sockets, on the rows the chunks ran with
+        with torch.no_grad():
+            lint_step(torch, key, srv._step, torch.from_numpy(x[:n]).to(
+                "cuda"), srv._dev)
     count = int(outs[0][1][0])
     require(all(o.shape[0] == c and np.all(k == count) and
                 np.all(np.isfinite(o.view(np.float32))) for o, k in outs),
@@ -2795,7 +3080,7 @@ def adpcm_case(torch, name, x, state, chains):
     steps = width if op == "encode" else 2 * width
     nbytes = x.numel() * x.element_size() + yk.numel() * yk.element_size() \
         + 2 * state.numel() * 4
-    t_bytes = nbytes / HBM_BPS * 1e3
+    t_bytes = least_ms(torch, nbytes, 0)[0]
     if op == "encode":
         cycles = steps * chains["encode_step_cycles"]
         note = (f"serial chain: {steps} steps x "
@@ -2821,6 +3106,8 @@ def adpcm_case(torch, name, x, state, chains):
         "bound_note": note + f" at {SM_CLOCK_HZ / 1e6:.0f} MHz",
         "cycles_a_step": ms * 1e-3 * SM_CLOCK_HZ / steps,
         "library_ms": None, "bytes": nbytes,
+        **roofline_row(torch, name, kern, x, state, nbytes, 0, ms,
+                       ops_s=t_ops / 1e3),
     }
 
 
@@ -2992,6 +3279,7 @@ def phase_waterfall_path(torch):
                 f"the median)")
         tone_cols[str(f)] = {"column": col, "worst_offset": int(
             np.abs(off).max()), "min_db_above_median": float(above.min())}
+    lint_pipeline(torch, "W", waterfall_chain(), u8[0])
     cpu_rows, cpu_sent = drive(torch.device("cpu"))
     pipe.to(dev)
     power_snr = require_match("path_W: card vs CPU linear averaged power",
@@ -3071,6 +3359,7 @@ def phase_config1_path(torch):
     launches = launches_all()
     require_launches(launches, {"adpcm_encode": W1_CHUNKS,
                                 "adpcm_decode": W1_CHUNKS}, "path W1")
+    lint_pipeline(torch, "W1", config1_chain(), chunks[0])
     hz = tone_hz(audio)
     require(np.all(np.isfinite(audio)) and abs(hz - 1000.0) < 5.0,
             f"path W1: audio tone at {hz} Hz")
@@ -3804,6 +4093,7 @@ def run(torch) -> int:
     from csdr_tpu_torch.kernels import _build
 
     smi = phase_env(torch, _build)
+    probe_row, probe_launches = phase_measure(torch)
     cases, _ = phase_kernels(torch)
     new_cases = phase_fastddc_kernels(torch)
     poly_cases = phase_poly_kernels(torch)
@@ -3825,6 +4115,7 @@ def run(torch) -> int:
     edge_cases = phase_byte_edge_kernels(torch)
     edge = phase_byte_edge_paths(torch)
     _, k2_cli, cli_launches = phase_cli(torch)
+    phase_measure_report()
 
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
@@ -3853,7 +4144,10 @@ def run(torch) -> int:
                edge["W1"]),
         "X'": ("X': python -m csdr_tpu_torch.cli fir_decimate_cc 10 0.05 "
                "HAMMING, in process, 65 536-sample chunks",
-               cli_launches["fir_decimate_cc"])}
+               cli_launches["fir_decimate_cc"]),
+        "measure": ("measure: utils/roofline.measure_fp32_flops (the FP32 "
+                    "ceiling; launches captured in its CUDA graphs)",
+                    probe_launches)}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "path")
@@ -3877,8 +4171,8 @@ def run(torch) -> int:
             ("adpcm_encode", "W1"): xp["encode_ima_adpcm_i16_u8"],
             ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"]}
     table = []
-    for c in (cases + new_cases + poly_cases + server_cases + edge_cases
-              + [k2_cli]):
+    for c in ([probe_row] + cases + new_cases + poly_cases + server_cases
+              + edge_cases + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)
@@ -3889,10 +4183,9 @@ def run(torch) -> int:
                 require(got[c["name"]] > 0,
                         f"{c['name']} not launched on path {other}")
                 c["launches_by_path"][other] = got[c["name"]]
-        table.append({k: c[k] for k in keys + ("bound_tc_ms",
-                                               "launches_by_path",
-                                               "bound_note")
-                      if k in c})
+        table.append({k: c[k] for k in keys + (
+            "bound_tc_ms", "launches_by_path", "bound_note", "tk_ms",
+            "share_published", "share_measured") if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "csdr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
 
-_VP, _LL, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
-    ctypes.c_double
+_VP, _LL, _I, _D, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+    ctypes.c_double, ctypes.c_float
 # name -> argtypes of the C entry points (restype int: a cudaError_t)
 _SIGNATURES = {
     "csdr_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP, _I, _I,
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "csdr_adpcm_encode": [_VP, _VP, _VP, _VP, _I, _LL, _VP],
     "csdr_adpcm_decode": [_VP, _VP, _VP, _VP, _I, _LL, _VP],
     "csdr_adpcm_chain_probe": [_VP, _VP, _I, _I, _VP],
+    "csdr_fma_chain": [_VP, _VP, _LL, _I, _F, _F, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {

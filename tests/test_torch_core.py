@@ -49,6 +49,9 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
             "import csdr_tpu_torch.server.nmux\n"
             "import csdr_tpu_torch.ops.convert, csdr_tpu_torch.ops.spectrum\n"
             "import csdr_tpu_torch.ops.adpcm, csdr_tpu_torch.kernels.adpcm_cuda\n"
+            "import csdr_tpu_torch.kernels.probe_cuda\n"
+            "import csdr_tpu_torch.utils.roofline\n"
+            "import csdr_tpu_torch.utils.dispatch_lint\n"
             "import chip_smoke, check_kernels\n"
             "assert callable(chip_smoke.phase_bank_paths)\n"
             "assert callable(chip_smoke.phase_server_paths)\n"

@@ -1,5 +1,6 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
-kernel-order FFT pair, the fastddc inverse and the IMA ADPCM codec) against
+kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec and the
+FP32 ceiling's fma-chain probe) against
 float64 numpy (the codec against the standard's integer steps in Python),
 and on the card against their plain versions.
 
@@ -17,7 +18,7 @@ import torch
 
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.kernels import (_build, adpcm_cuda, fastddc_cuda,
-                                    fft_cuda, fir_cuda)
+                                    fft_cuda, fir_cuda, probe_cuda)
 
 torch.set_num_threads(2)
 
@@ -1159,3 +1160,56 @@ def test_cuda_adpcm_writes_only_its_output(cuda):
             k = body.numel()
             assert (b[:guard] == s).all() and (b[guard + k:] == s).all()
             assert torch.equal(b[guard:guard + k], body.reshape(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_fma_chain_probe_matches_plain_bit_for_bit(cuda):
+    """The FP32 probe: every output one fmaf chain, as its plain version's
+    fma_f32 links; a ragged tail of elements past the last full group of
+    chains; one launch counted."""
+    x = torch.randn(65_536 * 8 + 13, device=cuda)
+    n0 = probe_cuda.LAUNCHES["fma_chain"]
+    for chain in (0, 1, 17, 300):
+        yk = probe_cuda.fma_chain(x, chain)
+        yp = probe_cuda.fma_chain_plain(x, chain)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yp), chain
+    assert probe_cuda.LAUNCHES["fma_chain"] == n0 + 4
+
+
+@pytest.mark.cuda
+def test_cuda_time_kernel_of_k2_agrees_with_time_cuda(cuda):
+    """time_kernel (a CUDA graph of k calls, each with its output summed)
+    of K2 at path C's shape (D=50, T=801, a 2 403 000-sample chunk) within
+    0.5-2x the CUDA events' time of the same calls."""
+    from csdr_tpu_torch.utils.timing import time_cuda, time_kernel
+    d, t, kout = 50, 801, 48_060
+    tail, x, taps = _inputs(d, t, kout, seed=9)
+    args = [torch.from_numpy(v).to(cuda) for v in (tail, x, taps)]
+
+    def k2(v, h):
+        return fir_cuda.fir_decimate(v[0], v[1], h, d, kout)
+
+    ms = time_cuda(lambda: k2(args[:2], args[2]), iters=40,
+                   queue_ahead_ms=20.0)
+    for perturb in ("dus", "rotate"):
+        tk = time_kernel(k2, tuple(args[:2]), aux=args[2],
+                         k_pair=(64, 512), perturb=perturb) * 1e3
+        assert 0.5 * ms <= tk <= 2.0 * ms, (perturb, tk, ms)
+
+
+@pytest.mark.cuda
+def test_cuda_wfm_step_has_no_cross_device_op(cuda):
+    """The lint over one step of wfm_advanced on the card: every op on the
+    card (host flags aside), no host sync, K1 launched once."""
+    from csdr_tpu_torch.models import wfm
+    from csdr_tpu_torch.utils import dispatch_lint
+    pipe = wfm.wfm_advanced().to(cuda)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal(240_000) + 1j * rng.
+                          standard_normal(240_000)).astype(np.complex64))
+    with torch.no_grad():
+        trace, _ = dispatch_lint.trace_fn(pipe, pipe.init(cuda), x.to(cuda))
+    found = dispatch_lint.findings_of(trace)
+    assert not [f for f in found if f.kind in ("cross-device", "host-sync")]
+    assert dict(trace.kernel_launches) == {"shift_fir_decimate": 1}
