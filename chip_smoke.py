@@ -149,7 +149,13 @@ prints one JSON line per phase and exits non-zero at the first failure:
    two chunks of 2048 with the state carried, W1's 48 000-sample audio
    chunk), with its time beside its bound: the encoder's shortest step
    chain and the decoder's scan depth, each timed in SM cycles by the
-   codec source's probe; then
+   codec source's probe; the decoder (a block-wide prefix scan) on a
+   300 000-nibble row of saturating runs (0x7, 0xF: prev pinned at
+   +-32767, index 88) against decode_scan_plain whole and decode_plain on
+   its first 2048 nibbles, and on a 2 400 000-nibble row against
+   decode_scan_plain; both directions from carried states whose index is
+   -5 and 100; the encoder on 33 rows (two blocks), one alternating
+   +-32767, against encode_plain and encode_select_plain; then
    W   OpenWebRX's waterfall at its defaults (fft_size 4096, fft_fps 9,
        fft_voverlap_factor 0.3 at 2.4 Msps: 93 frames averaged, a frame
        every 2867 samples) from raw u8 I/Q, 10 chunks of 2 399 679 samples
@@ -3131,12 +3137,119 @@ def codec_stream_case(torch, x):
                                                  out["plain"]))
 
 
+ADPCM_SATURATING = 150_000  # bytes: 300 000 nibbles of 0x7 / 0xF runs
+ADPCM_LONG = 1_200_000     # bytes: a 2 400 000-nibble row, one block
+ADPCM_ROWS = 33            # encoder rows: two blocks of its 32
+ADPCM_PLAIN = 2048         # samples (nibbles) a row the serial loops check
+
+
+def codec_redesign_cases(torch) -> dict:
+    """The codec kernels against their plain versions on the card, bit for
+    bit with the state: the decoder on a saturating row (runs of nibbles
+    0x7 and 0xF pin prev at 32767 and -32768 and index at 88) against
+    decode_scan_plain whole and decode_plain on its first ADPCM_PLAIN
+    nibbles, and on a 2 400 000-nibble random row against decode_scan_plain;
+    both directions from carried states whose index is -5 and 100; the
+    encoder on ADPCM_ROWS rows, one of them alternating +-32767 (index to
+    88), against encode_plain and encode_select_plain."""
+    from csdr_tpu_torch.kernels import adpcm_cuda as codec
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(61)
+    out = {}
+
+    def same(a, b) -> bool:
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    zero = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    third = ADPCM_SATURATING // 3
+    sat = np.full(ADPCM_SATURATING, 0x77, np.uint8)
+    sat[third: 2 * third] = 0xFF
+    sat_t = torch.from_numpy(sat).to(dev)[None]
+    got = codec.decode(sat_t, zero)
+    scan = codec.decode_scan_plain(sat_t, zero)
+    half = ADPCM_PLAIN // 2
+    serial = codec.decode_plain(sat_t[:, :half], zero)
+    pinned = got[0][0].cpu().numpy()
+    out["decode_saturating"] = {
+        "nibbles": 2 * ADPCM_SATURATING,
+        "vs_scan_plain": same(got, scan),
+        "vs_plain_first": same(codec.decode(sat_t[:, :half], zero), serial)
+        and torch.equal(got[0][:, :ADPCM_PLAIN], serial[0]),
+        "pinned": bool(pinned[2 * third - 1] == 32767
+                       and pinned[4 * third - 1] == -32768
+                       and pinned[-1] == 32767),
+        "state": got[1][0].tolist(),
+        "ms": time_cuda(lambda: codec.decode(sat_t, zero), iters=5,
+                        queue_ahead_ms=20.0)}
+    require(out["decode_saturating"]["vs_scan_plain"]
+            and out["decode_saturating"]["vs_plain_first"]
+            and out["decode_saturating"]["pinned"]
+            and out["decode_saturating"]["state"] == [32767, 88],
+            f"adpcm decode, saturating row: {out['decode_saturating']}")
+
+    long_t = torch.from_numpy(gen.integers(0, 256, ADPCM_LONG, dtype=np.uint8)
+                              ).to(dev)[None]
+    st = torch.tensor([[-1234, 17]], dtype=torch.int32, device=dev)
+    out["decode_long_row"] = {"nibbles": 2 * ADPCM_LONG, "vs_scan_plain": same(
+        codec.decode(long_t, st), codec.decode_scan_plain(long_t, st)),
+        "ms": time_cuda(lambda: codec.decode(long_t, st), iters=5,
+                        queue_ahead_ms=20.0)}
+    require(out["decode_long_row"]["vs_scan_plain"],
+            "adpcm decode: the 2 400 000-nibble row differs from "
+            "decode_scan_plain")
+
+    # carried states out of range: index -5 (csdr_tpu's gather reads row
+    # 84) and 100 (row 88), prev in and out of int16
+    carried = torch.tensor([[1000, -5], [-3000, 100], [40000, -5],
+                            [-40000, 100]], dtype=torch.int32, device=dev)
+    x = np.clip(gen.normal(0, 9000, (4, ADPCM_PLAIN)), -32768, 32767
+                ).astype(np.int16)
+    x_t = torch.from_numpy(x).to(dev)
+    enc = codec.encode(x_t, carried)
+    y_t = torch.from_numpy(gen.integers(0, 256, (4, half), dtype=np.uint8)
+                           ).to(dev)
+    out["carried_out_of_range"] = {
+        "states": carried.tolist(),
+        "encode_vs_plain": same(enc, codec.encode_plain(x_t, carried)),
+        "decode_vs_plain": same(codec.decode(y_t, carried),
+                                codec.decode_plain(y_t, carried)),
+        "decode_vs_scan_plain": same(codec.decode(y_t, carried),
+                                     codec.decode_scan_plain(y_t, carried))}
+    require(all(v for k, v in out["carried_out_of_range"].items()
+                if k != "states"),
+            f"adpcm, carried states out of range: "
+            f"{out['carried_out_of_range']}")
+
+    rows = np.clip(gen.normal(0, 6000, (ADPCM_ROWS, ADPCM_PLAIN)), -32768,
+                   32767).astype(np.int16)
+    rows[7, 0::2], rows[7, 1::2] = 32767, -32767
+    rows_t = torch.from_numpy(rows).to(dev)
+    st = torch.tensor([[int(v), int(i)] for v, i in zip(
+        gen.integers(-32768, 32768, ADPCM_ROWS),
+        gen.integers(0, 89, ADPCM_ROWS))], dtype=torch.int32, device=dev)
+    got = codec.encode(rows_t, st)
+    out["encode_rows"] = {
+        "rows": ADPCM_ROWS,
+        "vs_plain": same(got, codec.encode_plain(rows_t, st)),
+        "vs_select_plain": same(got, codec.encode_select_plain(rows_t, st)),
+        "alternating_row_index": int(got[1][7, 1])}
+    torch.cuda.synchronize()
+    require(out["encode_rows"]["vs_plain"]
+            and out["encode_rows"]["vs_select_plain"]
+            and out["encode_rows"]["alternating_row_index"] == 88,
+            f"adpcm encode, {ADPCM_ROWS} rows: {out['encode_rows']}")
+    return out
+
+
 def phase_byte_edge_kernels(torch):
     """K3 forward at the waterfall's N=4096, B=837; the ADPCM kernel, encode
     and decode, against its plain version on the card: on the 9 rows of a
     real waterfall chunk (W's first), through compress_fft_adpcm_rows on dB
     rows holding -inf, +inf, NaN and +-400 dB, on a stream in two chunks
-    with the state carried, and at W1's 48 000-sample audio chunk."""
+    with the state carried, at W1's 48 000-sample audio chunk, and on the
+    cases of codec_redesign_cases."""
     from csdr_tpu_torch.ops import adpcm, spectrum
     from csdr_tpu_torch.kernels import adpcm_cuda
 
@@ -3213,11 +3326,15 @@ def phase_byte_edge_kernels(torch):
     p1, _ = adpcm_cuda.encode(x1, one)
     case_w1d = dict(adpcm_case(torch, "adpcm_decode", p1, one, chains),
                     path="W1")
+    redesign = codec_redesign_cases(torch)
     for c in (case_k3, case_w, dec_w, case_w1, case_w1d):
         emit("kernels", **c)
     emit("kernels", name="adpcm", check="edges and a carried stream",
          edge_rows_bit_exact=edges_same, stream_two_chunks_bit_exact=
          stream_same, stream_chunk=ADPCM_CUT)
+    emit("kernels", name="adpcm", check="saturating and long decoder rows, "
+         "carried states out of range, encoder rows over two blocks; bit "
+         "for bit with the state", **redesign)
     return [case_k3, case_w, case_w1, case_w1d]
 
 

@@ -3,21 +3,32 @@
 
 csdr_tpu compiles the codec's serial recurrence into one device loop.  In
 eager torch the same loop is a Python loop of ~30 small ops a sample, so
-the codec is one hand-written CUDA kernel, ``csrc/adpcm.cu``: one thread a
-stream, the state (prev, index) in registers, encode and decode as two
-instantiations of one template.  What bounds the encoder is the shortest
-dependent chain of a step, times the steps; the decoder's state updates
-compose, so it is a prefix scan at heart (see the source note).
-:func:`chain_cycles` measures the chains on the card.
+the codec is hand-written CUDA, ``csrc/adpcm.cu``, two kernels:
+
+- the encoder, one thread a stream, the state (prev, index) in registers.
+  A step runs csdr_tpu's three compare-subtract stages as one add and one
+  unsigned min each and picks prev' and the next step size by selects on
+  their compares; the step sizes a step can lead to are read from shared
+  memory a step ahead, so no table read sits on the chain
+  (:func:`encode_select_plain` is that step on tensors);
+- the decoder, one block a stream: both of its updates are clamped adds of
+  amounts the nibbles fix, and clamped adds compose into clamped adds, so
+  the index and then prev are two block-wide prefix scans of compositions
+  (:func:`decode_scan_plain` is that scan on tensors).
+
+:func:`chain_cycles` measures on the card the chains that bound them.
 
 One signature serves every user: ``x`` (B, L) int16 and ``state`` (B, 2)
 int32 (prev, index) in, packed uint8 (B, L/2) (low nibble first) and the
 new state out; decode the reverse.  A fresh state per row encodes the
-waterfall's rows, a carried state one audio stream.
+waterfall's rows, a carried state one audio stream.  The step-size table is
+read as csdr_tpu's gather reads it: a negative index counts from the end,
+then the index clamps to 0..88 (only a carried state can be out of range).
 
 The wrappers launch the kernel for CUDA tensors, or raise; they take the
-plain version (``*_plain``: csdr_tpu's steps as torch ops, vectorised over
-B) only for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+plain version (``encode_plain``, ``decode_plain``: csdr_tpu's steps as
+torch ops, vectorised over B) only for CPU tensors.  ``LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -133,20 +144,29 @@ def _tables(device: str):
             torch.from_numpy(INDEX_ADJUST).to(device))
 
 
+def _read_index(index):
+    """The table row csdr_tpu's ``_STEPS[index]`` reads: jnp indexing counts
+    a negative index from the end, then XLA's gather clamps it."""
+    return torch.where(index < 0, index + 89, index).clamp(0, 88)
+
+
+def _signed_dq(step, delta):
+    """csdr_tpu's _decode_step difference, negative with the sign bit."""
+    dq = (step >> 3) + torch.where((delta & 1) != 0, step >> 2, 0) \
+        + torch.where((delta & 2) != 0, step >> 1, 0) \
+        + torch.where((delta & 4) != 0, step, 0)
+    return torch.where((delta & 8) != 0, -dq, dq)
+
+
 def _decode_step(prev, index, delta, steps, adj):
-    step = steps[index.clamp(0, 88)]
-    diff = step >> 3
-    diff = diff + torch.where((delta & 1) != 0, step >> 2, 0)
-    diff = diff + torch.where((delta & 2) != 0, step >> 1, 0)
-    diff = diff + torch.where((delta & 4) != 0, step, 0)
-    diff = torch.where((delta & 8) != 0, -diff, diff)
-    prev = (prev + diff).clamp(-32768, 32767)
+    step = steps[_read_index(index)]
+    prev = (prev + _signed_dq(step, delta)).clamp(-32768, 32767)
     index = (index + adj[delta]).clamp(0, 88)
     return prev, index
 
 
 def _encode_step(prev, index, sample, steps, adj):
-    step = steps[index.clamp(0, 88)]
+    step = steps[_read_index(index)]
     diff = sample - prev
     sign = diff < 0
     diff = diff.abs()
@@ -185,3 +205,108 @@ def decode_plain(y: torch.Tensor, state: torch.Tensor):
         prev, index = _decode_step(prev, index, nibbles[:, t], steps, adj)
         out[:, t] = prev
     return out.to(torch.int16), torch.stack([prev, index], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# torch models of the kernels' algorithms (tests and chip_smoke.py; no entry
+# point calls them)
+# ---------------------------------------------------------------------------
+
+def _select_step(prev, index, sample, steps):
+    """The encoder kernel's step (``csrc/adpcm.cu``): csdr_tpu's three
+    compare-subtract stages as one add and one unsigned min each (a
+    difference that goes negative wraps above its minuend), the remainder
+    q0 giving T_m = |d| - q0; the stage compares b2, b1, b0 pick m, the
+    leaf the kernel selects; prev' = clamp(sample + (step>>3) - q0) for
+    d >= 0, clamp(sample - (step>>3) + q0) for d < 0, which is csdr_tpu's
+    clamp(prev +- ((step>>3) + T_m)); index' = clamp(index + adjust(m))."""
+    step = steps[_read_index(index)].long()
+    s1, s2, s3 = step >> 1, step >> 2, step >> 3
+    sample = sample.long()
+    d = sample - prev.long()
+    ad = d.abs()
+    q2 = torch.minimum((ad - step) % (1 << 32), ad)
+    q1 = torch.minimum((q2 - s1) % (1 << 32), q2)
+    q0 = torch.minimum((q1 - s2) % (1 << 32), q1)
+    m = 4 * (ad >= step).int() + 2 * (q2 >= s1).int() + (q1 >= s2).int()
+    prev = torch.where(d < 0, sample - s3 + q0, sample + s3 - q0
+                       ).clamp(-32768, 32767).int()
+    index = (index + torch.where(m >= 4, 2 * (m - 3), -1)).clamp(0, 88)
+    return prev, index, m | torch.where(d < 0, 8, 0)
+
+
+def encode_select_plain(x: torch.Tensor, state: torch.Tensor):
+    """:func:`encode` by the encoder kernel's step (:func:`_select_step`),
+    a loop over the samples on B rows."""
+    steps, _ = _tables(str(x.device))
+    prev, index = state[:, 0].clone(), state[:, 1].clone()
+    xi = x.to(torch.int32)
+    deltas = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    for t in range(x.shape[1]):
+        prev, index, deltas[:, t] = _select_step(prev, index, xi[:, t],
+                                                 steps)
+    packed = deltas[:, 0::2] | (deltas[:, 1::2] << 4)
+    return packed.to(torch.uint8), torch.stack([prev, index], dim=1)
+
+
+# x -> clamp(x + a, lo, hi) as (a, lo, hi).  Its offset is clamped to +-k:
+# on a domain of width k (index 0..88, k = 88; prev -32768..32767,
+# k = 65535) an offset past k already sends every x to lo or hi, so the
+# function is unchanged, and the offset cannot overflow over long rows.
+INDEX_K, PREV_K = 88, 65535
+
+
+def _then(f, g, k):
+    """g after f."""
+    (a1, lo1, hi1), (a2, lo2, hi2) = f, g
+    return ((a1 + a2).clamp(-k, k),
+            torch.minimum(torch.maximum(lo1 + a2, lo2), hi2),
+            torch.minimum(torch.maximum(hi1 + a2, lo2), hi2))
+
+
+def _scan(f, k):
+    """Inclusive Hillis-Steele scan of the functions (a, lo, hi), each
+    (B, n), along the last axis: entry j becomes f_j after ... after f_0."""
+    a, lo, hi = f
+    o = 1
+    while o < a.shape[-1]:
+        na, nlo, nhi = _then((a[:, :-o], lo[:, :-o], hi[:, :-o]),
+                             (a[:, o:], lo[:, o:], hi[:, o:]), k)
+        a = torch.cat([a[:, :o], na], 1)
+        lo = torch.cat([lo[:, :o], nlo], 1)
+        hi = torch.cat([hi[:, :o], nhi], 1)
+        o *= 2
+    return a, lo, hi
+
+
+def _apply(f, x):
+    a, lo, hi = f
+    return torch.minimum(torch.maximum(x.unsqueeze(-1) + a, lo), hi)
+
+
+def decode_scan_plain(y: torch.Tensor, state: torch.Tensor):
+    """:func:`decode` by the decoder kernel's algorithm on B rows: the
+    first nibble from the carried state, then the index after every later
+    nibble as a prefix scan of clamp(x + adjust, 0, 88), the step sizes it
+    reads, and prev as a prefix scan of clamp(x + dq, -32768, 32767), both
+    with the offset rule above."""
+    if y.shape[1] == 0:
+        return torch.empty((y.shape[0], 0), dtype=torch.int16,
+                           device=y.device), state.clone()
+    steps, adj = _tables(str(y.device))
+    b = y.to(torch.int32)
+    nib = torch.stack([b & 15, b >> 4], dim=2).reshape(y.shape[0], -1)
+    prev0, index0 = state[:, 0], state[:, 1]
+    prev1 = (prev0 + _signed_dq(steps[_read_index(index0)], nib[:, 0])
+             ).clamp(-32768, 32767)
+    index1 = (index0 + adj[nib[:, 0]]).clamp(0, 88)
+    rest = nib[:, 1:]
+    full = torch.full_like(rest, 1)
+    index_after = _apply(_scan((adj[rest], 0 * full, 88 * full), INDEX_K),
+                         index1)
+    index_at = torch.cat([index1[:, None], index_after[:, :-1]], 1)
+    prev_after = _apply(_scan((_signed_dq(steps[index_at], rest),
+                               -32768 * full, 32767 * full), PREV_K), prev1)
+    out = torch.cat([prev1[:, None], prev_after], 1)
+    index_end = torch.cat([index1[:, None], index_after], 1)[:, -1]
+    return out.to(torch.int16), torch.stack([out[:, -1], index_end], dim=1)

@@ -1213,3 +1213,209 @@ def test_cuda_wfm_step_has_no_cross_device_op(cuda):
     found = dispatch_lint.findings_of(trace)
     assert not [f for f in found if f.kind in ("cross-device", "host-sync")]
     assert dict(trace.kernel_launches) == {"shift_fir_decimate": 1}
+
+
+# the redesigned codec kernels: their schedules emulated in Python ints on
+# the CPU (the encoder's packed entries, leaf table and stage ladder; the
+# decoder's segments, 32-byte groups, compositions and tables), then the
+# kernels on the card against both plain versions
+
+_IMA_STEPS = [int(v) for v in adpcm_cuda.STEP_SIZES]
+
+
+def _clampi(v, lo, hi):
+    return min(max(v, lo), hi)
+
+
+def _ima_adjust(n):
+    return 2 * ((n & 3) + 1) if n & 4 else -1
+
+
+def _wrap32(v):
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _read_index(i):
+    return _clampi(i + 89 if i < 0 else i, 0, 88)
+
+
+def _signed_dq(step, n):
+    dq = (step >> 3) + (step >> 2 if n & 1 else 0) \
+        + (step >> 1 if n & 2 else 0) + (step if n & 4 else 0)
+    return -dq if n & 8 else dq
+
+
+def _enc_entry(j, m):
+    return (_IMA_STEPS[j] << 16) | (m << 12) | (j << 5)
+
+
+def _adpcm_encode_schedule(x, prev, index):
+    """csrc/adpcm.cu's encoder on one row: e packs (step, m, index's row
+    offset), NEXT[i][m] the leaves, three add-and-unsigned-min stages, the
+    first step's clamp two-sided."""
+    table = [_enc_entry(_clampi(k // 8 + _ima_adjust(k % 8), 0, 88), k % 8)
+             for k in range(89 * 8)]
+    e = _IMA_STEPS[_read_index(index)] << 16
+    leaves = [_enc_entry(_clampi(_wrap32(index + _ima_adjust(m)), 0, 88), m)
+              for m in range(8)]
+    nibbles = []
+    for k, sample in enumerate(int(v) for v in x):
+        step, s1, s2, s3 = e >> 16, e >> 17, e >> 18, e >> 19
+        d = sample - prev
+        ad = abs(d)
+        q2 = min((ad - step) % 2 ** 32, ad)
+        q1 = min((q2 - s1) % 2 ** 32, q2)
+        q0 = min((q1 - s2) % 2 ** 32, q1)
+        up, down = sample + s3 - q0, sample - s3 + q0
+        pos = _clampi(up, -32768, 32767) if k == 0 else min(up, 32767)
+        neg = _clampi(down, -32768, 32767) if k == 0 else max(down, -32768)
+        e = leaves[4 * (ad >= step) + 2 * (q2 >= s1) + (q1 >= s2)]
+        prev = neg if d < 0 else pos
+        row = (e & 0xfe0) // 4
+        leaves = table[row:row + 8]
+        nibbles.append(((e >> 12) & 7) | ((d >> 28) & 8))
+    return nibbles, prev, (e & 0xfe0) >> 5
+
+
+def _adpcm_decode_schedule(y, prev0, index0, out_offset):
+    """csrc/adpcm.cu's decoder on one row whose output starts out_offset
+    int16 past a 32-byte boundary: the launch's threads and segment, the
+    first nibble from the carried state, each thread's segment composed
+    (offsets clamped), the exclusive scans, the replays through DEC."""
+    n_len = 2 * len(y)
+    threads = _clampi((n_len // 16 + 31) // 32 * 32, 32, 1024)
+    seg = ((n_len + 14 + threads - 1) // threads + 15) // 16 * 16
+    a = out_offset & 15
+    table = [_signed_dq(_IMA_STEPS[k >> 4], k & 15) * 8192
+             | _clampi(k // 16 + _ima_adjust(k & 15), 0, 88) * 64
+             for k in range(89 * 16)]
+
+    def nib(k):
+        return (int(y[k >> 1]) >> ((k & 1) * 4)) & 15
+
+    n0 = nib(0)
+    prev1 = _clampi(_wrap32(prev0 + _signed_dq(
+        _IMA_STEPS[_read_index(index0)], n0)), -32768, 32767)
+    index1 = _clampi(_wrap32(index0 + _ima_adjust(n0)), 0, 88)
+    segs = [(1 if t == 0 else min(n_len, t * seg - a),
+             min(n_len, (t + 1) * seg - a)) for t in range(threads)]
+    assert [k for b, e in segs for k in range(b, e)] == list(range(1, n_len))
+    assert all((b + a) % 16 == 0 for b, e in segs[1:] if b < e)
+
+    def then(f, g, lim):
+        return (_clampi(f[0] + g[0], -lim, lim),
+                _clampi(f[1] + g[0], g[1], g[2]),
+                _clampi(f[2] + g[0], g[1], g[2]))
+
+    def apply(f, v):
+        return _clampi(v + f[0], f[1], f[2])
+
+    def starts(funcs, ident, lim, x0):
+        pre, out = ident, []
+        for f in funcs:
+            out.append(apply(pre, x0))
+            pre = then(pre, f, lim)
+        return out
+
+    funcs = []
+    for b, e in segs:
+        f = (0, 0, 88)
+        for k in range(b, e):
+            f = then(f, (_ima_adjust(nib(k)), 0, 88), 88)
+        funcs.append(f)
+    i_starts = [64 * i for i in starts(funcs, (0, 0, 88), 88, index1)]
+    funcs = []
+    for (b, e), i in zip(segs, i_starts):
+        f = (0, -32768, 32767)
+        for k in range(b, e):
+            d = table[(i + 4 * nib(k)) // 4]
+            i = d & 0x1fc0
+            f = then(f, (d >> 13, -32768, 32767), 65535)
+        funcs.append(f)
+    p_starts = starts(funcs, (0, -32768, 32767), 65535, prev1)
+    out, state = [prev1] + [None] * (n_len - 1), None
+    for (b, e), i, p in zip(segs, i_starts, p_starts):
+        for k in range(b, e):
+            d = table[(i + 4 * nib(k)) // 4]
+            p = _clampi(p + (d >> 13), -32768, 32767)
+            i = d & 0x1fc0
+            out[k] = p
+        if b < e == n_len:
+            state = [p, i // 64]
+    return out, state
+
+
+CODEC_SCHEDULE_STATES = [(0, 0), (32767, 88), (-32768, 0), (1000, -5),
+                         (-3000, 100), (40000, 45), (-40000, -100)]
+
+
+@pytest.mark.parametrize("n", [2, 30, 514, 4106])
+def test_adpcm_encode_schedule_matches_plain(n):
+    x = _codec_rows(len(CODEC_SCHEDULE_STATES), n, n)
+    st = torch.tensor(CODEC_SCHEDULE_STATES, dtype=torch.int32)
+    packed, ns = adpcm_cuda.encode_plain(torch.from_numpy(x), st)
+    for k, (prev, index) in enumerate(CODEC_SCHEDULE_STATES):
+        nib, p, i = _adpcm_encode_schedule(x[k], prev, index)
+        assert packed[k].tolist() == [a | (b << 4) for a, b in
+                                      zip(nib[0::2], nib[1::2])]
+        assert ns[k].tolist() == [p, i]
+
+
+@pytest.mark.parametrize("pairs,offset", [(1, 0), (7, 2), (257, 14),
+                                          (2053, 6), (4106, 8)])
+def test_adpcm_decode_schedule_matches_plain(pairs, offset):
+    rng = np.random.default_rng(pairs)
+    y = rng.integers(0, 256, (2, pairs), dtype=np.uint8)
+    y[1, : pairs // 2] = 0x77
+    states = [(1000, -5), (-40000, 100)]
+    out, st = adpcm_cuda.decode_plain(
+        torch.from_numpy(y), torch.tensor(states, dtype=torch.int32))
+    for k, (prev, index) in enumerate(states):
+        got, state = _adpcm_decode_schedule(y[k], prev, index, offset)
+        assert out[k].tolist() == got and st[k].tolist() == state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,pairs", [(1, 24_000), (9, 2053), (33, 1024)])
+def test_cuda_adpcm_redesign_matches_both_plain_versions(cuda, rows, pairs):
+    """The encoder (rows over two blocks at 33) and the decoder (one block
+    a row) against the serial loops on their first 2048 samples and the
+    kernels' torch models whole, from carried states in and out of
+    range."""
+    x = torch.from_numpy(_codec_rows(rows, 2 * pairs, rows)).to(cuda)
+    st = torch.tensor([CODEC_SCHEDULE_STATES[k % 7] for k in range(rows)],
+                      dtype=torch.int32, device=cuda)
+    pk, sk = adpcm_cuda.encode(x, st)
+    ps, ss = adpcm_cuda.encode_select_plain(x, st)
+    head = x[:, :2048].contiguous()
+    hk = adpcm_cuda.encode(head, st)
+    hp = adpcm_cuda.encode_plain(head, st)
+    dk, tk = adpcm_cuda.decode(pk, st)
+    ds, ts = adpcm_cuda.decode_scan_plain(pk, st)
+    gk = adpcm_cuda.decode(pk[:, :1024].contiguous(), st)
+    gp = adpcm_cuda.decode_plain(pk[:, :1024], st)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, ps) and torch.equal(sk, ss)
+    assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
+    assert torch.equal(dk, ds) and torch.equal(tk, ts)
+    assert torch.equal(gk[0], gp[0]) and torch.equal(gk[1], gp[1])
+
+
+@pytest.mark.cuda
+def test_cuda_adpcm_decoder_scans_a_long_saturating_row(cuda):
+    """2 400 000 nibbles in one block, runs of 0x7 and 0xF pinning prev at
+    either rail and index at 88: against decode_scan_plain whole and the
+    serial loop on the first 4096 nibbles."""
+    y = torch.full((1, 1_200_000), 0x77, dtype=torch.uint8, device=cuda)
+    y[0, 400_000:800_000] = 0xFF
+    st = torch.tensor([[0, -5]], dtype=torch.int32, device=cuda)
+    n0 = adpcm_cuda.LAUNCHES["adpcm_decode"]
+    dk, tk = adpcm_cuda.decode(y, st)
+    assert adpcm_cuda.LAUNCHES["adpcm_decode"] == n0 + 1
+    ds, ts = adpcm_cuda.decode_scan_plain(y, st)
+    hk = adpcm_cuda.decode(y[:, :2048].contiguous(), st)
+    hp = adpcm_cuda.decode_plain(y[:, :2048], st)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, ds) and torch.equal(tk, ts)
+    assert tk[0].tolist() == [32767, 88]
+    assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
