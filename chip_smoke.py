@@ -33,7 +33,11 @@ prints one JSON line per phase and exits non-zero at the first failure:
    against K2 on the same input, with its launch, its share of the bound
    and conv1d's time over its own, and on a stream with a NaN that only
    tap rows m >= M would reach (every output finite, equal to the plain
-   version); and K2 at path D's D=50/T=81.
+   version); and K2 at path D's D=50/T=81.  Before path G, the timing
+   recovery's symbol loop (csrc/ted.cu) at the bank's shape (64 rows of
+   58 368 samples, sps 256: 230 slots) and segmented (64 x 4 lanes), bit
+   for bit against scan_plain, with the probe chain that bounds it (a
+   slot's picks from shared memory and its arithmetic) in SM cycles.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -76,8 +80,9 @@ prints one JSON line per phase and exits non-zero at the first failure:
    models/multichannel.build_ddc_bpsk31_bank (64 channels, sps 256): 8
    channels tuned to 8 BPSK31 transmissions 0.1 apart, 56 at rates drawn
    as bench.py's flagship draws them, noise 0.01 per part:
-   G  D=50, 3 chunks of 3200 frames: K3 forward once per chunk;
-   G' D=16, 3 chunks of 1024 frames: K4 once per chunk;
+   G  D=50, 3 chunks of 3200 frames: K3 forward and the TED once per
+      chunk;
+   G' D=16, 3 chunks of 1024 frames: K4 and the TED once per chunk;
    each BPSK31 channel decodes at BER < 0.02 over > 200 bits; the channel
    streams equal the CPU's (each BPSK31 channel >= 100 dB, every channel
    >= 100 dB against the bank's mean channel power); the card's modem on
@@ -104,12 +109,12 @@ prints one JSON line per phase and exits non-zero at the first failure:
        and channel streams bit for bit those of G and G', BER < 0.02 over
        > 200 bits a BPSK31 channel, streams card vs CPU >= 100 dB on them;
        the DDC bank (sharded_ddc) on chunk 1 equal to G's channelizer;
-       K3 forward (D=50) and K4 (D=16) once a chunk;
+       K3 forward (D=50) and K4 (D=16) and the TED once a chunk;
    M'  the same on a 2x2 mesh: the DDC bank at D=50 and D=16 within atol
        2e-4 of M's and >= 100 dB on each BPSK31 channel, the flagship at
        D=50 within 2 bit errors a channel of M's; every launch counted
-       over the ranks, collective bytes equal to the halo's and corner
-       turn's shapes;
+       over the ranks (the TED once a chunk a rank), collective bytes
+       equal to the halo's and corner turn's shapes;
    M'' sharded_wfm at 64 channels (firdes_lowpass_f(81, 0.05), D1=10,
        D2=5) over one 2.4 M-sample chunk of FM 1 kHz tones on 8 channels,
        1x1 and 2x2: at both shapes the bank against the same step with
@@ -267,7 +272,7 @@ PROBE_SOURCE = "csdr_tpu_torch/csrc/roofline_probe.cu"
 # the same pipelines on the CPU)
 LINT_ALLOW = {"WFM": ("per-tap-fir",), "A": (), "B": (), "C": (),
               "D": ("per-tap-fir",), "E": ("agc",), "F": ("agc",),
-              "G": ("ted",), "G'": ("ted",), "S": (), "W": (),
+              "G": (), "G'": (), "S": (), "W": (),
               "W1": ("per-tap-fir",)}
 # the measure phase's state: its seconds (summed over its parts, which
 # run where their inputs are), the published and measured peaks, and the
@@ -805,7 +810,11 @@ def phase_kernels(torch):
         {"kernel": "IMA ADPCM codec", "status": "ported",
          "counterpart_of": "lax.scan in csdr_tpu/ops/adpcm.py:69, 82 (no "
                            "Pallas kernel)",
-         "wrapper": "csdr_tpu_torch.kernels.adpcm_cuda.encode / decode"}])
+         "wrapper": "csdr_tpu_torch.kernels.adpcm_cuda.encode / decode"},
+        {"kernel": "timing recovery symbol loop (TED)", "status": "ported",
+         "counterpart_of": "lax.scan in csdr_tpu/ops/sync.py:374, 397 (no "
+                           "Pallas kernel)",
+         "wrapper": "csdr_tpu_torch.kernels.ted_cuda.scan"}])
     return cases, headline
 
 
@@ -1102,16 +1111,16 @@ def phase_throughput(torch, x, wall, chunks):
 
 def reset_all() -> None:
     from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
-                                        fir_cuda)
-    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda):
+                                        fir_cuda, ted_cuda)
+    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda, ted_cuda):
         mod.reset_launches()
 
 
 def launches_all() -> dict:
     from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
-                                        fir_cuda)
+                                        fir_cuda, ted_cuda)
     return {**fir_cuda.LAUNCHES, **fft_cuda.LAUNCHES, **fastddc_cuda.LAUNCHES,
-            **adpcm_cuda.LAUNCHES}
+            **adpcm_cuda.LAUNCHES, **ted_cuda.LAUNCHES}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
@@ -1673,6 +1682,159 @@ def phase_receiver_throughput(torch, paths):
 
 
 # ---------------------------------------------------------------------------
+# the timing recovery kernel (csrc/ted.cu), at the bank's shape
+# ---------------------------------------------------------------------------
+
+TED_SOURCE = "csdr_tpu_torch/csrc/ted.cu"
+TED_SEGMENTS = 4           # the segmented case's lanes a row
+TED_WARM = 32              # its warmup symbols (the block's default)
+TED_PROBE_LINKS = 1 << 14  # links of each probe chain
+TED_FLOPS = 8              # float operations a slot (subs, products, fma)
+
+
+def ted_inputs(torch, rows: int, n: int, nsb: int, segs: int, seed: int):
+    """The TED kernel's inputs as TimingRecoveryBlock buffers a chunk of
+    ``n`` samples a row behind its 4*nsb tail, on the card: BPSK at nsb
+    samples a symbol (half-sine pulses, a Q part, noise, a gain a row),
+    a random valid start s0 and carried corr a row; with ``segs`` > 1 the
+    segmented mode's (R, S) lanes as ``_segmented`` lays them out.
+    Returns (planes, size, bitstart, corr, cap, span_hi, emit_lo)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    margin = 4 * nsb
+    size = margin + n
+    sym = torch.randint(0, 2, (rows, size // nsb + 1), device=dev,
+                        generator=gen) * 2.0 - 1.0
+    k = torch.arange(size, device=dev)
+    shape = torch.sin(np.pi * ((k % nsb) + 0.5) / nsb)
+    base = sym.repeat_interleave(nsb, 1)[:, :size] * shape
+    gain = 0.2 + 2.8 * torch.rand((rows, 1), device=dev, generator=gen)
+    x = torch.complex(gain * base, 0.2 * gain * base) + 0.05 * torch.complex(
+        torch.randn((rows, size), device=dev, generator=gen),
+        torch.randn((rows, size), device=dev, generator=gen))
+    planes = torch.view_as_real(x).reshape(rows, 2 * size)
+    s0 = torch.randint(0, margin + 1, (rows,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    corr0 = torch.randint(-nsb // 8, nsb // 8 + 1, (rows,), device=dev,
+                          generator=gen, dtype=torch.int32)
+    if segs == 1:
+        return planes, size, s0, corr0, (n + margin) // nsb + 2, None, None
+    span = torch.div(size - s0, segs, rounding_mode="floor")
+    s_idx = torch.arange(segs, dtype=torch.int32, device=dev)
+    emit_lo = (s0[:, None] + s_idx * span[:, None]).to(torch.int32)
+    span_hi = torch.where(s_idx == segs - 1, int(np.iinfo(np.int32).max),
+                          emit_lo + span[:, None] + nsb).to(torch.int32)
+    bs0 = torch.maximum(emit_lo - TED_WARM * nsb, s0[:, None])
+    corr = torch.where(s_idx == 0, corr0[:, None], 0).to(torch.int32)
+    return (planes, size, bs0.to(torch.int32).contiguous(), corr,
+            (n + margin) // (segs * nsb) + TED_WARM + 4, span_hi, emit_lo)
+
+
+def ted_chains(torch) -> dict:
+    """SM cycles a TED slot takes on the probe chain in csrc/ted.cu (three
+    picks from a window staged in shared memory and the step's arithmetic
+    to the next bitstart, the chain that bounds the function), the least
+    of three runs of TED_PROBE_LINKS slots each."""
+    from csdr_tpu_torch.kernels import ted_cuda
+
+    slot = min(ted_cuda.chain_cycles(TED_PROBE_LINKS) for _ in range(3))
+    require(slot > 30.0, f"ted chain probe: {slot} cycles a slot")
+    return {"slot_cycles": slot}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal tensors, floats compared by their bits (a NaN included)."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def ted_case(torch, name: str, rows: int, n: int, nsb: int, segs: int,
+             chains: dict, seed: int) -> dict:
+    """ted_cuda.scan on one launch's inputs (ted_inputs) against
+    scan_plain on the card, bit for bit (the final state and every slot's
+    picks, raw error, start and emit); its time, the plain version's (one
+    call) and its bound: the slots a lane stays alive (the most of any
+    lane, what this data needs) x the probe's slot chain at the top SM
+    clock, or the bytes (3 picks a slot, the lane's inputs and every
+    output) if longer."""
+    from csdr_tpu_torch.kernels import ted_cuda
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    planes, size, bs, corr, cap, hi, lo = ted_inputs(torch, rows, n, nsb,
+                                                     segs, seed)
+    params = ted_cuda.TedParams(nsb, (3 * nsb // 2, nsb // 2, nsb), True,
+                                True, 2.0, 0.5)
+
+    def kern(p, aux):
+        return ted_cuda.scan(p, size, *aux[:2], cap, *aux[2:],
+                             params=params)
+
+    aux = (bs, corr, hi, lo)
+    got = kern(planes, aux)
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault("p", ted_cuda.scan_plain(
+        planes, size, bs, corr, cap, hi, lo, params=params)), iters=1,
+        warmup=0, repeats=1)
+    torch.cuda.synchronize()
+    same = [same_bits(torch, a, b) for a, b in zip(got, box["p"])]
+    require(all(same), f"{name} ({rows} x {segs} lanes, {cap} slots): "
+                       f"kernel differs from scan_plain: {same}")
+    ms = time_cuda(lambda: kern(planes, aux), iters=20, queue_ahead_ms=20.0)
+    lanes = rows * segs
+    # a lane is alive at slot k iff bitstart moved after it
+    starts = torch.cat([got[4].reshape(lanes, cap),
+                        got[0].reshape(lanes, 1)], 1)
+    alive = (starts[:, 1:] != starts[:, :-1]).sum(1)
+    slots = int(alive.max())
+    nbytes = lanes * (slots * 3 * 8 + cap * (24 + 4 + 4 + 1) + 4 * (
+        4 if segs > 1 else 2) + 8)
+    flops = lanes * slots * TED_FLOPS
+    t_bytes = least_ms(torch, nbytes, flops)[0]
+    t_chain = slots * chains["slot_cycles"] / SM_CLOCK_HZ * 1e3
+    return {
+        "name": "ted_scan", "route": "cuda", "source": TED_SOURCE,
+        "replaces": "csdr_tpu/ops/sync.py:374, 397 (lax.scan; no Pallas "
+                    "kernel)",
+        "shape": {"rows": rows, "segments": segs, "lanes": lanes,
+                  "slots": cap, "alive_slots_most": slots,
+                  "samples_a_row": size, "sps": nsb},
+        "bit_exact": True, "max_abs_err": 0.0,
+        "emitted": int(got[5].sum()),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_chain),
+        "bound_by": "bytes" if t_bytes >= t_chain else "operations",
+        "bound_note": (f"serial chain: {slots} alive slots x "
+                       f"{chains['slot_cycles']:.1f} SM cycles (a slot's "
+                       f"dependent shared-memory load and arithmetic, "
+                       f"probed; this kernel reads its picks from L2 on "
+                       f"the chain) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "cycles_a_slot": ms * 1e-3 * SM_CLOCK_HZ / slots,
+        "library_ms": None, "bytes": nbytes,
+        **roofline_row(torch, "ted_scan", kern, planes, aux, nbytes, flops,
+                       ms, ops_s=t_chain / 1e3),
+    }
+
+
+def phase_ted_kernels(torch) -> list:
+    """The TED kernel against its plain version on the card at the bank's
+    shape (G and G' both give it 64 rows of 58 368 samples, sps 256: 230
+    slots) and in the segmented mode (64 x TED_SEGMENTS lanes), with the
+    probe chain that bounds it.  Returns the row of G's shape."""
+    chains = ted_chains(torch)
+    emit("kernels", name="ted_chain_probe", check="SM cycles a slot of the "
+         "chain that bounds the TED (csrc/ted.cu)", **chains)
+    m = FRAMES_G // 25 * 448            # G's channel samples a chunk
+    serial = dict(ted_case(torch, "ted_scan", CHANNELS, m, SPS, 1, chains,
+                           51), path="G")
+    seg = ted_case(torch, "ted_scan segmented", CHANNELS, m, SPS,
+                   TED_SEGMENTS, chains, 52)
+    emit("kernels", **serial)
+    emit("kernels", check="the segmented mode (not on a gated path)", **seg)
+    return [serial]
+
+
+# ---------------------------------------------------------------------------
 # BASELINE config 5 whole: the channelizer and the BPSK31 modem bank (G, G')
 # ---------------------------------------------------------------------------
 
@@ -1785,11 +1947,11 @@ def profile_call(torch, fn) -> dict:
 
 
 def bank_cost(torch, bank, step, state, x) -> dict:
-    """Step time as issued (CUDA events around back-to-back steps), the
-    split of steps between channelizer and modem (events between the two
-    halves, as issued), the card's busy time in one step and in its modem
-    alone, and the modem's launches and host syncs a chunk
-    (torch.profiler)."""
+    """Step time as issued (CUDA events around back-to-back steps) and
+    queued behind a spin kernel (the device's own time), the split of
+    steps between channelizer and modem (events between the two halves,
+    as issued), and from torch.profiler the kernels of one step and of its
+    modem alone, their busy time, launches and host syncs."""
     from csdr_tpu_torch.utils.timing import time_cuda
 
     box = {"state": state}
@@ -1800,6 +1962,8 @@ def bank_cost(torch, bank, step, state, x) -> dict:
 
     with torch.no_grad():
         step_ms = time_cuda(one_step, iters=3, warmup=1, repeats=3)
+        queued_ms = time_cuda(one_step, iters=10, warmup=1, repeats=5,
+                              queue_ahead_ms=100.0)
         split = []
         for _ in range(5):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1818,6 +1982,8 @@ def bank_cost(torch, bank, step, state, x) -> dict:
             "msps": x.shape[0] / step_ms / 1e3,
             "device_ms": whole["device_ms"],
             "device_busy_share": whole["device_ms"] / step_ms,
+            "queued_device_ms": queued_ms,
+            "queued_busy_share": queued_ms / step_ms,
             "channelizer_ms": chan_ms, "modem_ms": modem_ms,
             "modem_share_of_step": modem_ms / (chan_ms + modem_ms),
             "step_profile": whole, "modem_profile": modem}
@@ -1843,7 +2009,8 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
         outs = drive_bank(torch, step, init(chunk), xs)
     wall = time.perf_counter() - t0
     launches = launches_all()
-    require_launches(launches, {kernel: chunks}, f"path {key}")
+    require_launches(launches, {kernel: chunks, "ted_scan": chunks},
+                     f"path {key}")
     with torch.no_grad():
         lint_step(torch, key, step, init(chunk), xs[0])
 
@@ -1988,7 +2155,9 @@ def phase_bank_throughput(torch, banks):
                   "issued; channelizer_ms, modem_ms: medians of 5 steps "
                   "split by an event between the halves; device_ms: the "
                   "union of the kernels' intervals in one profiled step; "
-                  "launches and host syncs from torch.profiler")
+                  "queued_device_ms: 10 steps queued behind a spin kernel, "
+                  "median of 5; launches and host syncs from "
+                  "torch.profiler")
 
 
 # ---------------------------------------------------------------------------
@@ -2306,7 +2475,8 @@ def phase_mesh_paths(torch, banks) -> dict:
                                     ref["tx_bits"], bpsk, 0)
         require_launches(res["ddc"]["launches"], {kernel: 1},
                          f"path M D={d} DDC bank")
-        require_launches(f["launches"], {kernel: MESH_CHUNKS},
+        require_launches(f["launches"], {kernel: MESH_CHUNKS,
+                                         "ted_scan": MESH_CHUNKS},
                          f"path M D={d}")
         require(f["bytes"] == predicted_bytes("flagship", 1, 1, halo=ov,
                                               channels=CHANNELS, m=f["m"]),
@@ -2349,7 +2519,9 @@ def phase_mesh_paths(torch, banks) -> dict:
                                     one["flagship"]["outs"],
                                     banks[g]["mesh_ref"]["tx_bits"], bpsk,
                                     BANK_SLIP_BAR)
-        require_launches(f["launches"], {kernel: 4 * MESH_CHUNKS},
+        # every rank runs the modem on its chan rows, once a chunk
+        require_launches(f["launches"], {kernel: 4 * MESH_CHUNKS,
+                                         "ted_scan": 4 * MESH_CHUNKS},
                          f"path M' D={d}")
         want = {k: v * MESH_CHUNKS for k, v in predicted_bytes(
             "flagship", 2, 2, halo=ov, channels=CHANNELS, m=f["m"]).items()}
@@ -4222,6 +4394,7 @@ def run(torch) -> int:
     launches_p = phase_poly_path(torch)
     receivers = phase_receiver_paths(torch)
     phase_receiver_throughput(torch, receivers)
+    ted_cases = phase_ted_kernels(torch)
     banks = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
     mesh = phase_mesh_paths(torch, banks)
@@ -4239,7 +4412,7 @@ def run(torch) -> int:
     # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
     # K2 at D=16/T=79 from the td server, K3 forward at N=4096 and the
     # codec's encoder on 9 rows from W, the codec both ways on one audio
-    # stream from W1
+    # stream from W1, the TED from G (and G', M, M')
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
@@ -4250,6 +4423,8 @@ def run(torch) -> int:
         "B": ("B: fastddc50 fwd (kernel order) | classed inverse",
               paths["B"][0]),
         "C": ("C: ssb_receiver(agc_on=False)", ssb[0]),
+        "G": ("G: build_ddc_bpsk31_bank(64 rates, decimation=50, sps=256)",
+              g_launches["G"]),
         "P": ("P: fir_decimate_poly_or_plain, D=10, T=1023", launches_p),
         "S''": ("S'': DdcdServer(16, 0.05, max_channels=8, method='td', "
                 "frames=64)", servers["S''"]["launches"]),
@@ -4286,10 +4461,12 @@ def run(torch) -> int:
             ("ifft_ko", "C"): xp["bandpass_fir_fft_cc"],
             ("fft_ko", "W"): xp["fft_cc"],
             ("adpcm_encode", "W1"): xp["encode_ima_adpcm_i16_u8"],
-            ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"]}
+            ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"],
+            ("ted_scan", "G"): {"G'": g_launches["G'"], "M": mesh["M"],
+                                "M'": mesh["M'"]}}
     table = []
-    for c in ([probe_row] + cases + new_cases + poly_cases + server_cases
-              + edge_cases + [k2_cli]):
+    for c in ([probe_row] + cases + new_cases + poly_cases + ted_cases
+              + server_cases + edge_cases + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "csdr_adpcm_decode": [_VP, _VP, _VP, _VP, _I, _LL, _VP],
     "csdr_adpcm_chain_probe": [_VP, _VP, _I, _I, _VP],
     "csdr_fma_chain": [_VP, _VP, _LL, _I, _F, _F, _VP],
+    "csdr_ted_scan": [_VP, _I, _VP, _VP, _VP, _VP] + [_I] * 11
+                     + [_F] * 3 + [_VP] * 7,
+    "csdr_ted_chain_probe": [_VP, _VP, _VP, _I, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {

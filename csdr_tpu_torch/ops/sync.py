@@ -2,11 +2,13 @@
 early-late timing recovery (counterpart of csdr_tpu.ops.sync).
 
 These are serial per-sample (or per-symbol) nonlinear feedback loops.
-csdr_tpu runs each as a ``lax.scan`` and ``vmap``s it over channels; here
-each is a Python loop of torch ops over a leading batch axis (one row per
-channel), plain torch with no kernel of its own.  No step reads a value
-back to the host: masks run every step of a fixed count, and data-
-dependent counts stay on the device.
+csdr_tpu runs each as a ``lax.scan`` and ``vmap``s it over channels.  The
+timing recovery's symbol loop is one launch of a hand-written kernel a
+call (``kernels/ted_cuda``, ``csrc/ted.cu``: a thread a row or segment);
+the PLL and the Costas loop are Python loops of torch ops over a leading
+batch axis (one row per channel).  No step reads a value back to the
+host: masks run every step of a fixed count, and data-dependent counts
+stay on the device.
 
 The timing recovery loop has no transcendental and gives csdr_tpu's
 symbols, errors, indexes and carried state bit for bit.  The PLL and the
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Block, VarOut, resolve_device
-from csdr_tpu_torch.core.precision import fma_f32
+from csdr_tpu_torch.kernels import ted_cuda
 
 TWO_PI = 2.0 * np.pi
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -242,19 +244,18 @@ class TimingRecoveryBlock(Block):
             raise ValueError(f"output {output!r}")
         self.nsb = nsb = decimation
         self.nshb = nshb = decimation // 2
-        self.nsqb = decimation // 4
         wing = int(nsb * 0.25)          # earlylate_ratio = 0.25 (:1971)
-        self.gardner = algorithm.upper() == GARDNER
-        self.err_sign = -1.0 if self.gardner else 1.0
+        gardner = algorithm.upper() == GARDNER
         self.margin = 4 * nsb
-        self.loop_gain, self.max_error, self.use_q = loop_gain, max_error, use_q
         self.output, self.segments, self.warm = output, segments, warmup_symbols
         # picks relative to bitstart, (right, left, mid); the symbol is
         # left for Gardner, mid for early-late (reference :2006-2031)
-        if self.gardner:
-            self.offs, self.out_slot = (nshb * 3, nshb, nshb * 2), 1
+        if gardner:
+            offs, self.out_slot = (nshb * 3, nshb, nshb * 2), 1
         else:
-            self.offs, self.out_slot = (wing * 3, wing, nshb), 2
+            offs, self.out_slot = (wing * 3, wing, nshb), 2
+        self.params = ted_cuda.TedParams(nsb, offs, gardner, use_q, max_error,
+                                         loop_gain)
 
     def init(self, device="cuda", channels: int | None = None):
         """Zero history for one stream, or for ``channels`` rows."""
@@ -277,51 +278,12 @@ class TimingRecoveryBlock(Block):
     def _scan(self, planes, size, bitstart, corr, cap, span_hi=None,
               emit_lo=None):
         """``cap`` symbol slots for every row of ``bitstart`` (R, ...) over
-        the buffer ``planes`` (R, 2*size), interleaved re/im.  Returns the
-        final (bitstart, corr) and the per-slot (v (..., cap, 3, 2),
-        raw error, bitstart at the slot, emit)."""
-        nsb, nshb, nsqb = self.nsb, self.nshb, self.nsqb
-        dev = planes.device
-        lead = bitstart.shape
-        rows = lead[0]
-        offs = torch.tensor(self.offs, dtype=torch.int32, device=dev)
-        sel = torch.tensor((0, 1, 0), dtype=torch.int32, device=dev)
-        reim = torch.arange(2, dtype=torch.int64, device=dev)
-        gain = nshb * self.err_sign
-        alive = torch.ones(lead, dtype=torch.bool, device=dev)
-        vs, errs, starts, emits = [], [], [], []
-        for _ in range(cap):
-            alive = alive & (bitstart + nshb * 3 < size)
-            if span_hi is not None:
-                alive = alive & (bitstart < span_hi)
-            # correction reset (reference :2000-2004)
-            corr = torch.where((corr <= -nsqb * 0.9) | (corr >= 0.9 * nsqb),
-                               0, corr)
-            gi = bitstart[..., None] + offs
-            if not self.gardner:
-                gi = gi - corr[..., None] * sel
-            gi = torch.clamp(gi, 0, size - 1)
-            at = (gi.to(torch.int64)[..., None] * 2 + reim).reshape(rows, -1)
-            v = torch.gather(planes, 1, at).reshape(lead + (3, 2))
-            diff = v[..., 0, :] - v[..., 1, :]
-            if self.use_q:      # (d_re + d_im) / 2, d_re's product fused
-                error = fma_f32(diff[..., 0], v[..., 2, 0],
-                                 diff[..., 1] * v[..., 2, 1]) / 2
-            else:
-                error = diff[..., 0] * v[..., 2, 0]
-            raw_error = error
-            error = torch.clamp(error, -self.max_error, self.max_error)
-            # err_sign * error * loop_gain, left to right, truncated
-            new_corr = (gain * error * self.loop_gain).to(torch.int32)
-            vs.append(v)
-            errs.append(raw_error)
-            starts.append(bitstart)
-            emits.append(alive if emit_lo is None
-                         else alive & (bitstart >= emit_lo))
-            bitstart = torch.where(alive, bitstart + nsb + new_corr, bitstart)
-            corr = torch.where(alive, new_corr, corr)
-        return (bitstart, corr, torch.stack(vs, -3), torch.stack(errs, -1),
-                torch.stack(starts, -1), torch.stack(emits, -1))
+        the buffer ``planes`` (R, 2*size), interleaved re/im, in one launch
+        of the TED kernel (``kernels/ted_cuda.scan``).  Returns the final
+        (bitstart, corr) and the per-slot (v (..., cap, 3, 2), raw error,
+        bitstart at the slot, emit)."""
+        return ted_cuda.scan(planes, size, bitstart, corr, cap, span_hi,
+                             emit_lo, params=self.params)
 
     def _pick_output(self, v, errs, starts, emits, s0):
         """The requested output of every slot, zero where not emitted."""

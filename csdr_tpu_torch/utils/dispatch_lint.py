@@ -15,8 +15,8 @@ ctypes, which bypass it.  The card's cliffs are in that sequence (PERF.md
 - ``python-loop``: a ``lax.scan`` that became a Python loop of small
   launches.  :func:`lint_lengths` lints one step at two chunk lengths and
   flags it when the launching ops grow with the length by more than
-  ``LOOP_GROWTH_OPS`` (the modem's TED, ``ops/sync.py:293``: 9 929
-  launches a chunk).
+  ``LOOP_GROWTH_OPS`` (the Costas loop, ``ops/sync.bpsk_costas_loop_cc``:
+  ~20 launches a sample).
 - ``launch-bound``: more than ``LAUNCH_BOUND_OPS`` launching ops in one
   call, each one ~11.5-22 us of host issue time on the card (PERF.md
   §5), so the step waits on the host (one launch a tap:
@@ -79,10 +79,6 @@ KNOWN_CLIFFS = {
             "the chunked AGC (ops/agc.agc_ff_chunked): a host sync a "
             "relaxation round to stop it, ~2 810 launches a chunk",
             "ROADMAP §1 item 2b"),
-    "ted": (("python-loop", "launch-bound"),
-            "the modem's timing recovery (ops/sync.TimingRecoveryBlock._scan)"
-            ": a Python loop of ~43 launches a symbol, 9 929 a chunk",
-            "ROADMAP §1 item 2a"),
     "per-tap-fir": (("launch-bound",),
                     "a real-input FIR as one launch a tap "
                     "(kernels/fir_cuda.strided_corr): the de-emphasis "
@@ -199,6 +195,7 @@ PLAIN_VERSIONS = {
     "adpcm_cuda": {"encode_plain": "adpcm_encode",
                    "decode_plain": "adpcm_decode"},
     "probe_cuda": {"fma_chain_plain": "fma_chain"},
+    "ted_cuda": {"scan_plain": "ted_scan"},
 }
 
 

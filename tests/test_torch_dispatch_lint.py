@@ -10,14 +10,13 @@ its reason and the ROADMAP item that queues its repair:
 
 - ``agc``: the chunked AGC syncs the host once a relaxation round and
   issues ~1 500-2 800 ops a chunk (ROADMAP §1 item 2b);
-- ``ted``: the modem's timing recovery is a Python loop of ~43 ops a
-  symbol (ROADMAP §1 item 2a);
 - ``per-tap-fir``: a real-input FIR launches once a tap (de-emphasis,
   the fractional decimator's prefilter; ROADMAP §1 item 2c).
 
 An entry is also required to show, so a repaired cliff leaves its list.
-The lint has teeth: the TED is flagged ``python-loop`` and a planted
-``.item()`` ``host-sync``.  On the CPU a kernel wrapper's plain version
+The lint has teeth: the Costas loop is flagged ``python-loop`` and a
+planted ``.item()`` ``host-sync``; the modem's timing recovery, once a
+Python loop of ~43 ops a symbol, is one TED kernel launch a call.  On the CPU a kernel wrapper's plain version
 counts as the one launch the card makes (``_plain_as_launches``).
 """
 
@@ -29,7 +28,7 @@ import pytest
 import torch
 
 from csdr_tpu_torch import Pipeline, firdes
-from csdr_tpu_torch.kernels import fir_cuda
+from csdr_tpu_torch.kernels import fir_cuda, ted_cuda
 from csdr_tpu_torch.models import multichannel, receivers, wfm
 from csdr_tpu_torch.ops import adpcm, fastddc as fd, fftfilt, spectrum, sync
 from csdr_tpu_torch.utils import dispatch_lint as dl
@@ -134,7 +133,7 @@ PIPELINES = {
                                            lambda n: _ints(n, -3000, 3000,
                                                            np.int16)),
                             (127, 254), (), None),
-    "ddc_bpsk31_bank": (_bank, (24, 48), ("ted",), "G"),
+    "ddc_bpsk31_bank": (_bank, (24, 48), (), "G"),
     "ddcd_server": (_server, (8, 8), (), "S"),
 }
 
@@ -171,13 +170,40 @@ def test_known_cliffs_name_their_roadmap_items():
 
 
 def test_timing_recovery_is_flagged_python_loop():
-    """Teeth: the TED's Python loop over symbol slots grows with the
-    chunk."""
-    tr = sync.timing_recovery_block("GARDNER", 16)
+    """Teeth, named for the loop it first caught (the timing recovery, now
+    one kernel launch: test_ted_step_is_one_kernel_launch): a Python loop
+    the port still has, the Costas loop's over the samples (ROADMAP §1
+    item 2f), grows with the chunk."""
+    params = sync.costas_loop_params(0.01)
     found, counts = dl.lint_lengths(
-        tr, lambda n: (tr.init("cpu"), _noise(n)), (512, 1024))
+        lambda x: sync.bpsk_costas_loop_cc(x, *params)[0],
+        lambda n: (_noise(n),), (64, 128))
     assert any(f.kind == "python-loop" for f in found), counts
-    assert counts[1024]["launching"] > counts[512]["launching"] + 32
+    assert counts[128]["launching"] > counts[64]["launching"] + 32
+
+
+@pytest.mark.parametrize("segments", [1, 4])
+def test_ted_step_is_one_kernel_launch(segments):
+    """A timing recovery step, serial or segmented, is one launch of the
+    TED kernel (its plain version standing in for it on the CPU) and ops
+    around it as many at twice the chunk: no loop over the slots.  The
+    serial step (the bank's) is a few ops; the segmented mode's seam dedup
+    and pack (a scatter a segment) make it launch-bound."""
+    tr = sync.timing_recovery_block("GARDNER", 16, segments=segments,
+                                    warmup_symbols=4)
+    found, counts = dl.lint_lengths(
+        tr, lambda n: (tr.init("cpu", channels=3), torch.stack(
+            [_noise(n, s) for s in range(3)])), (1024, 2048))
+    assert [f.kind for f in found] == ([] if segments == 1
+                                       else ["launch-bound"]), counts
+    assert counts[1024]["launching"] == counts[2048]["launching"], counts
+    for c in counts.values():
+        assert c["kernel_launches"] == {"ted_scan": 1}, counts
+        if segments == 1:
+            assert c["launching"] < dl.LAUNCH_BOUND_OPS // 2, counts
+    trace, _ = dl.trace_fn(tr, tr.init("cpu"), _noise(512))
+    assert dict(trace.kernel_launches) == {"ted_scan": 1}
+    assert ted_cuda.scan_plain.__module__ == ted_cuda.__name__
 
 
 def test_item_in_a_step_is_flagged_host_sync():

@@ -1,6 +1,7 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
-kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec and the
-FP32 ceiling's fma-chain probe) against
+kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec, the
+timing recovery's symbol loop and the FP32 ceiling's fma-chain probe)
+against
 float64 numpy (the codec against the standard's integer steps in Python),
 and on the card against their plain versions.
 
@@ -18,7 +19,7 @@ import torch
 
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.kernels import (_build, adpcm_cuda, fastddc_cuda,
-                                    fft_cuda, fir_cuda, probe_cuda)
+                                    fft_cuda, fir_cuda, probe_cuda, ted_cuda)
 
 torch.set_num_threads(2)
 
@@ -1419,3 +1420,219 @@ def test_cuda_adpcm_decoder_scans_a_long_saturating_row(cuda):
     assert torch.equal(dk, ds) and torch.equal(tk, ts)
     assert tk[0].tolist() == [32767, 88]
     assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
+
+
+# ---------------------------------------------------------------------------
+# the timing recovery's symbol loop (csrc/ted.cu)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def _ted_params(nsb, gardner=True, use_q=True):
+    wing = nsb // 4
+    offs = (3 * nsb // 2, nsb // 2, nsb) if gardner else (3 * wing, wing,
+                                                         nsb // 2)
+    return ted_cuda.TedParams(nsb, offs, gardner, use_q, 2.0, 0.5)
+
+
+def _ted_case(rows, n, nsb, segs=1, warm=8, seed=0, nan_row=None):
+    """A chunk of ``n`` samples a row behind a 4*nsb tail as the block
+    buffers it: BPSK at nsb samples a symbol (random bits, a Hann pulse,
+    a Q part, noise, the rows at different gains), each row's valid
+    region from a random s0, a random carried corr; with ``segs`` > 1 the
+    segmented mode's lanes as TimingRecoveryBlock._segmented lays them
+    out.  Returns (planes, size, bitstart, corr, cap, span_hi, emit_lo) as
+    CPU tensors."""
+    rng = np.random.default_rng(seed)
+    margin = 4 * nsb
+    size = margin + n
+    bits = rng.integers(0, 2, (rows, size // nsb + 2)) * 2.0 - 1.0
+    pulse = np.hanning(nsb)
+    base = np.stack([np.convolve(np.repeat(b, nsb), pulse, "same")[:size]
+                     for b in bits])
+    gain = rng.uniform(0.2, 3.0, (rows, 1))
+    x = gain * (base + 0.2j * base) + 0.05 * (
+        rng.standard_normal((rows, size))
+        + 1j * rng.standard_normal((rows, size)))
+    x = x.astype(np.complex64)
+    if nan_row is not None:
+        x[nan_row, size // 3] = np.nan
+    planes = torch.view_as_real(torch.from_numpy(x)).reshape(rows, 2 * size)
+    s0 = rng.integers(0, margin + 1, rows).astype(np.int32)
+    corr0 = rng.integers(-nsb // 8, nsb // 8 + 1, rows).astype(np.int32)
+    if segs == 1:
+        return (planes, size, torch.from_numpy(s0), torch.from_numpy(corr0),
+                (n + margin) // nsb + 2, None, None)
+    span = (size - s0) // segs
+    s_idx = np.arange(segs)
+    emit_lo = (s0[:, None] + s_idx * span[:, None]).astype(np.int32)
+    span_hi = np.where(s_idx == segs - 1, INT32_MAX,
+                       emit_lo + span[:, None] + nsb).astype(np.int32)
+    bs0 = np.maximum(emit_lo - warm * nsb, s0[:, None]).astype(np.int32)
+    corr = np.where(s_idx == 0, corr0[:, None], 0).astype(np.int32)
+    return (planes, size, torch.from_numpy(bs0), torch.from_numpy(corr),
+            (n + margin) // (segs * nsb) + warm + 4,
+            torch.from_numpy(span_hi), torch.from_numpy(emit_lo))
+
+
+def _f32_fma(a, b, c):
+    """fmaf: a*b + c rounded once to float32 (exact rationals, nearest,
+    ties to even)."""
+    from fractions import Fraction
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(exact))
+    cands = [near, np.nextafter(near, np.float32(np.inf)),
+             np.nextafter(near, np.float32(-np.inf))]
+    dist = [abs(Fraction(float(v)) - exact) for v in cands]
+    best = min(dist)
+    ties = [v for v, d in zip(cands, dist) if d == best]
+    return min(ties, key=lambda v: int(np.float32(v).view(np.uint32)) & 1)
+
+
+def _ted_lane(row, size, bs, corr, cap, hi, lo, p):
+    """One lane as csrc/ted.cu's thread runs it, in numpy float32 scalars:
+    the reset compared in float32, the picks, the error (an exact fmaf),
+    the clamp, the gain left to right, the truncation."""
+    f32 = np.float32
+    reset = f32(0.9 * p.nsqb)
+    gain, lg, me = f32(p.nshb * p.err_sign), f32(p.loop_gain), \
+        f32(p.max_error)
+    alive, out = True, []
+    for _ in range(cap):
+        alive = alive and bs + 3 * p.nshb < size and bs < hi
+        if f32(corr) <= -reset or f32(corr) >= reset:
+            corr = 0
+        g = [bs + p.offs[0], bs + p.offs[1] - (0 if p.gardner else corr),
+             bs + p.offs[2]]
+        v = [row[min(max(i, 0), size - 1)] for i in g]
+        dre = f32(v[0].real) - f32(v[1].real)
+        if p.use_q:
+            dim = f32(v[0].imag) - f32(v[1].imag)
+            err = _f32_fma(dre, f32(v[2].real), dim * f32(v[2].imag)) \
+                * f32(0.5)
+        else:
+            err = dre * f32(v[2].real)
+        e = min(max(err, -me), me)
+        new = int(np.trunc(gain * e * lg))
+        out.append((v, err, bs, alive and bs >= lo))
+        if alive:
+            bs, corr = bs + p.nsb + new, new
+    return bs, corr, out
+
+
+@pytest.mark.parametrize("gardner,use_q,segs", [
+    (True, True, 1), (False, False, 1), (True, True, 3), (False, True, 3)])
+def test_ted_lane_schedule_equals_plain_bit_for_bit(gardner, use_q, segs):
+    """The kernel's per-lane arithmetic (``_ted_lane``) against the plain
+    loop ``ted_cuda.scan`` runs on the CPU: every pick, raw error, start,
+    emit and the final state, serial and segmented, both algorithms."""
+    planes, size, bs, corr, cap, hi, lo = _ted_case(2, 640, 16, segs,
+                                                    warm=4, seed=3)
+    p = _ted_params(16, gardner, use_q)
+    n0 = dict(ted_cuda.LAUNCHES)
+    got = ted_cuda.scan(planes, size, bs, corr, cap, hi, lo, params=p)
+    assert ted_cuda.LAUNCHES == n0        # the CPU runs the plain loop
+    x = torch.view_as_complex(planes.reshape(2, size, 2)).numpy()
+    flat = [t.reshape(-1) if t is not None else None
+            for t in (bs, corr, hi, lo)]
+    lanes = flat[0].numel()
+    v = got[2].reshape(lanes, cap, 3, 2)
+    err, start, emit = (t.reshape(lanes, cap) for t in got[3:])
+    for k in range(lanes):
+        b_k, c_k, out = _ted_lane(
+            x[k // segs], size, int(flat[0][k]), int(flat[1][k]), cap,
+            INT32_MAX if hi is None else int(flat[2][k]),
+            -INT32_MAX - 1 if lo is None else int(flat[3][k]), p)
+        assert (b_k, c_k) == (int(got[0].reshape(-1)[k]),
+                              int(got[1].reshape(-1)[k])), k
+        for j, (vv, e, s, m) in enumerate(out):
+            want = np.array([[a.real, a.imag] for a in vv], np.float32)
+            assert np.array_equal(v[k, j].numpy(), want), (k, j)
+            assert np.float32(err[k, j]).view(np.uint32) == np.float32(
+                e).view(np.uint32), (k, j)
+            assert int(start[k, j]) == s and bool(emit[k, j]) == m, (k, j)
+
+
+def test_ted_scan_checks_its_arguments():
+    planes, size, bs, corr, cap, hi, lo = _ted_case(2, 256, 16, 2)
+    p = _ted_params(16)
+    with pytest.raises(TypeError, match="int32"):
+        ted_cuda.scan(planes, size, bs.long(), corr, cap, hi, lo, params=p)
+    with pytest.raises(TypeError, match="planes"):
+        ted_cuda.scan(planes.double(), size, bs, corr, cap, hi, lo, params=p)
+    with pytest.raises(TypeError, match="go together"):
+        ted_cuda.scan(planes, size, bs, corr, cap, hi, None, params=p)
+    with pytest.raises(TypeError, match="rows"):
+        ted_cuda.scan(planes[:1], size, bs, corr, cap, hi, lo, params=p)
+
+
+def test_ted_chain_probe_runs_on_the_card_only():
+    with pytest.raises(ValueError, match="CUDA"):
+        ted_cuda.chain_cycles(16, device="cpu")
+
+
+# G's shape (64 rows of 58 368 samples, sps 256: 230 slots), a segmented
+# shape (64 x 4 lanes), early-late with the error from I alone, and a NaN
+TED_CUDA_CASES = (
+    dict(rows=64, n=57_344, nsb=256, segs=1, gardner=True, use_q=True),
+    dict(rows=64, n=57_344, nsb=256, segs=4, gardner=True, use_q=True),
+    dict(rows=16, n=8_192, nsb=64, segs=1, gardner=False, use_q=False),
+    dict(rows=16, n=8_192, nsb=64, segs=3, gardner=False, use_q=True,
+         nan_row=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TED_CUDA_CASES)
+def test_cuda_ted_scan_matches_plain(cuda, case):
+    """ted_cuda.scan (one launch) against scan_plain on the card, bit for
+    bit: the final state and every slot's picks, raw error, start and
+    emit."""
+    case = dict(case)
+    p = _ted_params(case.pop("nsb"), case.pop("gardner"), case.pop("use_q"))
+    planes, size, bs, corr, cap, hi, lo = (
+        t.to(cuda) if isinstance(t, torch.Tensor) else t
+        for t in _ted_case(case["rows"], case["n"], p.nsb, case["segs"],
+                           nan_row=case.get("nan_row")))
+    n0 = ted_cuda.LAUNCHES["ted_scan"]
+    got = ted_cuda.scan(planes, size, bs, corr, cap, hi, lo, params=p)
+    assert ted_cuda.LAUNCHES["ted_scan"] == n0 + 1
+    want = ted_cuda.scan_plain(planes, size, bs, corr, cap, hi, lo,
+                               params=p)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    assert bool(got[5].any())
+
+
+@pytest.mark.cuda
+def test_cuda_ted_block_step_is_one_launch(cuda):
+    """The bank's TED block on the card: one launch a call, the CPU's
+    symbols and state bit for bit."""
+    from csdr_tpu_torch.ops import sync
+    tr = sync.timing_recovery_block("GARDNER", 64, use_q=True)
+    planes, size, *_ = _ted_case(8, 4096, 64, seed=9)
+    x = torch.view_as_complex(planes.reshape(8, size, 2))[:, 256:]
+    x = x.contiguous()
+    n0 = ted_cuda.LAUNCHES["ted_scan"]
+    sk, yk = tr(tr.init(cuda, channels=8), x.to(cuda))
+    assert ted_cuda.LAUNCHES["ted_scan"] == n0 + 1
+    sc, yc = tr(tr.init("cpu", channels=8), x)
+    assert torch.equal(yk.count.cpu(), yc.count)
+    assert torch.equal(yk.data.cpu(), yc.data)
+    for a, b in zip(sk, sc):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_ted_chain_probe_times_its_chain(cuda):
+    """The probe's slot chain takes the same cycles a slot at two lengths
+    within 5 %, more than a shared-memory load alone (~30 cycles); no TED
+    launch counted."""
+    n0 = dict(ted_cuda.LAUNCHES)
+    a, b = (ted_cuda.chain_cycles(n) for n in (1 << 12, 1 << 14))
+    assert a > 30.0 and abs(a - b) < 0.05 * b
+    assert ted_cuda.LAUNCHES == n0

@@ -230,3 +230,36 @@ def test_bank_costas_recovers_carrier_offset(use_costas):
         rates, decim, SPS, True, 2 * np.pi / 100, 1, 1, "cpu"),
         jstates[0], "cpu")
     np.testing.assert_array_equal(resumed[4].numpy(), jstates[0][6])
+
+
+def test_bank_modem_subchunked_on_csdr_tpu_streams_bit_exact():
+    """The bank's shape, 4 channels and tr_subchunks=2: the port's modem
+    (two TED calls a chunk, each one launch of the TED kernel on the card)
+    on csdr_tpu's own channel streams gives csdr_tpu's bank's bits and
+    counts bit for bit, over two chunks with the state carried."""
+    from csdr_tpu.ops import fastddc as jfd
+    from csdr_tpu.parallel import sharded_ddc as jsd
+
+    decim, kw = 16, dict(tr_subchunks=2)
+    rates = [-f for f in CENTERS]
+    _, chunks = _wideband(decim, TEXTS, CENTERS, 2, seed=17)
+    jouts, _ = _run_jax(chunks, decim, bank_kw=kw)
+    ddc_step, _ = jsd.build_ddc_bank_step(_mesh(),
+                                          jfd.fastddc_init(0.05, decim),
+                                          rates)
+    ddc_step = jax.jit(ddc_step)
+    init, _, meta = tmc.build_ddc_bpsk31_bank(rates, decim, SPS,
+                                              device="cpu", **kw)
+    bank, st = meta["bank"], init(len(chunks[0]))
+    assert bank.tr_subchunks == 2
+    for x, jo in zip(chunks, jouts):
+        y = ddc_step(CF(jnp.asarray(x.real.copy()), jnp.asarray(
+            x.imag.copy())))
+        y = torch.from_numpy(np.asarray(y.re) + 1j * np.asarray(y.im))
+        assert y.shape[-1] % 2 == 0
+        with torch.no_grad():
+            st, (bits, counts) = bank.modem(st, y.to(torch.complex64))
+        for c in range(len(rates)):
+            assert int(counts[c]) == len(jo[c]) > 50, c
+            np.testing.assert_array_equal(bits[c, :counts[c]].numpy(),
+                                          jo[c])

@@ -3,8 +3,10 @@ csdr_tpu on the same numpy inputs.
 
 The timing recovery loop (TED) has no transcendental: its symbols, errors,
 indexes, counts and carried (tail, occ, corr) must be csdr_tpu's bit for
-bit, serial and segmented, GARDNER and EARLYLATE, streamed at two chunk
-sizes and resumed from a csdr_tpu state.  The Costas loop and the PLL
+bit, serial and segmented, GARDNER and EARLYLATE, with the error from I and
+Q or from I alone, streamed at two chunk sizes and resumed from a csdr_tpu
+state.  On the CPU the TED kernel's wrapper (kernels/ted_cuda.scan) runs
+its plain version, the loop these tests hold.  The Costas loop and the PLL
 evaluate sin/cos/atan2 inside their feedback, where torch and XLA differ
 in the last bits, so they are held to the bars of csdr_tpu's own tests
 (tests/test_digital.py: 32 dB over the first 256 Costas samples and 28 dB
@@ -81,8 +83,9 @@ def _stream_both(jblk, tblk, x, chunk, sj=None, st=None):
     return sj, st, total
 
 
-def _blocks(alg, segments, output="symbols", decim=DECIM, warm=8):
-    kw = dict(use_q=True, output=output, segments=segments,
+def _blocks(alg, segments, output="symbols", decim=DECIM, warm=8,
+            use_q=True):
+    kw = dict(use_q=use_q, output=output, segments=segments,
               warmup_symbols=warm)
     return (jsync.timing_recovery_block(alg, decim, **kw),
             tsync.timing_recovery_block(alg, decim, **kw))
@@ -90,21 +93,28 @@ def _blocks(alg, segments, output="symbols", decim=DECIM, warm=8):
 
 X_TED = _bpsk(5, 400)              # 6400 samples
 
+# (algorithm, use_q): the error from I and Q averaged (the bank's), or from
+# I alone (the block's default, as the reference's CLI runs it)
+ALGS = [pytest.param(("GARDNER", True), id="GARDNER"),
+        pytest.param(("EARLYLATE", True), id="EARLYLATE"),
+        pytest.param(("GARDNER", False), id="GARDNER-i_only"),
+        pytest.param(("EARLYLATE", False), id="EARLYLATE-i_only")]
+
 
 @pytest.mark.parametrize("chunk", [1600, 3200])
 @pytest.mark.parametrize("segments", [1, 4])
-@pytest.mark.parametrize("alg", ["GARDNER", "EARLYLATE"])
+@pytest.mark.parametrize("alg", ALGS)
 def test_ted_symbols_bit_exact_streamed(alg, segments, chunk):
-    jblk, tblk = _blocks(alg, segments)
+    jblk, tblk = _blocks(alg[0], segments, use_q=alg[1])
     _, _, total = _stream_both(jblk, tblk, X_TED, chunk)
     assert total > 350
 
 
 @pytest.mark.parametrize("output", ["error", "indexes"])
 @pytest.mark.parametrize("segments", [1, 4])
-@pytest.mark.parametrize("alg", ["GARDNER", "EARLYLATE"])
+@pytest.mark.parametrize("alg", ALGS)
 def test_ted_error_and_indexes_bit_exact(alg, segments, output):
-    jblk, tblk = _blocks(alg, segments, output)
+    jblk, tblk = _blocks(alg[0], segments, output, use_q=alg[1])
     _stream_both(jblk, tblk, X_TED, 1600)
 
 
