@@ -69,13 +69,25 @@ prints one JSON line per phase and exits non-zero at the first failure:
       10 s of an NFM 1 kHz tone: K2 once per chunk, the tone, card equals
       CPU on 4 chunks (the fastagc lookahead fills the first 2);
    E  ssb_receiver(0.0, 0.1, 0.05, decimation=50), the full chain with its
-      AGC, on path C's input: launches and tone as C, the AGC's output
-      level for an input 40 dB quieter within 3 dB, card equals CPU on 2
-      chunks from the AGC's start-up on (SSB_SETTLE);
-   F  am_receiver() over 10 s of a 1 kHz tone at depth 0.5: K2 once per
-      chunk, the tone, card equals CPU on 2 chunks;
-   then the AGC's launches and host syncs per chunk (torch.profiler).
-8. throughput of D, E and F as for C.
+      AGC, on path C's input: launches as C and the AGC kernel once per
+      chunk, the tone, the AGC's output level for an input 40 dB quieter
+      within 3 dB, card equals CPU on 2 chunks from the AGC's start-up on
+      (SSB_SETTLE);
+   F  am_receiver() over 10 s of a 1 kHz tone at depth 0.5: K2 and the AGC
+      kernel once per chunk, the tone, card equals CPU on 2 chunks;
+   then one AGC step's launches, host syncs and scalar uploads
+   (torch.profiler and utils/dispatch_lint: one kernel launch, no sync,
+   no upload).
+8. throughput of D, E and F as for C.  Then the chunked AGC's kernel
+   (csrc/agc.cu, both relaxation loops in one cooperative launch) against
+   relax_plain on the card, bit for bit (y, gain, hang, converged): E's
+   and F's second audio chunk continuing from their first's state,
+   _agc_signal from the stream's start (a padded chunk that never
+   settles), the zero run at max_gain 100, n = 1, 5 x 8192 and 5 x 8192
+   + 1, and 2 rows more than the card holds blocks at once; each with
+   the rounds it ran, its time, the plain version's and its bound (the
+   scans on the chain x the probe's scan of an 8192-sample row in SM
+   cycles, csdr_agc_scan_probe), E's also by time_kernel.
 9. path G/G', BASELINE config 5 whole through
    models/multichannel.build_ddc_bpsk31_bank (64 channels, sps 256): 8
    channels tuned to 8 BPSK31 transmissions 0.1 apart, 56 at rates drawn
@@ -271,7 +283,7 @@ PROBE_SOURCE = "csdr_tpu_torch/csrc/roofline_probe.cu"
 # KNOWN_CLIFFS; tests/test_torch_dispatch_lint.py holds the same lists for
 # the same pipelines on the CPU)
 LINT_ALLOW = {"WFM": ("per-tap-fir",), "A": (), "B": (), "C": (),
-              "D": ("per-tap-fir",), "E": ("agc",), "F": ("agc",),
+              "D": ("per-tap-fir",), "E": (), "F": (),
               "G": (), "G'": (), "S": (), "W": (),
               "W1": ("per-tap-fir",)}
 # the measure phase's state: its seconds (summed over its parts, which
@@ -814,7 +826,11 @@ def phase_kernels(torch):
         {"kernel": "timing recovery symbol loop (TED)", "status": "ported",
          "counterpart_of": "lax.scan in csdr_tpu/ops/sync.py:374, 397 (no "
                            "Pallas kernel)",
-         "wrapper": "csdr_tpu_torch.kernels.ted_cuda.scan"}])
+         "wrapper": "csdr_tpu_torch.kernels.ted_cuda.scan"},
+        {"kernel": "chunked AGC relaxation", "status": "ported",
+         "counterpart_of": "while_loop in csdr_tpu/ops/agc.py:385, 437 (no "
+                           "Pallas kernel)",
+         "wrapper": "csdr_tpu_torch.kernels.agc_cuda.relax"}])
     return cases, headline
 
 
@@ -1110,17 +1126,18 @@ def phase_throughput(torch, x, wall, chunks):
 # ---------------------------------------------------------------------------
 
 def reset_all() -> None:
-    from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
-                                        fir_cuda, ted_cuda)
-    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda, ted_cuda):
+    from csdr_tpu_torch.kernels import (adpcm_cuda, agc_cuda, fastddc_cuda,
+                                        fft_cuda, fir_cuda, ted_cuda)
+    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda, ted_cuda,
+                agc_cuda):
         mod.reset_launches()
 
 
 def launches_all() -> dict:
-    from csdr_tpu_torch.kernels import (adpcm_cuda, fastddc_cuda, fft_cuda,
-                                        fir_cuda, ted_cuda)
+    from csdr_tpu_torch.kernels import (adpcm_cuda, agc_cuda, fastddc_cuda,
+                                        fft_cuda, fir_cuda, ted_cuda)
     return {**fir_cuda.LAUNCHES, **fft_cuda.LAUNCHES, **fastddc_cuda.LAUNCHES,
-            **adpcm_cuda.LAUNCHES, **ted_cuda.LAUNCHES}
+            **adpcm_cuda.LAUNCHES, **ted_cuda.LAUNCHES, **agc_cuda.LAUNCHES}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
@@ -1607,8 +1624,8 @@ def phase_receiver_paths(torch):
     s = np.arange(CHUNKS_C * CHUNK_C, dtype=np.float64)
     x = np.exp(2j * np.pi * np.mod(0.0005 * s, 1.0)).astype(np.complex64)
     audio, launches, wall, snr, cpu = receiver_path(
-        torch, "E", ssb, x, CHUNK_C, ("fir_decimate", "fft_ko", "ifft_ko"),
-        2, SSB_SETTLE)
+        torch, "E", ssb, x, CHUNK_C, ("fir_decimate", "fft_ko", "ifft_ko",
+                                      "agc_relax"), 2, SSB_SETTLE)
     peak = abs(peak_cycles(audio[2000:]))
     require(abs(peak - 0.0005 * 50) < 0.002, f"path E: tone at {peak}")
     whole = snr_db(cpu, audio[: len(cpu)])
@@ -1632,7 +1649,8 @@ def phase_receiver_paths(torch):
     t = np.arange(SECONDS * FS) / FS
     x = (1.0 + 0.5 * np.sin(2 * np.pi * 1000.0 * t)).astype(np.complex64)
     audio, launches, wall, snr, _ = receiver_path(
-        torch, "F", receivers.am_receiver, x, CHUNK, ("fir_decimate",), 2)
+        torch, "F", receivers.am_receiver, x, CHUNK,
+        ("fir_decimate", "agc_relax"), 2)
     hz = tone_hz(audio)
     require(abs(hz - 1000.0) < 5.0, f"path F: tone at {hz} Hz, not 1 kHz")
     emit("path", path="F", pipeline="am_receiver()", chunks=len(x) // CHUNK,
@@ -1643,9 +1661,13 @@ def phase_receiver_paths(torch):
 
 
 def agc_cost(torch, x_chunk):
-    """Launches, host syncs and time of one agc_block (chunked) step on a
-    chunk of SSB audio on the card, from torch.profiler's events."""
+    """Launches, host syncs, scalar uploads and time of one agc_block
+    (chunked) step on a chunk of SSB audio on the card: torch.profiler's
+    launch calls and syncs, and utils/dispatch_lint's launching ops, kernel
+    launches and uploads.  The step must be one AGC kernel launch with no
+    host sync and no upload."""
     from csdr_tpu_torch.ops import agc
+    from csdr_tpu_torch.utils import dispatch_lint
     from csdr_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda")
@@ -1653,8 +1675,21 @@ def agc_cost(torch, x_chunk):
     a = torch.from_numpy(x_chunk).to(dev)
     state, _ = blk(blk.init(dev), a)        # a continuing chunk
     prof = profile_call(torch, lambda: blk(state, a))
+    # teeth: a planted read of a card value counts one card sync
+    planted = profile_call(torch, lambda: float(a.sum()))["card_syncs"]
+    require(planted == 1, f"profile_call: a planted .item() on the card "
+                          f"counts {planted} card syncs, not 1")
+    trace, _ = dispatch_lint.trace_fn(blk, state, a)
+    lint = {"lint_launching": trace.launching,
+            "lint_kernel_launches": dict(trace.kernel_launches),
+            "lint_host_syncs": len(trace.syncs),
+            "lint_scalar_uploads": len(trace.uploads)}
+    require(lint["lint_kernel_launches"] == {"agc_relax": 1}
+            and not trace.syncs and not trace.uploads
+            and prof["card_syncs"] == 0 and prof["cuda_launch_calls"] == 1,
+            f"agc step: not one kernel launch without syncs: {lint} {prof}")
     ms = time_cuda(lambda: blk(state, a), iters=5, warmup=1, repeats=3)
-    return {"samples": len(x_chunk), "ms": ms, **prof}
+    return {"samples": len(x_chunk), "ms": ms, **prof, **lint}
 
 
 def phase_receiver_throughput(torch, paths):
@@ -1671,14 +1706,162 @@ def phase_receiver_throughput(torch, paths):
         tp = throughput(torch, make().to(dev), xs)
         emit("throughput", path=key, pipeline=label, **tp,
              run_offline_msps=(len(x) // chunk) * chunk / wall / 1e6,
-             note=TP_NOTE + ("; E and F sync the host once per AGC outer "
-                             "round, so their device_ms holds the host's "
-                             "gaps" if key in "EF" else ""))
+             note=TP_NOTE)
     _, make, x, chunk, _ = paths["E"]
-    pre = run_offline(_ssb_pre(make), x[:2 * chunk], block_size=chunk)
+    pre = run_offline(_pre_agc(make), x[:2 * chunk], block_size=chunk)
     emit("agc_cost", path="E", **agc_cost(torch, pre[chunk // 50:]),
          note="one agc_block (chunked) step on path E's second chunk of "
-              "audio; cuda_launch_calls and host_syncs from torch.profiler")
+              "audio; cuda_launch_calls, host_syncs (reads of the block's "
+              "CPU 'started' flag included) and card_syncs from "
+              "torch.profiler, lint_* from utils/dispatch_lint")
+
+
+# ---------------------------------------------------------------------------
+# the chunked AGC's relaxation kernel (csrc/agc.cu), at E's and F's shapes
+# ---------------------------------------------------------------------------
+
+AGC_SOURCE = "csdr_tpu_torch/csrc/agc.cu"
+AGC_CHUNK = 8192           # agc_block's and the CLI's chunk: a kernel row
+AGC_PROBE_SCANS = 100      # affine scans of each probe run
+AGC_FLOPS = 42             # float ops a sample a scan: ~13 steps of 3, 3 more
+
+
+def agc_signal(n: int = 50_000) -> np.ndarray:
+    """tests/test_agc.py's signal: a modulated tone with a zero run (the
+    attack, hang, decay and zero branches all run)."""
+    s = ((0.3 + 0.25 * np.sin(2 * np.pi * 0.0007 * np.arange(n)))
+         * np.sin(2 * np.pi * 0.043 * np.arange(n))).astype(np.float32)
+    s[10_000:10_100] = 0.0
+    return s
+
+
+def pre_agc_audio(torch, make, x: np.ndarray, chunk: int):
+    """The audio a receiver's AGC takes on its second chunk, and the AGC's
+    state (on the card) after its first."""
+    from csdr_tpu_torch import run_offline
+    from csdr_tpu_torch.ops import agc
+
+    pre = run_offline(_pre_agc(make), x[:2 * chunk], block_size=chunk)
+    per = chunk // 50
+    blk = agc.agc_block()
+    state, _ = blk(blk.init("cuda"), torch.from_numpy(pre[:per]).to("cuda"))
+    return pre[per:2 * per], {"started": True, "last_gain": state[0],
+                              "last_hang": state[1]}
+
+
+def agc_cases(torch, receivers) -> dict:
+    """name -> (input, relax's keywords): E's and F's second audio chunk
+    continuing from the state of their first, _agc_signal from the
+    stream's start (its padded 7th chunk never settles), the zero run at
+    max_gain 100 (tests/test_torch_agc.py), n = 1, 5 x 8192 and 5 x 8192 +
+    1, and E's audio over 2 rows more than the card holds blocks at once."""
+    from csdr_tpu_torch.kernels import agc_cuda
+
+    e, e_kw = pre_agc_audio(torch, *receivers["E"][1:4])
+    f, f_kw = pre_agc_audio(torch, *receivers["F"][1:4])
+    k = 5 * AGC_CHUNK
+    rows = agc_cuda.resident_rows(AGC_CHUNK) + 2
+    zero = np.concatenate([np.full(4096, 1e-6, np.float32),
+                           np.zeros(15_904, np.float32)])
+    return {
+        "E": (e, e_kw), "F": (f, f_kw),
+        "agc_signal_start": (agc_signal(), {}),
+        "zero_run_max_gain_100": (zero, {"max_gain": 100.0}),
+        "n1": (e[:1], e_kw),
+        "n5x8192": (e[:k], e_kw),
+        "n5x8192+1": (e[:k + 1], {}),
+        f"past_resident_{rows}_rows": (
+            np.tile(e, -(-rows * AGC_CHUNK // len(e)))[:rows * AGC_CHUNK - 100],
+            e_kw)}
+
+
+def agc_case(torch, name: str, x: np.ndarray, kw: dict,
+             scan_cycles: float) -> dict:
+    """agc_cuda.relax (one launch) against relax_plain on the card, bit for
+    bit (y, gain, hang, converged); the rounds it ran; its time (queued,
+    the device alone), the plain version's (one call) and its bound: the
+    scans on the chain (per outer round the most of any row) x the probe's
+    scan of a row at the top SM clock, or the bytes and flops if longer.  E's case, the kernel table's row,
+    also runs through roofline_row (time_kernel)."""
+    from csdr_tpu_torch.kernels import agc_cuda
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    a = torch.from_numpy(x).to("cuda")
+    *got, table = agc_cuda.relax(a, rounds=True, **kw)
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault("p", agc_cuda.relax_plain(
+        a, **kw)), iters=1, warmup=0, repeats=1)
+    torch.cuda.synchronize()
+    same = [same_bits(torch, g, w) for g, w in zip(got, box["p"])]
+    require(all(same), f"agc {name} ({len(x)} samples): kernel differs from "
+                       f"relax_plain (y, gain, hang, converged): {same}")
+    ms = time_cuda(lambda: agc_cuda.relax(a, **kw), iters=20,
+                   queue_ahead_ms=20.0)
+    rounds, settled = table.cpu().numpy()
+    outer = int((rounds[:, 0] > 0).sum())
+    require(1 <= outer and np.all(rounds[:outer] >= 1)
+            and np.all(rounds <= 14) and np.all(rounds[outer:] == 0),
+            f"agc {name}: rounds {rounds[:outer].tolist()}")
+    scans = rounds - settled
+    chain = int(scans.max(1).sum())
+    depth = int(np.log2(AGC_CHUNK))
+    nbytes = 8 * len(x) + 16
+    flops = AGC_FLOPS * AGC_CHUNK * int(scans.sum())
+    t_bytes = least_ms(torch, nbytes, flops)[0]
+    t_chain = chain * scan_cycles / SM_CLOCK_HZ * 1e3
+    row = {
+        "name": "agc_relax", "route": "cuda", "source": AGC_SOURCE,
+        "replaces": "csdr_tpu/ops/agc.py:385, 437 (while_loop; no Pallas "
+                    "kernel)",
+        "case": name,
+        "shape": {"samples": len(x), "rows": rounds.shape[1],
+                  "chunk": AGC_CHUNK, "started": bool(kw.get("started"))},
+        "bit_exact": True, "max_abs_err": 0.0,
+        "converged": bool(got[3]),
+        "outer_rounds": outer,
+        "inner_rounds_most": rounds[:outer].max(1).tolist(),
+        **({"inner_rounds": rounds[:outer].tolist(),
+            "settled": settled[:outer].tolist()}
+           if rounds.shape[1] <= 8 else {}),
+        "scans_on_chain": chain, "scans": int(scans.sum()),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_chain),
+        "bound_by": "bytes" if t_bytes >= t_chain else "operations",
+        "bound_note": (f"dependent chain: {chain} scans x {scan_cycles:.1f}"
+                       f" SM cycles (an affine scan of an {AGC_CHUNK}-sample "
+                       f"row as the kernel runs it, {depth} Hillis-Steele "
+                       f"steps, probed) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "cycles_a_step": (ms * 1e-3 * SM_CLOCK_HZ / (chain * depth)
+                          if chain else None),
+        "library_ms": None, "bytes": nbytes, "flops": flops,
+    }
+    if name == "E":
+        row.update(path="E", **roofline_row(
+            torch, "agc_relax", lambda v: agc_cuda.relax(v, **kw)[0], a,
+            None, nbytes, flops, ms, ops_s=t_chain / 1e3))
+    return row
+
+
+def phase_agc_kernels(torch, receivers) -> list:
+    """The AGC kernel against its plain version on the card, bit for bit,
+    in every case of agc_cases, with the probe scan that bounds it; E's
+    case is the kernel table's row, with time_kernel.  Returns it."""
+    from csdr_tpu_torch.kernels import agc_cuda
+
+    scan = min(agc_cuda.scan_cycles(AGC_PROBE_SCANS) for _ in range(3))
+    require(scan > 500.0, f"agc scan probe: {scan} cycles a scan")
+    emit("kernels", name="agc_scan_probe", check="SM cycles of one affine "
+         "scan of an 8192-sample row as the kernel runs it (csrc/agc.cu: "
+         "10 barrier-separated steps through shared memory, 3 in "
+         "registers), the AGC's bound", scan_cycles=scan,
+         step_cycles_mean=scan / np.log2(AGC_CHUNK))
+    rows = []
+    for name, (x, kw) in agc_cases(torch, receivers).items():
+        c = agc_case(torch, name, x, kw, scan)
+        emit("kernels", **c)
+        if name == "E":
+            rows.append(c)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1911,8 +2094,10 @@ def drive_bank(torch, step, state, xs):
 def profile_call(torch, fn) -> dict:
     """One call of ``fn`` under torch.profiler: its launches, the kernels
     the card ran and their time (the union of their intervals), the five
-    kernels of most device time (ms, summed by name), and the host syncs
-    (aten::_local_scalar_dense)."""
+    kernels of most device time (ms, summed by name), the host syncs
+    (aten::_local_scalar_dense, a read of a CPU host flag included) and of
+    them the card syncs (those that copy from the card: a cudaMemcpy or
+    cudaStreamSynchronize call inside them on the same thread)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1930,6 +2115,12 @@ def profile_call(torch, fn) -> dict:
     for e in dev_events:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
+    copies = [e for e in events if e.name.startswith(
+        ("cudaMemcpy", "cudaStreamSynchronize"))]
+    reads = [e for e in events if e.name == "aten::_local_scalar_dense"]
+    card_syncs = sum(1 for e in reads if any(
+        c.thread == e.thread and e.time_range.start <= c.time_range.start
+        and c.time_range.end <= e.time_range.end for c in copies))
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -1938,12 +2129,13 @@ def profile_call(torch, fn) -> dict:
         elif b > end:
             busy += b - end
             end = b
-    return {"cuda_launch_calls": sum(1 for n in names if n in (
-                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+    return {"cuda_launch_calls": sum(1 for n in names if n.startswith((
+                "cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchCooperativeKernel", "cuLaunchCooperativeKernel"))),
             "device_kernels": len(spans), "device_ms": busy / 1e3,
             "top_kernels_ms": dict(sorted(by_name.items(),
                                           key=lambda kv: -kv[1])[:5]),
-            "host_syncs": names.count("aten::_local_scalar_dense")}
+            "host_syncs": len(reads), "card_syncs": card_syncs}
 
 
 def bank_cost(torch, bank, step, state, x) -> dict:
@@ -4363,10 +4555,11 @@ def phase_cli(torch):
     return x, k2, launches
 
 
-def _ssb_pre(make):
+def _pre_agc(make):
+    """A receiver's blocks before its AGC (SSB's and AM's first three)."""
     from csdr_tpu_torch import Pipeline
     pipe = make()
-    return Pipeline(list(pipe.blocks)[:3], name="ssb before its AGC")
+    return Pipeline(list(pipe.blocks)[:3], name=f"{pipe.name} before its AGC")
 
 
 def main() -> int:
@@ -4394,6 +4587,7 @@ def run(torch) -> int:
     launches_p = phase_poly_path(torch)
     receivers = phase_receiver_paths(torch)
     phase_receiver_throughput(torch, receivers)
+    agc_rows = phase_agc_kernels(torch, receivers)
     ted_cases = phase_ted_kernels(torch)
     banks = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
@@ -4412,10 +4606,12 @@ def run(torch) -> int:
     # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
     # K2 at D=16/T=79 from the td server, K3 forward at N=4096 and the
     # codec's encoder on 9 rows from W, the codec both ways on one audio
-    # stream from W1, the TED from G (and G', M, M')
+    # stream from W1, the TED from G (and G', M, M'), the AGC from E (and F)
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
+        "E": ("E: ssb_receiver(0.0, 0.1, 0.05, decimation=50) (agc_on=True)",
+              receivers["E"][0]),
         "wfm": ("wfm_advanced(shift_rate=-0.2)", launches),
         "wfm_unfused": ("wfm_advanced(shift_rate=-0.2, fuse_shift=False)",
                         launches_u),
@@ -4463,10 +4659,11 @@ def run(torch) -> int:
             ("adpcm_encode", "W1"): xp["encode_ima_adpcm_i16_u8"],
             ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"],
             ("ted_scan", "G"): {"G'": g_launches["G'"], "M": mesh["M"],
-                                "M'": mesh["M'"]}}
+                                "M'": mesh["M'"]},
+            ("agc_relax", "E"): {"F": receivers["F"][0]}}
     table = []
-    for c in ([probe_row] + cases + new_cases + poly_cases + ted_cases
-              + server_cases + edge_cases + [k2_cli]):
+    for c in ([probe_row] + cases + new_cases + poly_cases + agc_rows
+              + ted_cases + server_cases + edge_cases + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)

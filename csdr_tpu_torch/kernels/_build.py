@@ -50,6 +50,9 @@ _SIGNATURES = {
     "csdr_ted_scan": [_VP, _I, _VP, _VP, _VP, _VP] + [_I] * 11
                      + [_F] * 3 + [_VP] * 7,
     "csdr_ted_chain_probe": [_VP, _VP, _VP, _I, _VP],
+    "csdr_agc_relax": [_VP, _LL] + [_I] * 4 + [_F] * 5
+                      + [_VP, _F, _VP, _I] + [_VP] * 8,
+    "csdr_agc_scan_probe": [_VP, _VP, _I, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {
@@ -58,6 +61,7 @@ _QUERIES = {
     "csdr_fir_poly_smem_bytes": [_I, _I, _I, _I, _I],
     "csdr_fft_ko_pass_bits": [_I, _I],
     "csdr_fft_ko_frames_per_block": [_I, _LL],
+    "csdr_agc_relax_resident": [_I],
 }
 
 _lib: ctypes.CDLL | None = None

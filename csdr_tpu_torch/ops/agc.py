@@ -12,7 +12,7 @@ simple_agc_cc, the 1-pole AGC.
   slow by nature (``agc_block(method="scan")``, in a pipeline run with
   ``device="cpu"``).  ``agc_ff_chunked`` is the device form the receivers
   use: per-chunk affine scans relaxed to a fixpoint of their branch
-  masks.
+  masks, one kernel launch a call on the card (``kernels/agc_cuda``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Block, resolve_device
-from csdr_tpu_torch.ops.demod import _affine_scan
+from csdr_tpu_torch.core.scan import affine_scan
+from csdr_tpu_torch.kernels import agc_cuda
 
 FASTAGC_MAX_GAIN = 50.0  # reference libcsdr.c:943
 
@@ -89,7 +90,7 @@ def simple_agc_cc(x: torch.Tensor, rate: float, reference: float = 1.0,
     ideal = torch.where(zero, max_gain, torch.clamp(
         reference / torch.where(zero, 1.0, amp), 0.0, max_gain))
     g0 = torch.as_tensor(current_gain, dtype=torch.float32, device=x.device)
-    g = _affine_scan(torch.full_like(amp, np.float32(1.0 - 2.0 * rate)),
+    g = affine_scan(torch.full_like(amp, np.float32(1.0 - 2.0 * rate)),
                      rate * ideal, g0)
     return x * g, g[-1].clone()
 
@@ -193,9 +194,6 @@ def agc_ff(x: torch.Tensor, reference=0.2, attack_rate=0.01,
 # agc_ff_chunked: the waveform relaxation
 # ---------------------------------------------------------------------------
 
-_NEG = -(1 << 30)        # "no attack yet" in the distance scans
-
-
 def agc_ff_chunked(x: torch.Tensor, reference=0.2, attack_rate=0.01,
                    decay_rate=0.0001, max_gain=65536.0, hang_time=200,
                    gain_filter_alpha=0.999, last_gain=1.0, last_hang=0,
@@ -213,99 +211,23 @@ def agc_ff_chunked(x: torch.Tensor, reference=0.2, attack_rate=0.01,
     masks; an outer relaxation passes each chunk's exit gain and hang to
     the next chunk as its entry, until the entries agree to 1e-6 relative.
 
-    The inner relaxation runs a fixed ``iters`` rounds and never syncs:
-    once the masks reproduce themselves a round returns its input bit for
-    bit, so this equals csdr_tpu's exit at the first stable round.  The
-    outer stop is one host sync per round.
+    On the card both relaxations are one kernel launch
+    (``kernels/agc_cuda.relax``, ``csrc/agc.cu``: a chunk stops at the
+    first round whose masks equal the round's before, as csdr_tpu's does;
+    no host sync, no scalar upload; ``chunk`` at most 8192).  On the CPU
+    the plain version (``agc_cuda.relax_plain``) runs a fixed ``iters``
+    inner rounds, which gives the same bits, and one host sync an outer
+    round.
 
     Returns (y, next_gain, next_hang, converged); thread next_gain and
     next_hang, and ``started=True`` after the first chunk.  ``converged``
     (a 0-dim bool tensor) is mask self-consistency with agreed boundary
     gains; a borderline float tie can make it False with an equivalent
     trajectory, so it is a diagnostic, not a failure bit.  ``check=False``
-    returns None in its place and skips its comparisons."""
-    if iters < 1:
-        raise ValueError(f"agc_ff_chunked: iters={iters} < 1")
-    x = x.float()
-    dev, n = x.device, x.shape[0]
-    f0 = torch.as_tensor(last_gain, dtype=torch.float32, device=dev
-                         ).reshape(())
-    h0 = torch.as_tensor(last_hang, dtype=torch.int32, device=dev
-                         ).reshape(())
-    if n == 0:
-        return x, f0, h0, torch.tensor(True) if check else None
-    one_m_alpha = np.float32(1.0 - gain_filter_alpha)
-    chunk = -(-chunk // 128) * 128
-    pad = (-n) % chunk
-    xc = torch.cat([x, x.new_zeros(pad)]).reshape(-1, chunk)    # (B, chunk)
-    nchunks = xc.shape[0]
-    nz = xc != 0
-    c = torch.where(nz, reference / torch.clamp(xc.abs(), min=1e-30), 0.0)
-    live = nz.clone()
-    if not bool(started):
-        live[0, 0] = False       # stream start: sample 0 is an identity step
-
-    def scalar(v, dtype=torch.float32):
-        return torch.tensor(v, dtype=dtype, device=dev)
-    ar, dr, zero = scalar(np.float32(attack_rate)), \
-        scalar(np.float32(decay_rate)), scalar(0.0)
-    neg = scalar(_NEG, torch.int32)
-
-    def trajectory_step(f, ef, entry_last):
-        """One round for all chunks: the branch masks from trajectory f
-        (f_prev is f shifted by one, the chunk's entry gain ef first), then
-        one affine scan."""
-        f_prev = torch.cat([ef[:, None], f[:, :-1]], 1)
-        attack = live & (c < f_prev)
-        decay = live & ~attack
-        dc = torch.cumsum(decay, 1, dtype=torch.int32)
-        last = torch.maximum(torch.cummax(torch.where(attack, dc, neg),
-                                          1).values, entry_last[:, None])
-        frozen = decay & (last > _NEG // 2) & (dc - last <= hang_time)
-        rate = torch.where(attack, ar, torch.where(decay & ~frozen, dr, zero))
-        clip_hi = f_prev + rate * (c - f_prev) > max_gain
-        a = torch.where(clip_hi, one_m_alpha, (1.0 - rate) + one_m_alpha)
-        b = torch.where(clip_hi, np.float32(max_gain), rate * c)
-        if not bool(started):
-            a[0, 0], b[0, 0] = 1.0, 0.0
-        return _affine_scan(a, b, ef), attack, clip_hi, dc[:, -1], last[:, -1]
-
-    def relax(ef, eh, f):
-        """The inner relaxation at fixed entries (ef, eh) from the seed
-        trajectory f; returns it with the exit hangs and whether the last
-        round's masks equal the round's before (None unless ``check``)."""
-        # entering hang: a virtual attack eh decay steps before the chunk
-        entry_last = torch.where(eh > 0, eh - hang_time, neg)
-        conv = torch.tensor(False, device=dev) if check else None
-        att_p = clip_p = None
-        for i in range(iters):
-            f, att, clip, dc_e, last_e = trajectory_step(f, ef, entry_last)
-            if check and i == iters - 1 and i > 0:
-                conv = (att == att_p).all() & (clip == clip_p).all()
-            att_p, clip_p = att, clip
-        h_out = torch.clamp(torch.where(last_e > _NEG // 2,
-                                        hang_time - (dc_e - last_e), 0),
-                            0, hang_time).to(torch.int32)
-        return f, h_out, conv
-
-    ef = f0.expand(nchunks).clone()
-    eh = h0.expand(nchunks).clone()
-    frows = f0.expand(nchunks, chunk).clone()
-    for _ in range(nchunks + 2):
-        # warm start: each round seeds the inner relaxation with the last
-        # round's trajectory (round 1's is the flat entry gain)
-        frows, houts, conv = relax(ef, eh, frows)
-        new_ef = torch.cat([f0.reshape(1), frows[:-1, -1]])
-        new_eh = torch.cat([h0.reshape(1), houts[:-1]])
-        close = torch.all((new_ef - ef).abs()
-                          <= 1e-6 * torch.clamp(ef.abs(), min=1e-3))
-        stable = close & torch.all(new_eh == eh)
-        ef, eh = new_ef, new_eh
-        if bool(stable):                           # the one sync a round
-            break
-    f_all = frows.reshape(-1)[:n]
-    return (f_all * x, f_all[n - 1].clone(), houts[-1].clone(),
-            stable & conv if check else None)
+    returns None in its place."""
+    return agc_cuda.relax(x, reference, attack_rate, decay_rate, max_gain,
+                          hang_time, gain_filter_alpha, last_gain, last_hang,
+                          started, chunk, iters, check)
 
 
 class AgcBlock(Block):

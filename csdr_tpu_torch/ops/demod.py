@@ -16,6 +16,7 @@ import torch
 
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.core.block import Block, VarOut, resolve_device
+from csdr_tpu_torch.core.scan import affine_scan
 from csdr_tpu_torch.ops.fir import apply_real_fir_ff
 
 # Reference scaling constant (libcsdr.c:1020-1021):
@@ -115,34 +116,10 @@ def realpart_cf(x: torch.Tensor) -> torch.Tensor:
     return x.real
 
 
-def affine_prefix(b: torch.Tensor, a: torch.Tensor):
-    """Inclusive prefix of the affine maps y <- b*y + a along the last
-    axis: a log-depth (Hillis-Steele) scan over the (mul, add) pairs, each
-    step one pass of vector ops.  Returns (B, A), the composed maps, so
-    the output for an entry carry y0 is B*y0 + A."""
-    b, a = b.clone(), a.clone()
-    off, n = 1, a.shape[-1]
-    while off < n:
-        a[..., off:] = a[..., off:] + b[..., off:] * a[..., :-off]
-        b[..., off:] = b[..., off:] * b[..., :-off]
-        off *= 2
-    return b, a
-
-
-def _affine_scan(b: torch.Tensor, a: torch.Tensor, y0) -> torch.Tensor:
-    """Prefix of y <- b*y + a from y0 along the last axis (y0 folded into
-    the first pair, then :func:`affine_prefix`).  Leading axes are
-    independent scans, with ``y0`` their entry values (a scalar, or one
-    per scan)."""
-    a = a.clone()
-    a[..., 0] = a[..., 0] + b[..., 0] * y0
-    return affine_prefix(b, a)[1]
-
-
 def _one_pole_scan(x, alpha, y0):
     """y[n] = alpha*x[n] + (1-alpha)*y[n-1]."""
     b = torch.full_like(x, 1.0 - alpha)
-    return _affine_scan(b, alpha * x, y0)
+    return affine_scan(b, alpha * x, y0)
 
 
 def _one_pole_scan_masked(x, alpha, y0, mask):
@@ -151,7 +128,7 @@ def _one_pole_scan_masked(x, alpha, y0, mask):
     b = torch.where(mask, torch.full_like(x, 1.0 - alpha),
                     torch.ones_like(x))
     a = torch.where(mask, alpha * x, torch.zeros_like(x))
-    return _affine_scan(b, a, y0)
+    return affine_scan(b, a, y0)
 
 
 def deemphasis_wfm_ff(x, tau, sample_rate, last_output=0.0):

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Block, resolve_device
-from csdr_tpu_torch.ops.demod import _affine_scan
+from csdr_tpu_torch.core.scan import affine_scan
 
 
 def gain_ff(x: torch.Tensor, gain) -> torch.Tensor:
@@ -46,7 +46,7 @@ def dcblock_ff(x: torch.Tensor, a: float = 0.999, last_input=0.0,
     Returns (y, (next_last_input, next_last_output))."""
     x = x.float()
     prev = torch.cat([_scalar(last_input, x).reshape(1), x[:-1]])
-    y = _affine_scan(torch.full_like(x, a), x - prev,
+    y = affine_scan(torch.full_like(x, a), x - prev,
                      _scalar(last_output, x))
     return y, (x[-1].clone(), y[-1].clone())
 

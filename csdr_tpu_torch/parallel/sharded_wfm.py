@@ -31,8 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from csdr_tpu_torch.core.scan import affine_prefix
 from csdr_tpu_torch.kernels import fir_cuda
-from csdr_tpu_torch.ops.demod import affine_prefix, fmdemod_quadri_cf
+from csdr_tpu_torch.ops.demod import fmdemod_quadri_cf
 from csdr_tpu_torch.parallel import halo as hx
 from csdr_tpu_torch.parallel.mesh import chan_rows
 

@@ -10,8 +10,7 @@ ctypes, which bypass it.  The card's cliffs are in that sequence (PERF.md
 
 - ``host-sync``: the host waits for the card inside a step.  Any of
   ``HOST_SYNC_OPS`` or an index by a boolean mask on a tensor of the
-  step's device, or a copy from the step's device to the host (the
-  chunked AGC, ``ops/agc.py:199``: 4 syncs a chunk).
+  step's device, or a copy from the step's device to the host.
 - ``python-loop``: a ``lax.scan`` that became a Python loop of small
   launches.  :func:`lint_lengths` lints one step at two chunk lengths and
   flags it when the launching ops grow with the length by more than
@@ -75,10 +74,6 @@ COPY_OPS = frozenset(("aten::_to_copy", "aten::copy_"))
 # ROADMAP item queues for repair: name -> (kinds of finding, reason,
 # item).  A pipeline's allow-list names the cliffs it runs.
 KNOWN_CLIFFS = {
-    "agc": (("host-sync", "launch-bound"),
-            "the chunked AGC (ops/agc.agc_ff_chunked): a host sync a "
-            "relaxation round to stop it, ~2 810 launches a chunk",
-            "ROADMAP §1 item 2b"),
     "per-tap-fir": (("launch-bound",),
                     "a real-input FIR as one launch a tap "
                     "(kernels/fir_cuda.strided_corr): the de-emphasis "
@@ -196,6 +191,7 @@ PLAIN_VERSIONS = {
                    "decode_plain": "adpcm_decode"},
     "probe_cuda": {"fma_chain_plain": "fma_chain"},
     "ted_cuda": {"scan_plain": "ted_scan"},
+    "agc_cuda": {"relax_plain": "agc_relax"},
 }
 
 

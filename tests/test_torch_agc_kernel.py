@@ -1,0 +1,265 @@
+"""The chunked AGC's kernel (``csrc/agc.cu``, ``kernels/agc_cuda.relax``)
+on the CPU: a model of the kernel's control flow in numpy float32 against
+the port's ``agc_ff_chunked`` (its plain version here), bit for bit, and the
+wrapper's routing and refusals.
+
+The model (:func:`agc_model`) does what the kernel does and the plain
+version does not: each chunk leaves its inner relaxation at the first
+round whose attack and clip masks equal the round's before (a chunk that
+never settles runs all ``iters``), the stop test runs on the rows' exit
+values in float32 as every block of the kernel computes it, and it counts
+the rounds.  The port's ``agc_ff_chunked`` is held to csdr_tpu's in
+tests/test_torch_agc.py; the card tests (tests/test_torch_kernels.py) hold
+the kernel to the plain version and to this model's rounds.  This file
+imports no jax, so the card tests may import the model.
+
+A plain relaxation over 50 000 samples takes ~1.2 s here; the cases stay
+few and small."""
+
+import numpy as np
+import pytest
+import torch
+
+from csdr_tpu_torch import cli
+from csdr_tpu_torch.kernels import agc_cuda
+from csdr_tpu_torch.ops import agc
+
+torch.set_num_threads(2)
+NEG = -(1 << 30)
+F32 = np.float32
+
+
+def _row(c, live, f, ef, eh, start, p):
+    """A row's inner relaxation at entries (ef, eh) from trajectory f, as a
+    block of the kernel runs it; returns (trajectory, exit hang, rounds,
+    settled)."""
+    hang = p["hang_time"]
+    entry_last = eh - hang if eh > 0 else NEG
+    att_p = clip_p = None
+    settled, rounds = False, 0
+    for it in range(p["iters"]):
+        rounds = it + 1
+        fp = np.concatenate([[ef], f[:-1]]).astype(F32)
+        att = live & (c < fp)
+        dec = live & ~att
+        dc = np.cumsum(dec, dtype=np.int64)
+        last = np.maximum(np.maximum.accumulate(np.where(att, dc, NEG)),
+                          entry_last)
+        frozen = dec & (last > NEG // 2) & (dc - last <= hang)
+        rate = np.where(att, p["ar"], np.where(dec & ~frozen, p["dr"],
+                                               F32(0)))
+        clip = (fp + rate * (c - fp)) > p["mg"]
+        mul = np.where(clip, p["oma"], (F32(1) - rate) + p["oma"])
+        add = np.where(clip, p["mg"], rate * c)
+        if start:
+            mul[0], add[0] = F32(1), F32(0)
+        add[0] = add[0] + mul[0] * ef
+        dc_e, last_e = int(dc[-1]), int(last[-1])
+        if it > 0 and np.array_equal(att, att_p) \
+                and np.array_equal(clip, clip_p):
+            settled = True
+            break
+        att_p, clip_p = att, clip
+        off = 1
+        while off < len(f):                 # Hillis-Steele, step by step
+            add = np.concatenate([add[:off], add[off:] + mul[off:]
+                                  * add[:-off]])
+            mul = np.concatenate([mul[:off], mul[off:] * mul[:-off]])
+            off *= 2
+        f = add
+    h = hang - (dc_e - last_e) if last_e > NEG // 2 else 0
+    return f, min(max(h, 0), hang), rounds, settled
+
+
+def agc_model(x, reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+              max_gain=65536.0, hang_time=200, gain_filter_alpha=0.999,
+              last_gain=1.0, last_hang=0, started=False, chunk=8192,
+              iters=14):
+    """csrc/agc.cu's relaxation in numpy float32: (y, gain, hang,
+    converged, rounds), rounds (2, B + 2, B) int32 as ``agc_cuda.relax``
+    returns it (the inner rounds of each row in each outer round, then
+    whether its masks settled)."""
+    x = np.asarray(x, F32)
+    n = len(x)
+    f0, h0 = F32(last_gain), int(last_hang)
+    if n == 0:
+        return x, f0, h0, True, np.zeros((2, 2, 0), np.int32)
+    cw = -(-chunk // 128) * 128
+    rows = -(-n // cw)
+    xr = np.zeros(rows * cw, F32)
+    xr[:n] = x
+    xr = xr.reshape(rows, cw)
+    nz = xr != 0
+    with np.errstate(all="ignore"):
+        ax = np.abs(xr)
+        ax = np.where(ax < F32(1e-30), F32(1e-30), ax)
+        c = np.where(nz, (F32(1) / ax) * F32(reference), F32(0))
+    live = nz.copy()
+    live[0, 0] &= bool(started)
+    p = {"hang_time": int(hang_time), "iters": iters, "ar": F32(attack_rate),
+         "dr": F32(decay_rate), "mg": F32(max_gain),
+         "oma": F32(1.0 - gain_filter_alpha)}
+    traj = np.full((rows, cw), f0, F32)
+    xf = np.zeros((3, rows), F32)
+    xh = np.zeros((3, rows), np.int64)
+    xs = np.zeros((3, rows), bool)
+    table = np.zeros((2, rows + 2, rows), np.int32)
+    with np.errstate(all="ignore"):
+        for r in range(rows + 2):
+            cur, prev = r % 3, (r + 2) % 3
+            for b in range(rows):
+                first = r == 0 or b == 0
+                ef = f0 if first else xf[prev, b - 1]
+                eh = h0 if first else int(xh[prev, b - 1])
+                f, h, k, settled = _row(c[b], live[b], traj[b], ef, eh,
+                                        b == 0 and not started, p)
+                traj[b] = f
+                xf[cur, b], xh[cur, b], xs[cur, b] = f[-1], h, settled
+                table[:, r, b] = k, settled
+            # the stop test, in float32 as every block computes it
+            new_ef = np.concatenate([[f0], xf[cur, :-1]]).astype(F32)
+            new_eh = np.concatenate([[h0], xh[cur, :-1]])
+            old_ef = np.full(rows, f0, F32) if r == 0 else np.concatenate(
+                [[f0], xf[prev, :-1]]).astype(F32)
+            old_eh = np.full(rows, h0) if r == 0 else np.concatenate(
+                [[h0], xh[prev, :-1]])
+            aef = np.abs(old_ef)
+            aef = np.where(aef < F32(1e-3), F32(1e-3), aef)
+            stable = bool(np.all(np.abs(new_ef - old_ef) <= F32(1e-6) * aef)
+                          and np.all(new_eh == old_eh))
+            if stable:
+                break
+        y = traj.reshape(-1)[:n] * x
+    return (y, traj.reshape(-1)[n - 1], int(xh[cur, rows - 1]),
+            stable and bool(xs[cur].all()), table)
+
+
+def agc_signal(n=50_000):
+    """tests/test_agc.py's signal: a modulated tone with a zero run (the
+    attack, hang, decay and zero branches all run)."""
+    s = ((0.3 + 0.25 * np.sin(2 * np.pi * 0.0007 * np.arange(n)))
+         * np.sin(2 * np.pi * 0.043 * np.arange(n))).astype(np.float32)
+    s[10_000:10_100] = 0.0
+    return s
+
+
+def speech_like(n, seed):
+    """SSB-like audio: noise low-passed by a moving average under a
+    syllable envelope, with a pause."""
+    r = np.random.default_rng(seed)
+    w = np.convolve(r.standard_normal(n + 15), np.ones(16) / 16, "valid")
+    env = 0.05 + 0.5 * np.abs(np.sin(2 * np.pi * 3.1 * np.arange(n) / 48e3))
+    s = (w[:n] * env).astype(np.float32)
+    s[n // 3: n // 3 + 2000] = 0.0
+    return s
+
+
+# name -> (input, agc_ff_chunked's keyword arguments): the cases the kernel
+# is held to on the card as well (chip_smoke.agc_cases at full size)
+CASES = {
+    # stream start; its 7th chunk is padded and never settles
+    "agc_signal_start": (lambda: agc_signal(), {}),
+    "speech_continuing": (lambda: speech_like(20_000, 1),
+                          {"started": True, "last_gain": 3.7,
+                           "last_hang": 57}),
+    "zero_run_max_gain_100": (
+        lambda: np.concatenate([np.full(4096, 1e-6, F32),
+                                np.zeros(15_904, F32)]),
+        {"max_gain": 100.0}),
+    "n0": (lambda: np.zeros(0, F32), {"last_gain": 2.5, "last_hang": 7}),
+    "n1": (lambda: np.array([0.5], F32), {"last_gain": 2.0,
+                                          "last_hang": 3}),
+    "n8192": (lambda: speech_like(8192, 2), {"started": True}),
+    "n8193": (lambda: speech_like(8193, 3), {}),
+    "chunk256": (lambda: speech_like(3000, 4), {"chunk": 256,
+                                                "last_hang": 150}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_model_equals_agc_ff_chunked_bit_for_bit(name):
+    make, kw = CASES[name]
+    x = make()
+    y, g, h, conv = agc.agc_ff_chunked(torch.from_numpy(x), **kw)
+    ym, gm, hm, convm, table = agc_model(x, **kw)
+    assert y.dtype == torch.float32 and y.shape == (len(x),)
+    assert np.array_equal(y.numpy().view(np.int32), ym.view(np.int32))
+    assert np.float32(g).view(np.int32) == F32(gm).view(np.int32)
+    assert (int(h), bool(conv)) == (hm, convm)
+    rounds = table[0]
+    outer = int((rounds[:, 0] > 0).sum()) if len(x) else 0
+    assert np.all(rounds[:outer] >= 1) and np.all(rounds[outer:] == 0)
+    assert np.all(rounds <= 14) and np.all(table[1][outer:] == 0)
+
+
+def test_the_padded_chunk_runs_every_round_and_the_rest_settle():
+    """_agc_signal from the stream's start (tests/test_torch_agc.py): past
+    the first outer round the padded 7th chunk flips one mask element a
+    round, a 2-cycle, so it runs all 14 inner rounds and the call reports
+    no convergence; the other chunks settle in fewer.  The model's output is
+    the plain version's all the same (the case above)."""
+    _, _, _, conv, table = agc_model(agc_signal())
+    rounds, settled = table
+    outer = int((rounds[:, 0] > 0).sum())
+    assert outer == 3 and not conv
+    assert np.all(rounds[1:outer, 6] == 14) and not settled[1:outer, 6].any()
+    assert settled[1:outer, :6].all() and np.all(rounds[1:outer, :6] < 14)
+    assert np.all(rounds[outer:] == 0)
+
+
+def test_relax_sends_cpu_tensors_to_its_plain_version(monkeypatch):
+    """agc_cuda.relax calls relax_plain through the module (so the lint's
+    stand-in sees it), counts no launch, and raises for what only the
+    kernel gives (its rounds)."""
+    seen = []
+
+    def plain(*a, **k):
+        seen.append(a[0])
+        return "plain"
+    n0 = dict(agc_cuda.LAUNCHES)
+    monkeypatch.setattr(agc_cuda, "relax_plain", plain)
+    x = torch.ones(300)
+    assert agc.agc_ff_chunked(x) == "plain" and seen[0] is x
+    assert agc_cuda.LAUNCHES == n0
+    with pytest.raises(ValueError, match="iters"):
+        agc_cuda.relax(x, iters=0)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        agc_cuda.relax(x, rounds=True)
+
+
+class _OnTheCard(torch.Tensor):
+    """A CPU tensor that says it is on the card: the wrapper's checks run
+    before anything reaches the kernel library."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"chunk": 8193}, "128 to 8192"),
+    ({"hang_time": 200.5}, "not an integer"),
+    ({"iters": 0}, "iters"),
+])
+def test_relax_refuses_what_the_kernel_cannot_take(kw, match):
+    x = torch.ones(1000).as_subclass(_OnTheCard)
+    with pytest.raises(ValueError, match=match):
+        agc_cuda.relax(x, **kw)
+    with pytest.raises(TypeError, match="1-D"):
+        agc_cuda.relax(torch.ones(2, 8).as_subclass(_OnTheCard))
+
+
+def test_cli_agc_with_attack_wait_stops_on_the_card(monkeypatch, capsys):
+    """agc_ff with an attack wait time is the exact per-sample scan, which
+    runs on the host: under a CUDA device (the CLI's default) it stops at
+    once and names --device cpu, and its help says so."""
+    monkeypatch.setattr(cli, "resolve_device", torch.device)
+    argv = ["csdr_tpu_torch", "agc_ff", "200", "0.2", "0.01", "0.0001",
+            "65536", "5"]
+    assert cli.main(argv) == 1
+    err = capsys.readouterr().err
+    assert "--device cpu" in err and "host only" in err
+    assert "usage: csdr_tpu_torch agc_ff" in err
+    assert "--device cpu" in cli.USAGE["agc_ff"]
+    assert cli.main(argv[:-1] + ["--attackwait", "3"]) == 1
+    assert "--device cpu" in capsys.readouterr().err

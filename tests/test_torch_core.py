@@ -50,6 +50,7 @@ def test_port_imports_neither_jax_nor_csdr_tpu():
             "import csdr_tpu_torch.ops.convert, csdr_tpu_torch.ops.spectrum\n"
             "import csdr_tpu_torch.ops.adpcm, csdr_tpu_torch.kernels.adpcm_cuda\n"
             "import csdr_tpu_torch.kernels.probe_cuda\n"
+            "import csdr_tpu_torch.kernels.agc_cuda\n"
             "import csdr_tpu_torch.utils.roofline\n"
             "import csdr_tpu_torch.utils.dispatch_lint\n"
             "import chip_smoke, check_kernels\n"

@@ -8,16 +8,17 @@ first) and must be free of findings but the kinds its allow-list names.
 Every allow-list entry is a cliff of ``dispatch_lint.KNOWN_CLIFFS``, with
 its reason and the ROADMAP item that queues its repair:
 
-- ``agc``: the chunked AGC syncs the host once a relaxation round and
-  issues ~1 500-2 800 ops a chunk (ROADMAP §1 item 2b);
 - ``per-tap-fir``: a real-input FIR launches once a tap (de-emphasis,
   the fractional decimator's prefilter; ROADMAP §1 item 2c).
 
 An entry is also required to show, so a repaired cliff leaves its list.
 The lint has teeth: the Costas loop is flagged ``python-loop`` and a
 planted ``.item()`` ``host-sync``; the modem's timing recovery, once a
-Python loop of ~43 ops a symbol, is one TED kernel launch a call.  On the CPU a kernel wrapper's plain version
-counts as the one launch the card makes (``_plain_as_launches``).
+Python loop of ~43 ops a symbol, is one TED kernel launch a call, and the
+chunked AGC, once ~2 900 ops and two host syncs a chunk of the SSB and AM
+receivers' audio, one AGC kernel launch a call.  On the CPU a kernel
+wrapper's plain version counts as the one launch the card makes
+(``_plain_as_launches``).
 """
 
 import sys
@@ -28,9 +29,10 @@ import pytest
 import torch
 
 from csdr_tpu_torch import Pipeline, firdes
-from csdr_tpu_torch.kernels import fir_cuda, ted_cuda
+from csdr_tpu_torch.kernels import agc_cuda, fir_cuda, ted_cuda
 from csdr_tpu_torch.models import multichannel, receivers, wfm
-from csdr_tpu_torch.ops import adpcm, fastddc as fd, fftfilt, spectrum, sync
+from csdr_tpu_torch.ops import (adpcm, agc, fastddc as fd, fftfilt,
+                                spectrum, sync)
 from csdr_tpu_torch.utils import dispatch_lint as dl
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -98,9 +100,9 @@ PIPELINES = {
         50, audio_rate=48_000, fastagc_block_size=480), _noise),
         (24_000, 24_000), ("per-tap-fir",), "D"),
     "am_receiver": (lambda: _block(receivers.am_receiver, _noise),
-                    (24_000, 48_000), ("agc",), "F"),
+                    (24_000, 48_000), (), "F"),
     "ssb_receiver": (lambda: _block(receivers.ssb_receiver, _noise),
-                     (2 * _ssb_chunk(), 4 * _ssb_chunk()), ("agc",), "E"),
+                     (2 * _ssb_chunk(), 4 * _ssb_chunk()), (), "E"),
     "ssb_receiver_no_agc": (lambda: _block(lambda: receivers.ssb_receiver(
         agc_on=False), _noise), (2 * _ssb_chunk(), 4 * _ssb_chunk()), (),
         "C"),
@@ -204,6 +206,29 @@ def test_ted_step_is_one_kernel_launch(segments):
     trace, _ = dl.trace_fn(tr, tr.init("cpu"), _noise(512))
     assert dict(trace.kernel_launches) == {"ted_scan": 1}
     assert ted_cuda.scan_plain.__module__ == ted_cuda.__name__
+
+
+def test_agc_step_is_one_kernel_launch():
+    """A chunked AGC step, from the stream's start and continuing, is one
+    launch of the AGC kernel (its plain version standing in for it on the
+    CPU), no host sync, and as many ops at twice the chunk: both
+    relaxation loops are inside the kernel."""
+    blk = agc.agc_block()
+
+    def make_args(n):
+        return blk.init("cpu"), torch.from_numpy(
+            np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    found, counts = dl.lint_lengths(blk, make_args, (3000, 6000))
+    assert found == [], counts
+    for c in counts.values():
+        assert c["kernel_launches"] == {"agc_relax": 1}, counts
+        assert c["syncs"] == 0 and c["uploads"] == 0, counts
+        assert c["launching"] < 8, counts
+    state, _ = blk(blk.init("cpu"), make_args(500)[1])
+    trace, _ = dl.trace_fn(blk, state, make_args(3000)[1])
+    assert dict(trace.kernel_launches) == {"agc_relax": 1}
+    assert not trace.syncs
+    assert agc_cuda.relax_plain.__module__ == agc_cuda.__name__
 
 
 def test_item_in_a_step_is_flagged_host_sync():

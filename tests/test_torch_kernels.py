@@ -1,7 +1,7 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
 kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec, the
-timing recovery's symbol loop and the FP32 ceiling's fma-chain probe)
-against
+timing recovery's symbol loop, the chunked AGC's relaxation and the FP32
+ceiling's fma-chain probe) against
 float64 numpy (the codec against the standard's integer steps in Python),
 and on the card against their plain versions.
 
@@ -18,8 +18,9 @@ import pytest
 import torch
 
 from csdr_tpu_torch import firdes
-from csdr_tpu_torch.kernels import (_build, adpcm_cuda, fastddc_cuda,
-                                    fft_cuda, fir_cuda, probe_cuda, ted_cuda)
+from csdr_tpu_torch.kernels import (_build, adpcm_cuda, agc_cuda,
+                                    fastddc_cuda, fft_cuda, fir_cuda,
+                                    probe_cuda, ted_cuda)
 
 torch.set_num_threads(2)
 
@@ -1636,3 +1637,96 @@ def test_cuda_ted_chain_probe_times_its_chain(cuda):
     a, b = (ted_cuda.chain_cycles(n) for n in (1 << 12, 1 << 14))
     assert a > 30.0 and abs(a - b) < 0.05 * b
     assert ted_cuda.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# the chunked AGC's relaxation (csrc/agc.cu)
+# ---------------------------------------------------------------------------
+
+def _agc_cases():
+    """tests/test_torch_agc_kernel.py's cases and its numpy model of the
+    kernel's control flow (that file imports no jax)."""
+    import test_torch_agc_kernel as m
+    return m.CASES, m.agc_model, m.speech_like
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["agc_signal_start", "speech_continuing",
+                                  "zero_run_max_gain_100", "n0", "n1",
+                                  "n8192", "n8193", "chunk256"])
+def test_cuda_agc_relax_matches_plain_and_the_model(cuda, name):
+    """agc_cuda.relax (one launch) against relax_plain on the card, bit for
+    bit (y, gain, hang, converged), and its rounds against the numpy model
+    of its control flow, row by row and round by round."""
+    cases, model, _ = _agc_cases()
+    make, kw = cases[name]
+    x = torch.from_numpy(make()).to(cuda)
+    n0 = agc_cuda.LAUNCHES["agc_relax"]
+    *got, table = agc_cuda.relax(x, rounds=True, **kw)
+    assert agc_cuda.LAUNCHES["agc_relax"] == n0 + (len(x) > 0)
+    want = agc_cuda.relax_plain(x, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same_bits(a, b.to(a.device)), name
+    assert got[1].device == x.device == got[2].device
+    assert np.array_equal(table.cpu().numpy(), model(make(), **kw)[4])
+
+
+@pytest.mark.cuda
+def test_cuda_agc_relax_past_the_resident_rows(cuda):
+    """More rows than the card holds blocks at once: each block runs its
+    rows in turns, bit for bit relax_plain."""
+    _, _, speech_like = _agc_cases()
+    rows = agc_cuda.resident_rows(8192) + 2
+    x = torch.from_numpy(speech_like(rows * 8192 - 100, 5)).to(cuda)
+    kw = {"started": True, "last_gain": 2.0, "last_hang": 20}
+    got = agc_cuda.relax(x, **kw)
+    want = agc_cuda.relax_plain(x, **kw)
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_agc_block_is_one_launch_with_its_state_on_the_card(cuda):
+    """agc_block on the card: one launch a chunk, the gain and hang read
+    from the card, the CPU's output and state bit for bit."""
+    from csdr_tpu_torch.ops import agc
+    _, _, speech_like = _agc_cases()
+    x = torch.from_numpy(speech_like(30_000, 6))
+    blk = agc.agc_block()
+    sk, sc = blk.init(cuda), blk.init("cpu")
+    n0 = agc_cuda.LAUNCHES["agc_relax"]
+    for part in (x[:12_000], x[12_000:]):
+        sk, yk = blk(sk, part.to(cuda))
+        sc, yc = blk(sc, part)
+        assert _same_bits(yk, yc)
+    assert agc_cuda.LAUNCHES["agc_relax"] == n0 + 2
+    for a, b in zip(sk, sc):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_agc_relax_refuses_a_chunk_past_its_shared_memory(cuda):
+    with pytest.raises(ValueError, match="8192"):
+        agc_cuda.relax(torch.ones(100, device=cuda), chunk=8320)
+
+
+@pytest.mark.cuda
+def test_cuda_agc_scan_probe_times_a_scan(cuda):
+    """The probe's scan of a row takes the same cycles at two lengths
+    within 5 %, more than its 10 barriers alone; no AGC launch counted."""
+    n0 = dict(agc_cuda.LAUNCHES)
+    a, b = (agc_cuda.scan_cycles(n) for n in (20, 100))
+    assert a > 500.0 and abs(a - b) < 0.05 * b
+    assert agc_cuda.LAUNCHES == n0
+
+
+def test_agc_scan_probe_runs_on_the_card_only():
+    with pytest.raises(ValueError, match="CUDA"):
+        agc_cuda.scan_cycles(16, device="cpu")
