@@ -35,9 +35,13 @@ prints one JSON line per phase and exits non-zero at the first failure:
    tap rows m >= M would reach (every output finite, equal to the plain
    version); and K2 at path D's D=50/T=81.  Before path G, the timing
    recovery's symbol loop (csrc/ted.cu) at the bank's shape (64 rows of
-   58 368 samples, sps 256: 230 slots) and segmented (64 x 4 lanes), bit
-   for bit against scan_plain, with the probe chain that bounds it (a
-   slot's picks from shared memory and its arithmetic) in SM cycles.
+   58 368 samples, sps 256: 230 slots) and segmented (64 x 4 lanes)
+   through its shared-memory ring, at loop gain 4 (bitstart steps back)
+   through its L2 route, whose time at that shape is reported beside the
+   ring's, and early-late at loop gain 1 (corrections up to a symbol, the
+   left pick stepping back) through the ring, each bit for bit against
+   scan_plain; the probe chain that bounds it (a slot's picks from shared
+   memory and its arithmetic) in SM cycles.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -87,7 +91,16 @@ prints one JSON line per phase and exits non-zero at the first failure:
    + 1, and 2 rows more than the card holds blocks at once; each with
    the rounds it ran, its time, the plain version's and its bound (the
    scans on the chain x the probe's scan of an 8192-sample row in SM
-   cycles, csdr_agc_scan_probe), E's also by time_kernel.
+   cycles, csdr_agc_scan_probe), E's also by time_kernel.  Then agc_ff's
+   exact scan (csrc/agc_exact.cu, one warp a call) against the host loop,
+   bit for bit (y, gain, hang, peak, attack-wait count): _agc_signal at
+   attack wait 0, 5 and 200, its second half continuing from a carried
+   state, one sample, a NaN and +-inf, the clamp's and the error's edges,
+   a negative max_gain, a gain of -0.0, the CLI's 65 536-sample chunk;
+   each timed beside its bound (samples x the probe's SM cycles a sample
+   of agc_ff's shortest chain from shared memory, csdr_agc_ff_chain_
+   probe), and one
+   agc_block(method="scan") step's launches, syncs and uploads (1, 0, 0).
 9. path G/G', BASELINE config 5 whole through
    models/multichannel.build_ddc_bpsk31_bank (64 channels, sps 256): 8
    channels tuned to 8 BPSK31 transmissions 0.1 apart, 56 at rates drawn
@@ -211,7 +224,9 @@ prints one JSON line per phase and exits non-zero at the first failure:
        K2 at its shape D=10/T=79/kout=6553 against its plain version),
        bandpass_fir_fft_cc (K3 both ways), fft_cc 4096 2867 (K3 through
        fft_natural), fastddc_fwd_cc 16 then fastddc_inv_cc 0.1 16 (K4),
-       the ADPCM codec both ways; a live --fd retune of shift_addition_cc
+       the ADPCM codec both ways, agc_ff 200 0.2 0.01 0.0001 65536 5 (an
+       attack wait: the exact scan's kernel once a chunk, the bytes bit
+       for bit --device cpu's); a live --fd retune of shift_addition_cc
        and of fastddc_inv_cc, the output after it equal to a fresh run at
        the new rate up to the NCO's phase;
    X'' every command of tests/test_cli_smoke.py's CASES in process on the
@@ -830,7 +845,11 @@ def phase_kernels(torch):
         {"kernel": "chunked AGC relaxation", "status": "ported",
          "counterpart_of": "while_loop in csdr_tpu/ops/agc.py:385, 437 (no "
                            "Pallas kernel)",
-         "wrapper": "csdr_tpu_torch.kernels.agc_cuda.relax"}])
+         "wrapper": "csdr_tpu_torch.kernels.agc_cuda.relax"},
+        {"kernel": "agc_ff's exact scan", "status": "ported",
+         "counterpart_of": "lax.scan in csdr_tpu/ops/agc.py:171 (no Pallas "
+                           "kernel)",
+         "wrapper": "csdr_tpu_torch.kernels.agc_cuda.scan"}])
     return cases, headline
 
 
@@ -1660,18 +1679,18 @@ def phase_receiver_paths(torch):
     return result
 
 
-def agc_cost(torch, x_chunk):
-    """Launches, host syncs, scalar uploads and time of one agc_block
-    (chunked) step on a chunk of SSB audio on the card: torch.profiler's
-    launch calls and syncs, and utils/dispatch_lint's launching ops, kernel
-    launches and uploads.  The step must be one AGC kernel launch with no
-    host sync and no upload."""
+def agc_cost(torch, x_chunk, blk=None, kernel: str = "agc_relax"):
+    """Launches, host syncs, scalar uploads and time of one AGC block step
+    (``blk``, agc_block() by default) on a chunk of audio on the card:
+    torch.profiler's launch calls and syncs, and utils/dispatch_lint's
+    launching ops, kernel launches and uploads.  The step must be one
+    launch of ``kernel`` with no host sync and no upload."""
     from csdr_tpu_torch.ops import agc
     from csdr_tpu_torch.utils import dispatch_lint
     from csdr_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda")
-    blk = agc.agc_block()
+    blk = agc.agc_block() if blk is None else blk
     a = torch.from_numpy(x_chunk).to(dev)
     state, _ = blk(blk.init(dev), a)        # a continuing chunk
     prof = profile_call(torch, lambda: blk(state, a))
@@ -1684,7 +1703,7 @@ def agc_cost(torch, x_chunk):
             "lint_kernel_launches": dict(trace.kernel_launches),
             "lint_host_syncs": len(trace.syncs),
             "lint_scalar_uploads": len(trace.uploads)}
-    require(lint["lint_kernel_launches"] == {"agc_relax": 1}
+    require(lint["lint_kernel_launches"] == {kernel: 1}
             and not trace.syncs and not trace.uploads
             and prof["card_syncs"] == 0 and prof["cuda_launch_calls"] == 1,
             f"agc step: not one kernel launch without syncs: {lint} {prof}")
@@ -1865,6 +1884,203 @@ def phase_agc_kernels(torch, receivers) -> list:
 
 
 # ---------------------------------------------------------------------------
+# agc_ff's exact recurrence (csrc/agc_exact.cu): the CLI's agc_ff with an
+# attack wait
+# ---------------------------------------------------------------------------
+
+AGC_EXACT_SOURCE = "csdr_tpu_torch/csrc/agc_exact.cu"
+AGC_EXACT_CLI = ["agc_ff", "200", "0.2", "0.01", "0.0001", "65536", "5"]
+AGC_EXACT_KW = {"hang_time": 200, "reference": 0.2, "attack_rate": 0.01,
+                "decay_rate": 0.0001, "max_gain": 65536.0,
+                "attack_wait_time": 5}      # AGC_EXACT_CLI's parameters
+AGC_EXACT_CHUNK = 1 << 16  # the CLI's default chunk (X_CHUNK)
+AGC_EXACT_SAMPLES = 3 * AGC_EXACT_CHUNK + 1001   # the CLI case: 4 chunks
+AGC_EXACT_FLOPS = 10       # float ops a sample: the quotient, the error,
+                           # both rates' products and sums, the filter's
+                           # two adds and product, the output's product
+
+
+def agc_exact_input(n: int, seed: int) -> np.ndarray:
+    """Speech-like audio for the exact AGC: noise low-passed under a
+    syllable envelope from 0.001 to 0.5, a pause of exact zeros."""
+    r = np.random.default_rng(seed)
+    w = np.convolve(r.standard_normal(n + 15), np.ones(16) / 16, "valid")
+    env = 0.001 + 0.5 * np.abs(np.sin(2 * np.pi * 3.1 * np.arange(n) / 48e3))
+    s = (w[:n] * env).astype(np.float32)
+    s[n // 3: n // 3 + 2000] = 0.0
+    return s
+
+
+def agc_exact_cases() -> dict:
+    """name -> (input, agc_ff's keywords): _agc_signal (50 000 samples, its
+    zero run) from the stream's start at attack wait 0, 5 and 200; its
+    second half continuing (started, the state the host loop leaves after
+    the first half); one sample; a NaN, +inf and -inf; the clamp's and
+    the error's edges (-0.0 and subnormal samples, so ref/|x| is inf and
+    the gain hits max_gain, and loud bursts at attack rate 2.5, so it
+    falls below 0); a negative max_gain; a gain of -0.0 held by the hang;
+    and the CLI's 65 536-sample chunk at AGC_EXACT_CLI's parameters,
+    continuing (the kernel table's row)."""
+    import torch
+    from csdr_tpu_torch.kernels import agc_cuda
+
+    s = agc_signal()
+    half = len(s) // 2
+    _, g, h, p, a = agc_cuda.scan_plain(torch.from_numpy(s[:half]), 1.0, 0,
+                                        np.float32(0.2), 0,
+                                        attack_wait_time=5)
+    bad = agc_signal(20_000)
+    bad[3000], bad[9000], bad[9001] = np.nan, np.inf, -np.inf
+    edges = agc_signal(20_000)
+    edges[100:110] = -0.0
+    edges[500:520] = np.float32(1e-40)
+    edges[12_000:12_040] = np.float32(3e4)
+    edges[12_040:12_050] = -np.float32(1e-44)
+    cli = agc_exact_input(AGC_EXACT_CHUNK, 140)
+    return {
+        "agc_signal_wait0": (s, {}),
+        "agc_signal_wait5": (s, {"attack_wait_time": 5}),
+        "agc_signal_wait200": (s, {"attack_wait_time": 200}),
+        "continuing_wait5": (s[half:], {
+            "attack_wait_time": 5, "started": True, "last_gain": g,
+            "last_hang": h, "last_peak": p, "last_awc": a}),
+        "n1": (s[:1], {"attack_wait_time": 5, "last_gain": 2.0}),
+        "nan_inf": (bad, {"attack_wait_time": 5}),
+        "edges": (edges, {"attack_wait_time": 3, "hang_time": 20,
+                          "attack_rate": 2.5, "max_gain": 50.0,
+                          "started": True, "last_gain": 0.5,
+                          "last_peak": np.float32(0.05)}),
+        "max_gain_negative": (s[:3000], {"attack_wait_time": 2,
+                                         "max_gain": -1.0}),
+        "negative_zero_gain": (s[20_000:23_000], {
+            "attack_wait_time": 2, "started": True, "last_gain": -0.0,
+            "last_hang": 4, "last_peak": np.float32(0.05)}),
+        "cli_chunk": (cli, dict(AGC_EXACT_KW, started=True, last_gain=1.5,
+                                last_hang=0, last_peak=np.float32(0.133),
+                                last_awc=0))}
+
+
+def agc_exact_case(torch, name: str, x: np.ndarray, kw: dict,
+                   cycles: float) -> dict:
+    """agc_ff on the card (one launch of the exact kernel, the state
+    uploaded once beforehand) against the host loop, bit for bit (y and
+    the four state values; where both hold a NaN, its place); its time
+    (queued, the device alone), the host loop's (one call) and its
+    bound: samples x the probe's SM cycles a sample at the top SM clock,
+    or the bytes if longer.  The CLI chunk's case, the kernel table's row,
+    also runs through roofline_row."""
+    from csdr_tpu_torch.kernels import agc_cuda
+    from csdr_tpu_torch.ops import agc
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    kw = dict(kw)
+    started = kw.pop("started", False)
+    state = [kw.pop("last_gain", 1.0), kw.pop("last_hang", 0),
+             kw.pop("last_peak", None), kw.pop("last_awc", 0)]
+    a = torch.from_numpy(x).to(dev)
+    before = agc_cuda.LAUNCHES["agc_ff_scan"]
+    got = agc.agc_ff(a, full_state=True, started=started,
+                     last_gain=state[0], last_hang=state[1],
+                     last_peak=state[2], last_awc=state[3], **kw)
+    require(agc_cuda.LAUNCHES["agc_ff_scan"] == before + 1,
+            f"agc_ff {name}: not one launch")
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault("p", agc.agc_ff(
+        torch.from_numpy(x), full_state=True, started=started,
+        last_gain=state[0], last_hang=state[1], last_peak=state[2],
+        last_awc=state[3], **kw)), iters=1, warmup=0, repeats=1)
+    torch.cuda.synchronize()
+    same = [same_bits_or_nan(torch, g.cpu(), w)
+            for g, w in zip(got, box["p"])]
+    require(all(same), f"agc_ff {name} ({len(x)} samples): the kernel "
+                       f"differs from the host loop (y, gain, hang, peak, "
+                       f"awc; NaN payloads aside): {same}")
+    # the timed call: the same inputs, the state on the card as a
+    # streaming block carries it
+    peak = state[2] if state[2] is not None else np.float32(
+        float(kw.get("reference", 0.2)) / float(np.float32(state[0])))
+    dstate = [torch.tensor(np.float32(state[0]), device=dev),
+              torch.tensor(int(state[1]), dtype=torch.int32, device=dev),
+              torch.tensor(np.float32(peak), device=dev),
+              torch.tensor(int(state[3]), dtype=torch.int32, device=dev)]
+    params = dict(kw, started=started)
+    ms = time_cuda(lambda: agc_cuda.scan(a, *dstate, **params), iters=20,
+                   queue_ahead_ms=20.0)
+    n = len(x)
+    nbytes = 8 * n + 2 * 16
+    flops = AGC_EXACT_FLOPS * n
+    t_bytes = least_ms(torch, nbytes, flops)[0]
+    t_chain = n * cycles / SM_CLOCK_HZ * 1e3
+    row = {
+        "name": "agc_ff_scan", "route": "cuda", "source": AGC_EXACT_SOURCE,
+        "replaces": "csdr_tpu/ops/agc.py:171 (lax.scan; no Pallas kernel)",
+        "case": name,
+        "shape": {"samples": n, "started": bool(started),
+                  "attack_wait_time": kw.get("attack_wait_time", 0)},
+        "bit_exact": True, "max_abs_err": 0.0,
+        "nan_outputs": int(torch.isnan(got[0]).sum()),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_chain),
+        "bound_by": "bytes" if t_bytes >= t_chain else "operations",
+        "bound_note": (f"dependent chain: {n} samples x {cycles:.2f} SM "
+                       f"cycles (a sample of agc_ff's shortest chain from "
+                       f"shared memory on one thread, probed) at "
+                       f"{SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "cycles_a_sample": ms * 1e-3 * SM_CLOCK_HZ / n,
+        "library_ms": None, "bytes": nbytes, "flops": flops,
+    }
+    if name == "cli_chunk":
+        row.update(path="X' agc_ff", **roofline_row(
+            torch, "agc_ff_scan",
+            lambda v, st: agc_cuda.scan(v, *st, **params)[0], a, dstate,
+            nbytes, flops, ms, ops_s=t_chain / 1e3))
+    return row
+
+
+def agc_exact_step_cost(torch) -> dict:
+    """Launches, card syncs and scalar uploads of one agc_block(method=
+    "scan") step at AGC_EXACT_CLI's parameters on a continuing 65 536-sample
+    chunk on the card (agc_cost): one kernel launch, none of the rest."""
+    from csdr_tpu_torch.ops import agc
+
+    blk = agc.agc_block(method="scan", **AGC_EXACT_KW)
+    return agc_cost(torch, agc_exact_input(AGC_EXACT_CHUNK, 141), blk,
+                    "agc_ff_scan")
+
+
+def phase_agc_exact(torch) -> list:
+    """agc_ff's exact scan on the card against the host loop, bit for bit,
+    in every case of agc_exact_cases, with the probe chain that bounds it
+    and one block step's launches, syncs and uploads.  Returns the CLI
+    chunk's row (its launches come from path X')."""
+    from csdr_tpu_torch.kernels import agc_cuda
+
+    probe_in = torch.from_numpy(agc_exact_input(agc_cuda.PROBE_MAX, 142)
+                                ).to("cuda")
+    cycles = min(agc_cuda.exact_cycles(probe_in, **AGC_EXACT_KW)
+                 for _ in range(3))
+    require(cycles > 8.0, f"agc_ff chain probe: {cycles} cycles a sample")
+    emit("kernels", name="agc_ff_chain_probe", check="SM cycles a sample of "
+         "agc_ff's shortest chain from shared memory on one thread, what "
+         "the step decides beside it precomputed, its last gain the "
+         "step's (csrc/agc_exact.cu), the exact scan's bound",
+         cycles_a_sample=cycles, samples=agc_cuda.PROBE_MAX)
+    rows = []
+    for name, (x, kw) in agc_exact_cases().items():
+        c = agc_exact_case(torch, name, x, kw, cycles)
+        emit("kernels", **c)
+        if name == "cli_chunk":
+            rows.append(c)
+    emit("agc_cost", path="agc_block(method='scan')",
+         **agc_exact_step_cost(torch),
+         note="one agc_block(method='scan', attack_wait_time=5) step on a "
+              "continuing 65 536-sample chunk: torch.profiler and "
+              "utils/dispatch_lint, as for the chunked step")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the timing recovery kernel (csrc/ted.cu), at the bank's shape
 # ---------------------------------------------------------------------------
 
@@ -1932,36 +2148,59 @@ def same_bits(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def same_bits_or_nan(torch, a, b) -> bool:
+    """same_bits, but where both hold a NaN only its place is compared: a
+    NaN's payload is the hardware's (x86 keeps the input's, the card
+    writes its canonical one)."""
+    if not a.is_floating_point():
+        return same_bits(torch, a, b)
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and same_bits(torch, torch.where(nan, 0.0, a),
+                          torch.where(nan, 0.0, b)))
+
+
 def ted_case(torch, name: str, rows: int, n: int, nsb: int, segs: int,
-             chains: dict, seed: int) -> dict:
+             chains: dict, seed: int, loop_gain: float = 0.5,
+             early_late: bool = False) -> dict:
     """ted_cuda.scan on one launch's inputs (ted_inputs) against
     scan_plain on the card, bit for bit (the final state and every slot's
-    picks, raw error, start and emit); its time, the plain version's (one
-    call) and its bound: the slots a lane stays alive (the most of any
-    lane, what this data needs) x the probe's slot chain at the top SM
-    clock, or the bytes (3 picks a slot, the lane's inputs and every
-    output) if longer."""
+    picks, raw error, start and emit), through the route ring_plan picks
+    for the parameters (the ring, or the L2 design for a backward-stepping
+    loop gain); config 5's Gardner loop, or early-late with the error from
+    I alone.  Its time, the plain version's (one call) and its bound: the
+    slots a lane stays alive (the most of any lane, what this data needs)
+    x the probe's slot chain at the top SM clock, or the bytes (3 picks a
+    slot, the lane's inputs and every output) if longer."""
     from csdr_tpu_torch.kernels import ted_cuda
     from csdr_tpu_torch.utils.timing import time_cuda
 
     planes, size, bs, corr, cap, hi, lo = ted_inputs(torch, rows, n, nsb,
                                                      segs, seed)
-    params = ted_cuda.TedParams(nsb, (3 * nsb // 2, nsb // 2, nsb), True,
-                                True, 2.0, 0.5)
+    wing = nsb // 4
+    params = (ted_cuda.TedParams(nsb, (3 * wing, wing, nsb // 2), False,
+                                 False, 2.0, loop_gain) if early_late else
+              ted_cuda.TedParams(nsb, (3 * nsb // 2, nsb // 2, nsb), True,
+                                 True, 2.0, loop_gain))
+    plan = ted_cuda.ring_plan(size, params)
+    key = "ted_scan" if plan.route == "ring" else "ted_scan_l2"
 
     def kern(p, aux):
         return ted_cuda.scan(p, size, *aux[:2], cap, *aux[2:],
                              params=params)
 
     aux = (bs, corr, hi, lo)
+    before = dict(ted_cuda.LAUNCHES)
     got = kern(planes, aux)
+    require(ted_cuda.LAUNCHES == dict(before, **{key: before[key] + 1}),
+            f"{name}: not one {key} launch")
     box = {}
     plain_ms = time_cuda(lambda: box.setdefault("p", ted_cuda.scan_plain(
         planes, size, bs, corr, cap, hi, lo, params=params)), iters=1,
         warmup=0, repeats=1)
     torch.cuda.synchronize()
     same = [same_bits(torch, a, b) for a, b in zip(got, box["p"])]
-    require(all(same), f"{name} ({rows} x {segs} lanes, {cap} slots): "
+    require(all(same), f"{name} ({rows} x {segs} lanes, {cap} slots): the "
                        f"kernel differs from scan_plain: {same}")
     ms = time_cuda(lambda: kern(planes, aux), iters=20, queue_ahead_ms=20.0)
     lanes = rows * segs
@@ -1970,40 +2209,60 @@ def ted_case(torch, name: str, rows: int, n: int, nsb: int, segs: int,
                         got[0].reshape(lanes, 1)], 1)
     alive = (starts[:, 1:] != starts[:, :-1]).sum(1)
     slots = int(alive.max())
+    back = int((starts[:, 1:] < starts[:, :-1]).sum())
+    left_back = None
+    if early_late:      # slots whose left pick lies below the slot before's
+        c = starts[:, 1:-1] - starts[:, :-2] - nsb
+        c = torch.where(c.abs().float() >= np.float32(0.9 * (nsb // 4)), 0, c)
+        left = starts[:, 1:-1] + wing - c
+        moved = (starts[:, 2:] != starts[:, 1:-1])[:, 1:]
+        left_back = int(((left[:, 1:] < left[:, :-1]) & moved).sum())
     nbytes = lanes * (slots * 3 * 8 + cap * (24 + 4 + 4 + 1) + 4 * (
         4 if segs > 1 else 2) + 8)
     flops = lanes * slots * TED_FLOPS
     t_bytes = least_ms(torch, nbytes, flops)[0]
     t_chain = slots * chains["slot_cycles"] / SM_CLOCK_HZ * 1e3
-    return {
-        "name": "ted_scan", "route": "cuda", "source": TED_SOURCE,
+    bound = max(t_bytes, t_chain)
+    row = {
+        "name": key, "route": "cuda", "source": TED_SOURCE,
         "replaces": "csdr_tpu/ops/sync.py:374, 397 (lax.scan; no Pallas "
                     "kernel)",
         "shape": {"rows": rows, "segments": segs, "lanes": lanes,
                   "slots": cap, "alive_slots_most": slots,
-                  "samples_a_row": size, "sps": nsb},
+                  "samples_a_row": size, "sps": nsb,
+                  "algorithm": "early-late" if early_late else "gardner",
+                  "loop_gain": loop_gain},
+        "ring_plan": plan._asdict(), "backward_steps": back,
+        "left_pick_below_slot_before": left_back,
         "bit_exact": True, "max_abs_err": 0.0,
         "emitted": int(got[5].sum()),
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_chain),
+        "share_of_bound": bound / ms,
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_chain else "operations",
         "bound_note": (f"serial chain: {slots} alive slots x "
                        f"{chains['slot_cycles']:.1f} SM cycles (a slot's "
                        f"dependent shared-memory load and arithmetic, "
-                       f"probed; this kernel reads its picks from L2 on "
-                       f"the chain) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
+                       f"probed) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
         "cycles_a_slot": ms * 1e-3 * SM_CLOCK_HZ / slots,
         "library_ms": None, "bytes": nbytes,
-        **roofline_row(torch, "ted_scan", kern, planes, aux, nbytes, flops,
-                       ms, ops_s=t_chain / 1e3),
     }
+    if key == "ted_scan" and not early_late:
+        row.update(roofline_row(torch, "ted_scan", kern, planes, aux, nbytes,
+                                flops, ms, ops_s=t_chain / 1e3))
+    return row
 
 
 def phase_ted_kernels(torch) -> list:
     """The TED kernel against its plain version on the card at the bank's
     shape (G and G' both give it 64 rows of 58 368 samples, sps 256: 230
-    slots) and in the segmented mode (64 x TED_SEGMENTS lanes), with the
-    probe chain that bounds it.  Returns the row of G's shape."""
+    slots) and in the segmented mode (64 x TED_SEGMENTS lanes), through the
+    ring, and with a loop gain of 4 (|corr| up to 2 symbols: bitstart steps
+    back) through the L2 route, whose time at G's shape is the ring's
+    in-run yardstick; early-late at loop gain 1 through the ring (a
+    correction up to a symbol: the left pick steps back below the slot
+    before's); and the probe chain that bounds it.  Returns the row of
+    G's shape."""
     chains = ted_chains(torch)
     emit("kernels", name="ted_chain_probe", check="SM cycles a slot of the "
          "chain that bounds the TED (csrc/ted.cu)", **chains)
@@ -2012,8 +2271,27 @@ def phase_ted_kernels(torch) -> list:
                            51), path="G")
     seg = ted_case(torch, "ted_scan segmented", CHANNELS, m, SPS,
                    TED_SEGMENTS, chains, 52)
+    back = ted_case(torch, "ted_scan loop gain 4", CHANNELS, m, SPS, 1,
+                    chains, 53, loop_gain=4.0)
+    el = ted_case(torch, "ted_scan early-late loop gain 1", CHANNELS,
+                  8_192, 64, 3, chains, 54, loop_gain=1.0, early_late=True)
+    require(serial["name"] == seg["name"] == el["name"] == "ted_scan"
+            and back["name"] == "ted_scan_l2",
+            "ted: the routes are not ring, ring, l2, ring")
+    require(el["left_pick_below_slot_before"] > 0,
+            "ted early-late at loop gain 1: no left pick stepped back")
+    serial.update(l2_route_ms=back["ms"],
+                  l2_route_cycles_a_slot=back["cycles_a_slot"],
+                  l2_route_note="the L2 design in this run at G's shape, "
+                                "loop gain 4 (the 'ted_scan loop gain 4' "
+                                "line)")
     emit("kernels", **serial)
     emit("kernels", check="the segmented mode (not on a gated path)", **seg)
+    emit("kernels", check="the L2 route: a backward-stepping loop gain "
+         "(not on a gated path)", **back)
+    emit("kernels", check="early-late at loop gain 1, sps 64, 3 segments: "
+         "corrections up to a symbol, the left pick below the slot "
+         "before's (not on a gated path)", **el)
     return [serial]
 
 
@@ -4209,7 +4487,9 @@ def phase_cli_kernels(torch):
     fastddc_fwd_cc 16 (no kernel: its natural-order forward is
     torch.fft) then fastddc_inv_cc 0.1 16 on the card's spectra (K4;
     CHANNEL_BAR), encode_ima_adpcm_i16_u8 and decode_ima_adpcm_u8_i16
-    (the codec on XP_CODEC samples; bit for bit).  K2 at the CLI's
+    (the codec on XP_CODEC samples; bit for bit), agc_ff 200 0.2 0.01
+    0.0001 65536 5 (an attack wait: the exact scan's kernel once a chunk;
+    bit for bit).  K2 at the CLI's
     shape (D=10, T=79, kout=6553) against its plain version as the
     kernels phase runs it.  Then one live retune each through --fd:
     shift_addition_cc and fastddc_inv_cc."""
@@ -4248,6 +4528,12 @@ def phase_cli_kernels(torch):
         "decode_ima_adpcm_u8_i16", ["decode_ima_adpcm_u8_i16"],
         enc["out"], {"adpcm_decode": pumped_chunks(len(enc["out"]), 1)},
         None)
+    # agc_ff with an attack wait: the exact scan's kernel once a chunk,
+    # bytes equal to --device cpu's (the host loop)
+    agc_in = agc_exact_input(AGC_EXACT_SAMPLES, 143).tobytes()
+    got["agc_ff"] = x_prime_case(
+        "agc_ff", AGC_EXACT_CLI, agc_in,
+        {"agc_ff_scan": pumped_chunks(AGC_EXACT_SAMPLES, 1)}, None)
 
     # live retunes: shift_addition_cc half way, fastddc_inv_cc at its
     # third chunk
@@ -4588,6 +4874,7 @@ def run(torch) -> int:
     receivers = phase_receiver_paths(torch)
     phase_receiver_throughput(torch, receivers)
     agc_rows = phase_agc_kernels(torch, receivers)
+    agc_exact_rows = phase_agc_exact(torch)
     ted_cases = phase_ted_kernels(torch)
     banks = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
@@ -4633,6 +4920,9 @@ def run(torch) -> int:
         "X'": ("X': python -m csdr_tpu_torch.cli fir_decimate_cc 10 0.05 "
                "HAMMING, in process, 65 536-sample chunks",
                cli_launches["fir_decimate_cc"]),
+        "X' agc_ff": ("X': python -m csdr_tpu_torch.cli " + " ".join(
+            AGC_EXACT_CLI) + ", in process, 65 536-sample chunks",
+            cli_launches["agc_ff"]),
         "measure": ("measure: utils/roofline.measure_fp32_flops (the FP32 "
                     "ceiling; launches captured in its CUDA graphs)",
                     probe_launches)}
@@ -4663,7 +4953,8 @@ def run(torch) -> int:
             ("agc_relax", "E"): {"F": receivers["F"][0]}}
     table = []
     for c in ([probe_row] + cases + new_cases + poly_cases + agc_rows
-              + ted_cases + server_cases + edge_cases + [k2_cli]):
+              + agc_exact_rows + ted_cases + server_cases + edge_cases
+              + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)

@@ -531,8 +531,7 @@ USAGE = {
         "agc_ff [hang_time [reference [attack_rate [decay_rate [max_gain "
         "[attack_wait [filter_alpha]]]]]]]  (--reference/--attack/--decay/"
         "--max/--hangtime/--attackwait/--filteralpha also accepted; an "
-        "attack_wait > 0 runs the exact per-sample scan, on the host only: "
-        "--device cpu)",
+        "attack_wait > 0 runs the exact per-sample scan)",
     "fastagc_ff": "fastagc_ff [block_size [reference]]",
     "simple_agc_cc": "simple_agc_cc <rate> [reference]",
     "squelch_and_smeter_cc":
@@ -1237,14 +1236,9 @@ def _c_agc(args):
             npos += 1
             i += 1
     # the chunked (waveform-relaxation) agc supports attack_wait_time=0
-    # only; otherwise the bit-faithful scan, which runs on the host
-    # (csdr_tpu runs it as a lax.scan on its device; no kernel here yet)
+    # only; otherwise the bit-faithful scan, one kernel launch a chunk on
+    # the card (kernels/agc_cuda.scan), the host loop under --device cpu
     method = "scan" if kw.get("attack_wait_time", 0) else "chunked"
-    if method == "scan" and _dev().type != "cpu":
-        raise SystemExit(
-            f"an attack wait time runs the exact per-sample scan, which runs "
-            f"on the host only, not on {_dev().type}: run it with "
-            f"--device cpu")
     pump(agc.agc_block(method=method, **kw), "f", "f")
 
 

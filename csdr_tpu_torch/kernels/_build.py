@@ -48,11 +48,16 @@ _SIGNATURES = {
     "csdr_adpcm_chain_probe": [_VP, _VP, _I, _I, _VP],
     "csdr_fma_chain": [_VP, _VP, _LL, _I, _F, _F, _VP],
     "csdr_ted_scan": [_VP, _I, _VP, _VP, _VP, _VP] + [_I] * 11
-                     + [_F] * 3 + [_VP] * 7,
+                     + [_F] * 3 + [_I] * 3 + [_VP] * 7,
+    "csdr_ted_scan_l2": [_VP, _I, _VP, _VP, _VP, _VP] + [_I] * 11
+                        + [_F] * 3 + [_VP] * 7,
     "csdr_ted_chain_probe": [_VP, _VP, _VP, _I, _VP],
     "csdr_agc_relax": [_VP, _LL] + [_I] * 4 + [_F] * 5
                       + [_VP, _F, _VP, _I] + [_VP] * 8,
     "csdr_agc_scan_probe": [_VP, _VP, _I, _VP],
+    "csdr_agc_ff_scan": [_VP, _LL, _I] + [_F] * 5 + [_I] * 2 + [_VP] * 10,
+    "csdr_agc_ff_chain_probe": [_VP, _VP, _I] + [_F] * 5
+                               + [_I, _I, _F, _I, _F, _I, _VP, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {

@@ -1,6 +1,7 @@
-"""The chunked AGC's waveform relaxation (the counterpart of csdr_tpu's two
-``jax.lax.while_loop``s in csdr_tpu/ops/agc.py:385, 437; no Pallas kernel
-there).
+"""agc_ff on the card: the chunked AGC's waveform relaxation (the
+counterpart of csdr_tpu's two ``jax.lax.while_loop``s in
+csdr_tpu/ops/agc.py:385, 437) and the exact per-sample recurrence (the
+counterpart of its ``lax.scan`` at :171); no Pallas kernel there.
 
 csdr_tpu compiles both relaxation loops, the inner one over the branch
 masks and the outer one over the chunk boundaries, into one device
@@ -19,8 +20,17 @@ upload.  The kernel takes a ``chunk`` of at most ``MAX_CHUNK`` samples
 With more rows than the card holds at once (:func:`resident_rows`), each
 block runs its rows in turns.
 
-The wrapper launches the kernel for CUDA tensors, or raises; it takes the
-plain version only for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+The exact recurrence (any attack wait time) is ``csrc/agc_exact.cu``:
+:func:`scan` runs it over a 1-D float32 stream from a state of four
+one-element tensors (gain, hang, peak, attack-wait count) on the stream's
+device, one warp a call with one thread carrying the recurrence, bit for
+bit :func:`scan_plain`, the numpy float32 loop on the host.  On the card
+it is one launch, with no host sync and no scalar upload.
+:func:`exact_cycles` measures the recurrence's chain, which bounds it.
+
+The wrappers launch their kernels for CUDA tensors, or raise; they take
+the plain versions only for CPU tensors.  ``LAUNCHES`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import torch
 from csdr_tpu_torch.core.scan import affine_scan
 from csdr_tpu_torch.kernels import _build
 
-LAUNCHES = {"agc_relax": 0}
+LAUNCHES = {"agc_relax": 0, "agc_ff_scan": 0}
 MAX_CHUNK = 8192        # samples a row the kernel's shared memory holds
+PROBE_MAX = 4096        # samples the exact scan's probe stages
 _NEG = -(1 << 30)       # "no attack yet" in the distance scans
 
 
@@ -245,3 +256,159 @@ def relax_plain(x: torch.Tensor, reference=0.2, attack_rate=0.01,
     f_all = frows.reshape(-1)[:n]
     return (f_all * x, f_all[n - 1].clone(), houts[-1].clone(),
             stable & conv if check else None)
+
+
+# ---------------------------------------------------------------------------
+# the exact recurrence (csrc/agc_exact.cu) and its plain version, the loop
+# on the host
+# ---------------------------------------------------------------------------
+
+_STATE = (("gain", torch.float32), ("hang", torch.int32),
+          ("peak", torch.float32), ("awc", torch.int32))
+
+
+def _int32(v, name: str) -> int:
+    if int(v) != v or not -(1 << 31) <= int(v) < (1 << 31):
+        raise ValueError(f"agc_ff scan: {name} {v} is not an int32")
+    return int(v)
+
+
+def scan(x: torch.Tensor, gain, hang, peak, awc, started=False,
+         reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+         max_gain=65536.0, hang_time=200, attack_wait_time=0,
+         gain_filter_alpha=0.999):
+    """agc_ff's exact recurrence over ``x`` from the state (gain, hang,
+    peak, awc); ``started`` False skips sample 0 (the stream's start).
+    Returns (y, gain, hang, peak, awc), the state as 0-dim tensors.
+
+    CUDA tensors launch the kernel: ``x`` 1-D float32 and the state four
+    one-element tensors on its device (float32, int32, float32, int32),
+    nothing read back and nothing uploaded.  CPU tensors take
+    :func:`scan_plain`; anything else raises."""
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"agc_ff scan: runs on CPU or CUDA tensors, "
+                             f"not {x.device}")
+        return scan_plain(x, gain, hang, peak, awc, started, reference,
+                          attack_rate, decay_rate, max_gain, hang_time,
+                          attack_wait_time, gain_filter_alpha)
+    if x.dim() != 1:
+        raise TypeError(f"agc_ff scan: want a 1-D stream, got "
+                        f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"agc_ff scan: want float32 samples, got {x.dtype}")
+    state = []
+    for (name, dtype), v in zip(_STATE, (gain, hang, peak, awc)):
+        if not isinstance(v, torch.Tensor) or v.numel() != 1:
+            raise TypeError(f"agc_ff scan: the {name} state is one element "
+                            f"of a tensor on the card")
+        if v.device != x.device:
+            raise ValueError(f"agc_ff scan: the {name} state on {v.device}, "
+                             f"the stream on {x.device}")
+        if v.dtype != dtype:
+            raise TypeError(f"agc_ff scan: the {name} state is {v.dtype}, "
+                            f"not {dtype}")
+        state.append(v.reshape(()))
+    hang_time = _int32(hang_time, "hang_time")
+    wait = _int32(attack_wait_time, "attack_wait_time")
+    if x.shape[0] == 0:
+        return (x, *state)
+    x = x.contiguous()
+    dev = x.device
+    y = torch.empty_like(x)
+    out = [torch.empty((), dtype=dtype, device=dev) for _, dtype in _STATE]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _build.lib().csdr_agc_ff_scan(
+        x.data_ptr(), x.shape[0], int(bool(started)), np.float32(reference),
+        np.float32(attack_rate), np.float32(decay_rate),
+        np.float32(max_gain), np.float32(gain_filter_alpha), hang_time, wait,
+        *(t.data_ptr() for t in state), y.data_ptr(),
+        *(t.data_ptr() for t in out), stream)
+    _build.check(code, "agc_ff_scan")
+    LAUNCHES["agc_ff_scan"] += 1
+    return (y, *out)
+
+
+def exact_cycles(x: torch.Tensor, gain=1.0, hang=0, peak=None, awc=0,
+                 reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+                 max_gain=65536.0, hang_time=200, attack_wait_time=0,
+                 gain_filter_alpha=0.999) -> float:
+    """SM cycles a sample of agc_ff's shortest chain on the card
+    (``csrc/agc_exact.cu``'s probe): over ``x`` (at most PROBE_MAX
+    samples on the card) from the state given as numbers, one thread runs
+    the kernel's step, recording what it decides beside its chain (the
+    rate, whether the gain moves), then the chain alone from shared
+    memory, timed.  Raises if the chain's last gain is not the step's bit
+    for bit.  It is not counted in ``LAUNCHES``."""
+    if not x.is_cuda:
+        raise ValueError("agc_ff scan probe: runs on a CUDA device only")
+    if x.dim() != 1 or x.dtype != torch.float32 \
+            or not 0 < x.shape[0] <= PROBE_MAX:
+        raise ValueError(f"agc_ff scan probe: want 1 to {PROBE_MAX} float32 "
+                         f"samples, got {tuple(x.shape)} {x.dtype}")
+    x = x.contiguous()
+    g = np.float32(gain)
+    pk = np.float32(float(reference) / float(g)) if peak is None \
+        else np.float32(peak)
+    cycles = torch.zeros(1, dtype=torch.int64, device=x.device)
+    sink = torch.zeros(2, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(_build.lib().csdr_agc_ff_chain_probe(
+        cycles.data_ptr(), x.data_ptr(), x.shape[0], np.float32(reference),
+        np.float32(attack_rate), np.float32(decay_rate),
+        np.float32(max_gain), np.float32(gain_filter_alpha),
+        _int32(hang_time, "hang_time"),
+        _int32(attack_wait_time, "attack_wait_time"), g, int(hang), pk,
+        int(awc), sink.data_ptr(), stream), "agc_ff scan probe")
+    if float(sink[1]) != 1.0:
+        raise RuntimeError("agc_ff scan probe: the chain's last gain is not "
+                           "the step's")
+    return int(cycles.item()) / x.shape[0]
+
+
+def _host(v):
+    return v.item() if isinstance(v, torch.Tensor) else v
+
+
+def scan_plain(x: torch.Tensor, gain, hang, peak, awc, started=False,
+               reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+               max_gain=65536.0, hang_time=200, attack_wait_time=0,
+               gain_filter_alpha=0.999):
+    """:func:`scan` one sample at a time in numpy float32 on the host (the
+    reference libcsdr_gpl.c:163-260); the state may be numbers or tensors.
+    Returns CPU tensors."""
+    f32 = np.float32
+    xs = x.detach().float().cpu().numpy()
+    ref, ar, dr = f32(reference), f32(attack_rate), f32(decay_rate)
+    mg, alpha, zero = f32(max_gain), f32(gain_filter_alpha), f32(0.0)
+    g, pk = f32(_host(gain)), f32(_host(peak))
+    hang, awc = int(_host(hang)), int(_host(awc))
+    y = np.empty_like(xs)
+    with np.errstate(all="ignore"):       # ref/|x| -> inf is the reference's
+        for i, xi in enumerate(xs):
+            if i == 0 and not bool(started):
+                y[0] = g * xi
+                continue
+            gain = g
+            if xi != 0:
+                input_abs = abs(xi)
+                error = ref / input_abs - g
+                if error < 0:                       # louder: attack
+                    if pk < input_abs:
+                        pk, awc = input_abs, attack_wait_time
+                    if awc > 0:
+                        awc -= 1
+                    else:
+                        gain = g + error * ar
+                        hang = hang_time
+                elif hang > 0:                      # quieter, hanging
+                    hang -= 1
+                else:                               # quieter: decay
+                    gain = g + error * dr
+            gain = min(max(gain, zero), mg)
+            g = gain + g - alpha * g
+            y[i] = g * xi
+    return (torch.from_numpy(y), torch.tensor(g, dtype=torch.float32),
+            torch.tensor(hang, dtype=torch.int32),
+            torch.tensor(pk, dtype=torch.float32),
+            torch.tensor(awc, dtype=torch.int32))

@@ -5,8 +5,15 @@ there).
 csdr_tpu compiles the loop over symbol slots into one device loop.  In
 eager torch the same loop is a Python loop of ~43 small ops a slot (9 929
 launches a chunk of BASELINE config 5), so it is hand-written CUDA,
-``csrc/ted.cu``: one thread a (row, segment) lane, every slot in
-registers, one launch a call, bit for bit :func:`scan_plain`.
+``csrc/ted.cu``: one block a (row, segment) lane, one thread on its
+chain with every slot in registers, one launch a call, bit for bit
+:func:`scan_plain`.  The lane's row streams through a ring of tiles in
+shared memory ahead of the chain (:func:`ring_plan` lays it out), so the
+chain reads its picks from shared memory, not L2.  A parameter set whose
+walk may step backwards (a correction of more than a symbol), whose
+correction is unbounded, or whose window does not fit the ring, goes to
+the first design, the picks read from L2 (``csdr_ted_scan_l2``), chosen
+from the parameters alone before launch and counted under its own key.
 :func:`chain_cycles` measures on the card the chain that bounds the
 function: a slot's picks from shared memory and its arithmetic.
 
@@ -19,21 +26,26 @@ slot, v (..., cap, 3, 2) float32 (the right, left and mid picks), the raw
 error (..., cap) float32, bitstart at the slot (..., cap) int32 and emit
 (..., cap) bool.
 
-The wrapper launches the kernel for CUDA tensors, or raises; it takes the
-plain version only for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+The wrapper launches a kernel for CUDA tensors, or raises; it takes the
+plain version only for CPU tensors.  ``LAUNCHES`` counts kernel launches:
+``ted_scan`` the ring, ``ted_scan_l2`` the L2 route.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from csdr_tpu_torch.core.precision import fma_f32
 from csdr_tpu_torch.kernels import _build
 
-LAUNCHES = {"ted_scan": 0}
+LAUNCHES = {"ted_scan": 0, "ted_scan_l2": 0}
 PROBE_WINDOW = 4096     # complex samples the probe stages (csrc/ted.cu)
+RING_TILES = 4          # ring slots: the window's two tiles and two ahead
+RING_MIN_TILE = 2048    # complex samples a tile, at least
+RING_MAX_BYTES = 128 * 1024   # the ring's shared memory, at most
 
 
 def reset_launches() -> None:
@@ -67,6 +79,83 @@ class TedParams(NamedTuple):
         return -1.0 if self.gardner else 1.0
 
 
+def max_correction(params: TedParams) -> int | None:
+    """The largest |new_corr| a slot can give, computed as the kernel
+    computes a correction: trunc((gain*e)*loop_gain) in float32 for the
+    largest |e| the clamp lets through, |max_error| (a NaN error gives 0).
+    None when it is unbounded: a constant that is not finite (a NaN or
+    infinite max_error does not clamp) or a product past int32."""
+    f32 = np.float32
+    gain = f32(params.nshb * params.err_sign)
+    m, lg = f32(params.max_error), f32(params.loop_gain)
+    if not (np.isfinite(gain) and np.isfinite(m) and np.isfinite(lg)):
+        return None
+    with np.errstate(over="ignore"):
+        v = abs(f32(f32(gain * m) * lg))
+    if not np.isfinite(v) or v >= 2.0 ** 31:
+        return None
+    return int(v)
+
+
+class RingPlan(NamedTuple):
+    """How the TED kernel streams a row (:func:`ring_plan`): the route
+    ("ring", or "l2" for the L2 design), ``tile`` complex samples a tile (a
+    power of two), ``tiles`` ring slots, ``lo_off`` and ``hi_off`` the
+    lowest and highest pick relative to bitstart in any slot, ``lead`` the
+    samples the copies may run past the end of the window's last tile (at
+    least), ``trail`` the samples kept behind the window's first tile (0:
+    the walk never steps back), and why."""
+    route: str
+    tile: int
+    tiles: int
+    lo_off: int
+    hi_off: int
+    lead: int
+    trail: int
+    why: str
+
+
+def ring_plan(size: int, params: TedParams) -> RingPlan:
+    """The ring's layout for a block's constants, from the parameters
+    alone.  A slot moves bitstart by nsb + new_corr, |new_corr| <= c =
+    :func:`max_correction`; its picks lie in [bitstart + lo_off, bitstart +
+    hi_off] (early-late's left pick moves by -corr, |corr| < 0.9*nsqb after
+    the reset, whatever corr a lane starts with), clamped to [0, size-1].
+    With c <= nsb bitstart never decreases, so that envelope never returns
+    to a tile it left (a pick may: early-late's left pick after a large
+    correction lands up to 0.9*nsqb below the slot before's), and the
+    kernel publishes the envelope's lowest tile as the one the copies must
+    keep: the ring keeps the window's tiles and the copies run ahead.  A
+    tile is at least as wide as the window and as a slot's longest step
+    (nsb + c), so the window spans at most two tiles and the copies run
+    at least RING_TILES - 2 tiles ahead of it; a row shorter than that
+    tile takes a tile its own length.  Otherwise the
+    route is "l2": c > nsb (bitstart may step back by c - nsb a slot, with
+    no bound over many slots), c unbounded, or a ring past
+    RING_MAX_BYTES."""
+    p = params
+    c = max_correction(p)
+    cb = 0 if p.gardner else p.nsqb
+    lo = min(p.offs[0], p.offs[1] - cb, p.offs[2])
+    hi = max(p.offs[0], p.offs[1] + cb, p.offs[2])
+    if c is None:
+        return RingPlan("l2", 0, 0, lo, hi, 0, 0, "the correction is "
+                        "unbounded (a constant not finite, or past int32)")
+    if c > p.nsb:
+        return RingPlan("l2", 0, 0, lo, hi, 0, 0, f"bitstart may step back: "
+                        f"|corr| up to {c} > nsb {p.nsb}")
+    tile = RING_MIN_TILE
+    while tile < max(hi - lo + 1, p.nsb + c):
+        tile *= 2
+    # a row shorter than a tile is one tile: every window lies in it
+    tile = min(tile, max(16, 1 << max(size - 1, 1).bit_length()))
+    if RING_TILES * tile * 8 > RING_MAX_BYTES:
+        return RingPlan("l2", 0, 0, lo, hi, 0, 0, f"a ring of {RING_TILES} "
+                        f"tiles of {tile} samples passes {RING_MAX_BYTES} B")
+    return RingPlan("ring", tile, RING_TILES, lo, hi,
+                    (RING_TILES - 2) * tile, 0, "bitstart never decreases")
+
+
 def _check(planes, size, bitstart, corr, span_hi, emit_lo):
     if planes.dtype != torch.float32 or planes.dim() != 2 \
             or planes.shape[1] != 2 * size:
@@ -96,8 +185,9 @@ def scan(planes: torch.Tensor, size: int, bitstart: torch.Tensor,
          corr: torch.Tensor, cap: int, span_hi=None, emit_lo=None, *,
          params: TedParams):
     """``cap`` symbol slots for every lane of ``bitstart`` over ``planes``
-    (module docstring).  CUDA tensors launch the kernel; CPU tensors take
-    :func:`scan_plain`."""
+    (module docstring).  CUDA tensors launch the kernel, through the ring
+    or, where :func:`ring_plan` routes the parameters there, the L2
+    design; CPU tensors take :func:`scan_plain`."""
     _check(planes, size, bitstart, corr, span_hi, emit_lo)
     if not planes.is_cuda:
         return scan_plain(planes, size, bitstart, corr, cap, span_hi,
@@ -119,14 +209,23 @@ def scan(planes: torch.Tensor, size: int, bitstart: torch.Tensor,
     segs = lead[1] if len(lead) == 2 else 1
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [t.data_ptr() if t is not None else None for t in ins]
-    code = _build.lib().csdr_ted_scan(
-        planes.data_ptr(), size, ptr[0], ptr[1], ptr[2], ptr[3], lead[0],
-        segs, cap, p.nsb, p.nshb, p.nsqb, *p.offs, int(p.gardner),
-        int(p.use_q), p.max_error, p.err_sign, p.loop_gain,
-        bs_out.data_ptr(), corr_out.data_ptr(), v.data_ptr(),
-        errs.data_ptr(), starts.data_ptr(), emits.data_ptr(), stream)
-    _build.check(code, "ted_scan")
-    LAUNCHES["ted_scan"] += 1
+    args = (planes.data_ptr(), size, ptr[0], ptr[1], ptr[2], ptr[3],
+            lead[0], segs, cap, p.nsb, p.nshb, p.nsqb, *p.offs,
+            int(p.gardner), int(p.use_q), p.max_error, p.err_sign,
+            p.loop_gain)
+    outs = (bs_out.data_ptr(), corr_out.data_ptr(), v.data_ptr(),
+            errs.data_ptr(), starts.data_ptr(), emits.data_ptr(), stream)
+    plan = ring_plan(size, p)
+    if plan.route == "ring":
+        key = "ted_scan"
+        code = _build.lib().csdr_ted_scan(
+            *args, plan.tile.bit_length() - 1, plan.tiles, plan.lo_off,
+            *outs)
+    else:
+        key = "ted_scan_l2"
+        code = _build.lib().csdr_ted_scan_l2(*args, *outs)
+    _build.check(code, key)
+    LAUNCHES[key] += 1
     return bs_out, corr_out, v, errs, starts, emits
 
 

@@ -8,11 +8,11 @@ simple_agc_cc, the 1-pole AGC.
   as a log-depth affine scan.
 - ``agc_ff`` is a nonlinear per-sample recurrence (hang counters, peak
   memory, attack and decay branches).  Its exact form runs sample by sample
-  in float32 on the host and takes CPU tensors only: the reference form,
-  slow by nature (``agc_block(method="scan")``, in a pipeline run with
-  ``device="cpu"``).  ``agc_ff_chunked`` is the device form the receivers
-  use: per-chunk affine scans relaxed to a fixpoint of their branch
-  masks, one kernel launch a call on the card (``kernels/agc_cuda``).
+  on the stream's device: one kernel launch a call on the card
+  (``kernels/agc_cuda.scan``, ``agc_block(method="scan")``), the numpy
+  float32 loop on the CPU.  ``agc_ff_chunked`` is the form the receivers
+  use: per-chunk affine scans relaxed to a fixpoint of their branch masks,
+  one kernel launch a call on the card (``kernels/agc_cuda.relax``).
 """
 
 from __future__ import annotations
@@ -120,8 +120,29 @@ def simple_agc_block(rate: float, reference: float = 1.0,
 # agc_ff: the exact recurrence
 # ---------------------------------------------------------------------------
 
-def _f32(v) -> np.float32:
-    return np.float32(v.item() if isinstance(v, torch.Tensor) else v)
+def _first_peak(reference, last_gain):
+    """The peak memory's start, reference/last_gain rounded once to float32
+    (the quotient of the float32 gain in double, as csdr_tpu's host value
+    divides): on the card when the gain is there, else on the host."""
+    if isinstance(last_gain, torch.Tensor) and last_gain.device.type != "cpu":
+        ref = torch.full((), float(reference), dtype=torch.float64,
+                         device=last_gain.device)
+        return (ref / last_gain.reshape(()).double()).float()
+    g = np.float32(last_gain.item() if isinstance(last_gain, torch.Tensor)
+                   else last_gain)
+    return np.float32(float(reference) / float(g))
+
+
+def _on_card(v, dtype, dev):
+    """A state value as the kernel takes it: a tensor already on ``dev``
+    as it is, a number or CPU tensor uploaded (one-shot calls; a streaming
+    block carries its state on the card and uploads nothing)."""
+    if isinstance(v, torch.Tensor):
+        if v.device != torch.device("cpu"):
+            return v
+        v = v.item()
+    v = np.float32(v) if dtype == torch.float32 else int(v)
+    return torch.tensor(v, dtype=dtype, device=dev)
 
 
 def agc_ff(x: torch.Tensor, reference=0.2, attack_rate=0.01,
@@ -130,64 +151,31 @@ def agc_ff(x: torch.Tensor, reference=0.2, attack_rate=0.01,
            last_hang=0, last_peak=None, last_awc=0, started=False,
            full_state=False):
     """Full AGC with hang/attack-wait and the gain IIR (reference
-    libcsdr_gpl.c:163-260), one sample at a time in float32 on the host.
-    Defaults are the reference CLI's (csdr.c:2018-2044).  ``x`` must be a
-    CPU tensor: a stream on the card takes agc_ff_chunked.
+    libcsdr_gpl.c:163-260), one sample at a time in float32 on the
+    stream's device: one launch of ``kernels/agc_cuda.scan``'s kernel on
+    the card, its plain version (the numpy loop) on the CPU.  Defaults are
+    the reference CLI's (csdr.c:2018-2044).
 
     Returns (y, next_gain), or (y, next_gain, next_hang, next_peak,
-    next_awc) with full_state=True, all CPU tensors, the state scalars
-    0-dim.  Streaming callers thread all of it plus
+    next_awc) with full_state=True, the state scalars 0-dim tensors on the
+    stream's device.  Streaming callers thread all of it plus
     ``started=True`` after the first chunk, which makes the output
     independent of the chunking: the reference's skip of sample 0 (output
     last_gain*input[0], state unchanged) applies only at the true stream
     start, as in csdr_tpu.  Otherwise sample for sample the reference,
     including output[0] = last_gain*input[0] and the "dc-pass" gain filter
     y_gain = gain + last_gain - alpha*last_gain."""
-    if x.device.type != "cpu":
-        raise ValueError(f"agc_ff: the exact per-sample scan runs on the "
-                         f"host and takes CPU tensors, not {x.device}; use "
-                         f"agc_ff_chunked (agc_block's default) on the card")
-    f32 = np.float32
-    xs = x.detach().float().numpy()
-    ref, ar, dr = f32(reference), f32(attack_rate), f32(decay_rate)
-    mg, alpha, zero = f32(max_gain), f32(gain_filter_alpha), f32(0.0)
-    g = _f32(last_gain)
-    peak = (f32(float(reference) / float(g)) if last_peak is None
-            else _f32(last_peak))
-    hang, awc = int(last_hang), int(last_awc)
-    y = np.empty_like(xs)
-    with np.errstate(all="ignore"):       # ref/|x| -> inf is the reference's
-        for i, xi in enumerate(xs):
-            if i == 0 and not bool(started):
-                y[0] = g * xi
-                continue
-            gain = g
-            if xi != 0:
-                input_abs = abs(xi)
-                error = ref / input_abs - g
-                if error < 0:                       # louder: attack
-                    if peak < input_abs:
-                        peak, awc = input_abs, attack_wait_time
-                    if awc > 0:
-                        awc -= 1
-                    else:
-                        gain = g + error * ar
-                        hang = hang_time
-                elif hang > 0:                      # quieter, hanging
-                    hang -= 1
-                else:                               # quieter: decay
-                    gain = g + error * dr
-            gain = min(max(gain, zero), mg)
-            g = gain + g - alpha * g
-            y[i] = g * xi
-    out = torch.from_numpy(y)
-
-    def cpu(v, dtype):
-        return torch.tensor(v, dtype=dtype)
-    if not full_state:
-        return out, cpu(g, torch.float32)
-    return (out, cpu(g, torch.float32), cpu(hang, torch.int32),
-            cpu(peak, torch.float32), cpu(awc, torch.int32))
+    x = x.float()
+    if last_peak is None:
+        last_peak = _first_peak(reference, last_gain)
+    state = (last_gain, last_hang, last_peak, last_awc)
+    if x.is_cuda:
+        state = tuple(_on_card(v, dtype, x.device) for v, dtype in zip(
+            state, (torch.float32, torch.int32, torch.float32, torch.int32)))
+    y, g, h, p, a = agc_cuda.scan(
+        x, *state, started, reference, attack_rate, decay_rate, max_gain,
+        hang_time, attack_wait_time, gain_filter_alpha)
+    return (y, g, h, p, a) if full_state else (y, g)
 
 
 # ---------------------------------------------------------------------------
@@ -232,13 +220,13 @@ def agc_ff_chunked(x: torch.Tensor, reference=0.2, attack_rate=0.01,
 
 class AgcBlock(Block):
     """Streaming agc_ff.  method="chunked" (the default) runs
-    agc_ff_chunked on the stream's device, state (gain, hang, started);
-    method="scan" runs the exact recurrence on the host, state (gain, hang,
-    peak, attack-wait, started), and is built for the CPU only (init on
-    another device raises).  Both carry the whole recurrence state and
-    the ``started`` flag, so the output does not depend on the chunking and
-    the two methods agree across chunk boundaries.  ``started`` is a host
-    flag (a 0-dim CPU tensor): it depends only on the chunk lengths."""
+    agc_ff_chunked, state (gain, hang, started); method="scan" runs the
+    exact recurrence (one launch of the exact kernel a chunk on the card),
+    state (gain, hang, peak, attack-wait, started).  Both run on the
+    stream's device, carry the whole recurrence state and the ``started``
+    flag, so the output does not depend on the chunking and the two methods
+    agree across chunk boundaries.  ``started`` is a host flag (a 0-dim CPU
+    tensor): it depends only on the chunk lengths."""
 
     def __init__(self, method: str = "chunked", **params):
         super().__init__("agc_ff")
@@ -258,18 +246,14 @@ class AgcBlock(Block):
         dev = resolve_device(device)
         g = self.params.get("last_gain", 1.0)
         started = torch.tensor(False)
+        gain = torch.tensor(g, dtype=torch.float32, device=dev)
+        hang = torch.zeros((), dtype=torch.int32, device=dev)
         if self.method == "chunked":
-            return (torch.tensor(g, dtype=torch.float32, device=dev),
-                    torch.zeros((), dtype=torch.int32, device=dev), started)
-        if dev.type != "cpu":
-            raise ValueError(f"agc method 'scan' runs on the host: run the "
-                             f"pipeline with device='cpu', not {dev}, or use "
-                             f"method='chunked'")
-        return (torch.tensor(g, dtype=torch.float32),
-                torch.zeros((), dtype=torch.int32),
-                torch.tensor(np.float32(self.params.get("reference", 0.2)
-                                        / g)),
-                torch.zeros((), dtype=torch.int32), started)
+            return gain, hang, started
+        peak = torch.tensor(np.float32(self.params.get("reference", 0.2) / g),
+                            device=dev)
+        return (gain, hang, peak, torch.zeros((), dtype=torch.int32,
+                                              device=dev), started)
 
     def forward(self, state, x):
         p = dict(self.params)

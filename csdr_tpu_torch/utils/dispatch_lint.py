@@ -191,7 +191,7 @@ PLAIN_VERSIONS = {
                    "decode_plain": "adpcm_decode"},
     "probe_cuda": {"fma_chain_plain": "fma_chain"},
     "ted_cuda": {"scan_plain": "ted_scan"},
-    "agc_cuda": {"relax_plain": "agc_relax"},
+    "agc_cuda": {"relax_plain": "agc_relax", "scan_plain": "agc_ff_scan"},
 }
 
 

@@ -150,12 +150,47 @@ def test_agc_block_refuses_what_chunked_cannot_model():
     with pytest.raises(ValueError, match="method"):
         tagc.agc_block(method="serial")
     assert tagc.agc_block(method="scan", attack_wait_time=3).method == "scan"
-    # the exact scan runs on the host: a stream on another device is
-    # refused, not copied there ("meta" stands in for the card here)
-    with pytest.raises(ValueError, match="host"):
-        tagc.agc_block(method="scan").init("meta")
-    with pytest.raises(ValueError, match="host"):
+    # the exact scan runs on the stream's device: init builds its state
+    # there ("meta" stands in for the card here; the started flag stays a
+    # host flag), and a stream on a device that has neither the kernel nor
+    # the plain version is refused, not copied to the host
+    state = tagc.agc_block(method="scan").init("meta")
+    assert [t.device.type for t in state] == ["meta"] * 4 + ["cpu"]
+    assert [t.dtype for t in state[:4]] == [torch.float32, torch.int32,
+                                            torch.float32, torch.int32]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         tagc.agc_ff(torch.zeros(4, device="meta"))
+
+
+@pytest.mark.parametrize("wait", [0, 5])
+def test_agc_scan_block_streams_as_one_call_and_matches_jax(wait):
+    """agc_block(method="scan") streamed at several chunk sizes gives one
+    agc_ff call's output and state bit for bit, and csdr_tpu's agc_ff at
+    the bars above (90 dB on y, 1e-5 relative on gain and peak, the
+    counters exactly), with attack wait 0 and 5."""
+    s = _agc_signal(20_000)
+    y1, *st1 = tagc.agc_ff(_t(s), attack_wait_time=wait, full_state=True)
+    yj, gj, hj, pj, aj = jagc.agc_ff(jnp.asarray(s), attack_wait_time=wait,
+                                     full_state=True)
+    assert_snr(np.asarray(yj), y1.numpy(), 90, f"agc_ff wait {wait}")
+    assert (int(st1[1]), int(st1[3])) == (int(hj), int(aj))
+    assert abs(float(st1[0]) - float(gj)) <= 1e-5 * abs(float(gj))
+    assert abs(float(st1[2]) - float(pj)) <= 1e-5 * abs(float(pj))
+    blk = tagc.agc_block(method="scan", attack_wait_time=wait)
+    for cuts in ([4096], [7919], [1, 999, 8192, 1]):
+        state, parts, at, k = blk.init("cpu"), [], 0, 0
+        while at < len(s):
+            n = cuts[k % len(cuts)]
+            state, y = blk(state, _t(s[at:at + n]))
+            parts.append(y)
+            at, k = at + n, k + 1
+        y = torch.cat(parts)
+        assert np.array_equal(y.numpy().view(np.int32),
+                              y1.numpy().view(np.int32)), cuts
+        for a, b in zip(state[:4], st1):
+            assert a.dtype == b.dtype and torch.equal(
+                a.reshape(()).view(torch.int32) if a.is_floating_point()
+                else a, b.view(torch.int32) if b.is_floating_point() else b)
 
 
 @pytest.mark.parametrize("method", ["chunked", "scan"])

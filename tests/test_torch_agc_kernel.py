@@ -1,7 +1,10 @@
 """The chunked AGC's kernel (``csrc/agc.cu``, ``kernels/agc_cuda.relax``)
 on the CPU: a model of the kernel's control flow in numpy float32 against
 the port's ``agc_ff_chunked`` (its plain version here), bit for bit, and the
-wrapper's routing and refusals.
+wrapper's routing and refusals.  Then the exact scan's kernel
+(``csrc/agc_exact.cu``, ``kernels/agc_cuda.scan``): its cases streamed
+through ``agc_block(method="scan")``, the wrapper's routing and
+refusals, and the CLI's ``agc_ff`` with an attack wait reaching it.
 
 The model (:func:`agc_model`) does what the kernel does and the plain
 version does not: each chunk leaves its inner relaxation at the first
@@ -249,17 +252,251 @@ def test_relax_refuses_what_the_kernel_cannot_take(kw, match):
         agc_cuda.relax(torch.ones(2, 8).as_subclass(_OnTheCard))
 
 
-def test_cli_agc_with_attack_wait_stops_on_the_card(monkeypatch, capsys):
-    """agc_ff with an attack wait time is the exact per-sample scan, which
-    runs on the host: under a CUDA device (the CLI's default) it stops at
-    once and names --device cpu, and its help says so."""
+class _FakeLib:
+    """The kernel library's exact-scan entry point, recording its launches
+    and launching nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def csdr_agc_ff_scan(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_cli_agc_with_attack_wait_stops_on_the_card(monkeypatch):
+    """agc_ff with an attack wait time is the exact per-sample scan.  It
+    used to stop under a CUDA device; since the scan has a kernel it no
+    longer stops there: under a CUDA device (the CLI's default) the CLI
+    builds agc_block(method="scan") and a step of it reaches the kernel's
+    launch with the command's parameters (the library stubbed, a CPU
+    tensor that says it is on the card standing in for a chunk), in both
+    argument forms; the help names no host-only path."""
+    import types
     monkeypatch.setattr(cli, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    lib = _FakeLib()
+    monkeypatch.setattr(agc_cuda._build, "lib", lambda: lib)
+    seen = []
+
+    def pump(block, in_fmt, out_fmt, **kw):
+        seen.append((block.method, cli._dev().type))
+        x = torch.from_numpy(agc_signal(3000)).as_subclass(_OnTheCard)
+        block(block.init("cpu"), x)
+    monkeypatch.setattr(cli, "pump", pump)
+    n0 = agc_cuda.LAUNCHES["agc_ff_scan"]
     argv = ["csdr_tpu_torch", "agc_ff", "200", "0.2", "0.01", "0.0001",
             "65536", "5"]
-    assert cli.main(argv) == 1
-    err = capsys.readouterr().err
-    assert "--device cpu" in err and "host only" in err
-    assert "usage: csdr_tpu_torch agc_ff" in err
-    assert "--device cpu" in cli.USAGE["agc_ff"]
-    assert cli.main(argv[:-1] + ["--attackwait", "3"]) == 1
-    assert "--device cpu" in capsys.readouterr().err
+    assert not cli.main(argv)
+    assert not cli.main(["csdr_tpu_torch", "agc_ff", "--attackwait", "3"])
+    assert seen == [("scan", "cuda")] * 2
+    assert agc_cuda.LAUNCHES["agc_ff_scan"] == n0 + 2
+    (x, n, started, *f, hang, wait), (*_, wait3) = (
+        c[:10] for c in lib.calls)
+    assert (n, started, hang, wait, wait3) == (3000, 0, 200, 5, 3)
+    assert [float(v) for v in f] == [float(F32(v)) for v in (
+        0.2, 0.01, 0.0001, 65536, 0.999)]
+    assert "host" not in cli.USAGE["agc_ff"]
+    assert "--device cpu" not in cli.USAGE["agc_ff"]
+
+
+# name -> (input, agc_ff's keyword arguments): the cases the exact scan's
+# kernel is held to on the card (tests/test_torch_kernels.py; chip_smoke.py
+# at its own sizes): the zero run at three attack waits, a continuation
+# with a carried state, one sample, a NaN and an inf
+def _nan_inf():
+    s = agc_signal(6000)
+    s[1000], s[3000], s[3001] = np.nan, np.inf, -np.inf
+    return s
+
+
+def _edges():
+    """Samples that reach the clamp's and the error's edge cases: -0.0
+    and subnormals (ref/|x| overflows to inf: the decay's sum is inf, the
+    clamp's high end), loud bursts (at attack rate 2.5 the gain falls
+    below 0: its low end)."""
+    s = speech_like(6000, 11)
+    s[100:110] = -0.0
+    s[500:520] = np.float32(1e-40)
+    s[2000:2040] = np.float32(3e4)
+    s[2040:2050] = -np.float32(1e-44)
+    return s
+
+
+SCAN_CASES = {
+    "wait0": (lambda: agc_signal(), {}),
+    "wait5": (lambda: agc_signal(), {"attack_wait_time": 5}),
+    "wait200": (lambda: agc_signal(), {"attack_wait_time": 200}),
+    "continuing": (lambda: speech_like(9000, 7),
+                   {"attack_wait_time": 5, "started": True,
+                    "last_gain": 3.7, "last_hang": 57, "last_peak": 0.031,
+                    "last_awc": 2}),
+    "n1": (lambda: np.array([0.5], F32), {"attack_wait_time": 5,
+                                          "last_gain": 2.0}),
+    "nan_inf": (_nan_inf, {"attack_wait_time": 5}),
+    "edges": (_edges, {"attack_wait_time": 3, "hang_time": 20,
+                       "attack_rate": 2.5, "max_gain": 50.0,
+                       "started": True, "last_gain": 0.5,
+                       "last_peak": 0.05}),
+    "max_gain_negative": (lambda: agc_signal(3000),
+                          {"attack_wait_time": 2, "max_gain": -1.0}),
+}
+
+
+def exact_step_model(x, gain, hang, peak, awc, started=False,
+                     reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+                     max_gain=65536.0, hang_time=200, attack_wait_time=0,
+                     gain_filter_alpha=0.999):
+    """csrc/agc_exact.cu's exact_step in numpy float32, select for select:
+    the attack keyed on q < g, both rates' sums, the gain selected among g
+    and them, the clamp as two compares of the selected gain and two
+    selects.  Returns (y, gain, hang, peak, awc) and the samples that took
+    the clamp's low end, its high end, and an infinite quotient."""
+    ref, ar, dr = F32(reference), F32(attack_rate), F32(decay_rate)
+    mg, alpha = F32(max_gain), F32(gain_filter_alpha)
+    floor = mg if mg < F32(0) else F32(0)
+    g, pk, hang, awc = F32(gain), F32(peak), int(hang), int(awc)
+    y = np.empty_like(x)
+    hits = {"low": 0, "high": 0, "inf_q": 0}
+    with np.errstate(all="ignore"):
+        for i, xi in enumerate(x):
+            if i == 0 and not started:
+                y[0] = g * xi
+                continue
+            ia = abs(xi)
+            q = ref / ia
+            hits["inf_q"] += bool(xi != 0 and np.isinf(q))
+            error = q - g
+            nz = xi != 0
+            attack, decay = nz and q < g, nz and not q < g
+            newpeak = attack and pk < ia
+            pk = ia if newpeak else pk
+            a = attack_wait_time if newpeak else awc
+            waiting, hanging = a > 0, hang > 0
+            up, down = g + error * ar, g + error * dr
+            gain = (g if waiting else up) if attack else (
+                down if decay and not hanging else g)
+            awc = (a - 1 if waiting else a) if attack else awc
+            hang = (hang if waiting else hang_time) if attack else (
+                hang - 1 if decay and hanging else hang)
+            low, high = F32(0) > gain, mg < gain
+            gain = mg if high else gain
+            gain = floor if low else gain
+            hits["low"] += low
+            hits["high"] += high and not low
+            g = gain + g - alpha * g
+            y[i] = g * xi
+    return y, g, hang, pk, awc, hits
+
+
+# the model's cases: the kernel's, and a gain of -0.0 kept by the clamp
+# while the hang holds it (agc_block's init divides by the gain, so this
+# one is not streamed)
+MODEL_CASES = dict(SCAN_CASES, negative_zero_gain=(
+    lambda: speech_like(3000, 12),
+    {"attack_wait_time": 2, "started": True, "last_gain": -0.0,
+     "last_hang": 4, "last_peak": 0.05}))
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_exact_step_model_equals_the_host_loop(name):
+    """The kernel's branch-free step (exact_step_model) against the host
+    loop agc_cuda.scan_plain, bit for bit with NaNs compared by place: y
+    and the final gain, hang, peak and attack-wait count; the edge cases
+    reach both ends of the clamp and an infinite quotient."""
+    x, kw = MODEL_CASES[name][0](), dict(MODEL_CASES[name][1])
+    state = (F32(kw.pop("last_gain", 1.0)), kw.pop("last_hang", 0))
+    peak = kw.pop("last_peak", None)
+    state += (F32(0.2 / float(state[0])) if peak is None else F32(peak),
+              kw.pop("last_awc", 0))
+    *got, hits = exact_step_model(x, *state, **kw)
+    want = agc_cuda.scan_plain(torch.from_numpy(x), *state, **kw)
+    y = want[0].numpy()
+    assert np.array_equal(np.isnan(got[0]), np.isnan(y))
+    ok = ~np.isnan(y)
+    assert np.array_equal(got[0][ok].view(np.int32), y[ok].view(np.int32))
+    for a, b in zip(got[1:], want[1:]):
+        assert np.array_equal(np.asarray(a, b.numpy().dtype).view(np.int32),
+                              b.numpy().view(np.int32)), name
+    if name == "edges":
+        assert min(hits.values()) > 0, hits
+
+
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_scan_block_streams_each_case_as_one_call(name):
+    """agc_block(method="scan") over each case in three chunks (from the
+    case's state) gives the one-call output and state bit for bit: the
+    stream's start is skipped once, the counters and the peak carry."""
+    make, kw = SCAN_CASES[name]
+    x = make()
+    kw = dict(kw)
+    started = kw.pop("started", False)
+    peak, awc = kw.pop("last_peak", None), kw.pop("last_awc", 0)
+    y1, *st1 = agc.agc_ff(torch.from_numpy(x), full_state=True,
+                          started=started, last_peak=peak, last_awc=awc,
+                          **kw)
+    blk = agc.agc_block(method="scan", **kw)
+    state = list(blk.init("cpu"))
+    if peak is not None:
+        state[2] = torch.tensor(F32(peak))
+    state[1] = torch.tensor(kw.get("last_hang", 0), dtype=torch.int32)
+    state[3], state[4] = torch.tensor(awc, dtype=torch.int32), \
+        torch.tensor(started)
+    state, parts = tuple(state), []
+    for part in np.array_split(x, 3):
+        state, y = blk(state, torch.from_numpy(part))
+        parts.append(y)
+    y = torch.cat(parts)
+    assert np.array_equal(y.numpy().view(np.int32), y1.numpy().view(np.int32))
+    for a, b in zip(state[:4], st1):
+        assert a.dtype == b.dtype
+        assert np.array_equal(a.numpy().view(np.int32),
+                              b.numpy().view(np.int32))
+    if name == "nan_inf":
+        assert np.isnan(y.numpy()).any()
+
+
+def test_scan_sends_cpu_tensors_to_its_plain_version(monkeypatch):
+    """agc_cuda.scan calls scan_plain through the module (so the lint's
+    stand-in sees it) and counts no launch."""
+    seen = []
+
+    def plain(*a, **k):
+        seen.append(a[0])
+        return "plain"
+    n0 = dict(agc_cuda.LAUNCHES)
+    monkeypatch.setattr(agc_cuda, "scan_plain", plain)
+    x = torch.ones(300)
+    assert agc_cuda.scan(x, 1.0, 0, 0.2, 0) == "plain" and seen[0] is x
+    assert agc_cuda.LAUNCHES == n0
+
+
+def test_scan_refuses_what_the_kernel_cannot_take():
+    """A 2-D stream, samples that are not float32, a state on another
+    device or of another type, and counters that are not int32."""
+    x = torch.ones(100).as_subclass(_OnTheCard)
+    state = [torch.tensor(1.0), torch.tensor(0, dtype=torch.int32),
+             torch.tensor(0.2), torch.tensor(0, dtype=torch.int32)]
+    with pytest.raises(TypeError, match="1-D"):
+        agc_cuda.scan(torch.ones(2, 8).as_subclass(_OnTheCard), *state)
+    with pytest.raises(TypeError, match="float32"):
+        agc_cuda.scan(torch.ones(100, dtype=torch.float64).as_subclass(
+            _OnTheCard), *state)
+    for i in range(4):
+        moved = list(state)
+        moved[i] = torch.zeros((), dtype=state[i].dtype, device="meta")
+        with pytest.raises(ValueError, match="the stream on"):
+            agc_cuda.scan(x, *moved)
+    with pytest.raises(TypeError, match="int32"):
+        agc_cuda.scan(x, state[0], torch.tensor(0.0), *state[2:])
+    with pytest.raises(TypeError, match="one element"):
+        agc_cuda.scan(x, 1.0, *state[1:])
+    with pytest.raises(ValueError, match="not an int32"):
+        agc_cuda.scan(x, *state, hang_time=200.5)
+    with pytest.raises(ValueError, match="not an int32"):
+        agc_cuda.scan(x, *state, attack_wait_time=1 << 31)
+    with pytest.raises(ValueError, match="CUDA device only"):
+        agc_cuda.exact_cycles(torch.ones(16))

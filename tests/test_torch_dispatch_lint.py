@@ -231,6 +231,30 @@ def test_agc_step_is_one_kernel_launch():
     assert agc_cuda.relax_plain.__module__ == agc_cuda.__name__
 
 
+def test_agc_scan_step_is_one_kernel_launch():
+    """An exact-scan AGC step (an attack wait), from the stream's start and
+    continuing, is one launch of the exact scan's kernel (its plain
+    version standing in for it on the CPU), no host sync and no upload:
+    the recurrence is inside the kernel, its state on the stream's
+    device."""
+    blk = agc.agc_block(method="scan", attack_wait_time=5)
+
+    def make_args(n):
+        return blk.init("cpu"), torch.from_numpy(
+            np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    found, counts = dl.lint_lengths(blk, make_args, (3000, 6000))
+    assert found == [], counts
+    for c in counts.values():
+        assert c["kernel_launches"] == {"agc_ff_scan": 1}, counts
+        assert c["syncs"] == 0 and c["uploads"] == 0, counts
+        assert c["launching"] < 8, counts
+    state, _ = blk(blk.init("cpu"), make_args(500)[1])
+    trace, _ = dl.trace_fn(blk, state, make_args(3000)[1])
+    assert dict(trace.kernel_launches) == {"agc_ff_scan": 1}
+    assert not trace.syncs and not trace.uploads
+    assert agc_cuda.scan_plain.__module__ == agc_cuda.__name__
+
+
 def test_item_in_a_step_is_flagged_host_sync():
     """Teeth: a planted .item() on the step's data."""
     def step(x):

@@ -1,7 +1,7 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
 kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec, the
-timing recovery's symbol loop, the chunked AGC's relaxation and the FP32
-ceiling's fma-chain probe) against
+timing recovery's symbol loop, the chunked AGC's relaxation, agc_ff's
+exact scan and the FP32 ceiling's fma-chain probe) against
 float64 numpy (the codec against the standard's integer steps in Python),
 and on the card against their plain versions.
 
@@ -1555,6 +1555,208 @@ def test_ted_lane_schedule_equals_plain_bit_for_bit(gardner, use_q, segs):
             assert int(start[k, j]) == s and bool(emit[k, j]) == m, (k, j)
 
 
+def _ted_picks(size, bs0, corr0, starts, final_bs, hi, cap, p):
+    """A lane's picks at every slot, clamped, rebuilt from scan_plain's
+    recorded starts: alive as the kernel tracks it, the correction a slot
+    gave from the step that followed it (nsb + new_corr), reset before
+    the picks.  Returns (picks (cap, 3), the final corr)."""
+    reset = np.float32(0.9 * p.nsqb)
+    nxt = list(starts[1:]) + [final_bs]
+    alive, corr, picks = True, int(corr0), []
+    for k in range(cap):
+        b = int(starts[k])
+        alive = alive and b + 3 * p.nshb < size and b < hi
+        if np.float32(corr) <= -reset or np.float32(corr) >= reset:
+            corr = 0
+        g = [b + p.offs[0], b + p.offs[1] - (0 if p.gardner else corr),
+             b + p.offs[2]]
+        picks.append([min(max(i, 0), size - 1) for i in g])
+        if alive:
+            corr = int(nxt[k]) - b - p.nsb
+    return np.array(picks, np.int64), corr
+
+
+def _ring_model(row, size, picks, starts, plan, bs0, eager,
+                publish="envelope"):
+    """csrc/ted.cu's ring for one lane in numpy: the copies load tiles in
+    order into ring slot t mod tiles, each only once the chain's published
+    lowest tile leaves room; ``eager`` copies as far ahead as the room
+    allows before each slot (the most a copy can overwrite), else only up
+    to the tile the chain waits for (the least it can have).  At each slot
+    whose window first reaches a tile the chain publishes the lowest tile
+    it may still read, the tile of its envelope clamp(bitstart + lo_off)
+    (``publish="picks"``: of its window's lowest pick), and waits for the
+    window's highest; every slot reads its picks at ring[i & mask].
+    Returns the values read, and the slots that broke the plan: a pick
+    below a tile published before, a bitstart below the last
+    publication's (the kernel's test), or a window reaching past the
+    ring's tiles above the published one."""
+    tile, tiles = plan.tile, plan.tiles
+    mask = tiles * tile - 1
+    ring = np.full(tiles * tile, np.nan + 1j * np.nan, np.complex64)
+    held = np.full(tiles, -1)
+    last = size - 1
+    t_first = min(max(bs0 + plan.lo_off, 0), last) // tile
+    t_last = last // tile
+    loaded, need, got, broke = t_first - 1, t_first, [], []
+    have, b_pub = t_first - 1, bs0
+
+    def load_through(t):
+        nonlocal loaded
+        while loaded < min(t, t_last) and loaded + 1 < need + tiles:
+            loaded += 1
+            s0 = loaded * tile
+            ring[(loaded % tiles) * tile:][:min(tile, size - s0)] = \
+                row[s0:s0 + tile]
+            held[loaded % tiles] = loaded
+    for k in range(len(picks)):
+        t_lo, t_hi = picks[k].min() // tile, picks[k].max() // tile
+        if t_lo < need or int(starts[k]) < b_pub:
+            broke.append(k)
+        if t_hi > have:
+            env = (t_lo if publish == "picks" else
+                   min(max(int(starts[k]) + plan.lo_off, 0), last) // tile)
+            if t_hi - env >= tiles:
+                broke.append(k)
+            need, have, b_pub = max(need, env), t_hi, int(starts[k])
+        load_through(t_last if eager else t_hi)
+        assert held[t_hi % tiles] == t_hi or k in broke, (k, t_hi, held)
+        got.append(ring[picks[k] & mask])
+    return np.array(got), broke
+
+
+def _ring_lanes(planes, size, bs, corr, cap, hi, p):
+    """Each lane's (row, start, picks, final corr) from one scan_plain run,
+    with scan_plain's outputs."""
+    out = ted_cuda.scan_plain(planes, size, bs, corr, cap, hi, None if hi
+                              is None else hi * 0 - INT32_MAX - 1, params=p)
+    x = torch.view_as_complex(planes.reshape(-1, size, 2)).numpy()
+    flat = [t.reshape(-1) for t in (bs, corr)]
+    segs = bs.numel() // planes.shape[0]
+    lanes = []
+    for k in range(bs.numel()):
+        starts = out[4].reshape(-1, cap)[k].numpy()
+        h = INT32_MAX if hi is None else int(hi.reshape(-1)[k])
+        picks, c = _ted_picks(size, int(flat[0][k]), int(flat[1][k]), starts,
+                              int(out[0].reshape(-1)[k]), h, cap, p)
+        assert c == int(out[1].reshape(-1)[k])
+        lanes.append((x[k // segs], int(flat[0][k]), picks,
+                      out[2].reshape(-1, cap, 3, 2)[k].numpy(), starts))
+    return lanes
+
+
+# (name, rows, n, nsb, segs, gardner, use_q, start override[, loop
+# gain]): G's parameters at G's row length, the segmented mode,
+# early-late, early-late at loop gain 1 with max error 2 (timing_recovery_
+# cc EARLYLATE 64's correction up to a symbol: the left pick may land below
+# the slot before's), a lane starting before the row (its picks clamped
+# to 0) and lanes starting at the row's end (dead at once, picks clamped
+# to size - 1)
+RING_CASES = (
+    ("G", 3, 57_344, 256, 1, True, True, None),
+    ("G segmented", 2, 57_344, 256, 4, True, True, None),
+    ("early-late", 3, 8_192, 64, 1, False, False, None),
+    ("early-late segmented", 2, 8_192, 64, 3, False, True, None),
+    ("early-late loop gain 1", 3, 8_192, 64, 3, False, False, None, 1.0),
+    ("row start", 2, 4_096, 64, 1, True, True, (-300, -1)),
+    ("row end", 2, 4_096, 64, 1, False, True, (4_096 + 200, 4_096 + 255)),
+)
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=[c[0] for c in RING_CASES])
+def test_ted_ring_holds_every_pick_when_it_is_read(case):
+    """ring_plan's layout at each case's parameters, run in the numpy ring
+    model over scan_plain's recorded starts and corrections, with the
+    copies as far ahead as they may go and as far behind: every pick is
+    in the ring when the chain reads it (the values scan_plain recorded),
+    no window spans more tiles than the ring or reaches below the copies'
+    first tile, and the route is the ring.  Every pick lies in its slot's
+    envelope [bitstart + lo_off, bitstart + hi_off] (clamped), whose low
+    end never decreases: the tile the kernel publishes."""
+    _, rows, n, nsb, segs, gardner, use_q, start, *gain = case
+    p = _ted_params(nsb, gardner, use_q)
+    if gain:
+        p = p._replace(loop_gain=gain[0])
+    planes, size, bs, corr, cap, hi, lo = _ted_case(rows, n, nsb, segs,
+                                                    seed=11)
+    if start is not None:
+        bs = torch.tensor(start, dtype=torch.int32)
+    plan = ted_cuda.ring_plan(size, p)
+    assert plan.route == "ring" and plan.trail == 0
+    assert plan.lead >= 2 * plan.tile and plan.tile >= nsb + nsb // 2
+    assert plan.tiles * plan.tile * 8 <= ted_cuda.RING_MAX_BYTES
+    for row, b0, picks, v, st in _ring_lanes(planes, size, bs, corr, cap,
+                                             hi, p):
+        env = np.clip(st.astype(np.int64)[:, None]
+                      + [plan.lo_off, plan.hi_off], 0, size - 1)
+        assert np.all(picks >= env[:, :1]) and np.all(picks <= env[:, 1:])
+        assert np.all(np.diff(env[:, 0]) >= 0)
+        for eager in (True, False):
+            got, broke = _ring_model(row, size, picks, st, plan, b0, eager)
+            assert broke == []
+            assert np.array_equal(got, row[picks])
+            assert np.array_equal(got.view(np.float32).reshape(v.shape), v)
+
+
+def test_ted_ring_publishes_the_envelope_not_the_picks():
+    """timing_recovery_cc EARLYLATE 64 at loop gain 1, max error 2: |corr|
+    up to 64 = nsb, the ring's route.  A correction of -12 carried into a
+    slot (its left pick 12 above bitstart + wing) and one of -63 out of it
+    (the next slot one sample on, its corr reset to 0) put the next left
+    pick 11 samples below the slot's.  Placed across a tile's edge, a ring
+    whose copies may overwrite the tiles below the picks' own lowest loses
+    that pick; publishing the envelope's lowest tile, as the kernel does,
+    keeps it."""
+    p = _ted_params(64, False, False)._replace(loop_gain=1.0)
+    size, k = 16_384, 31
+    plan = ted_cuda.ring_plan(size, p)
+    assert plan.route == "ring" and ted_cuda.max_correction(p) == 64
+    steps = [64] * (k - 1) + [64 - 12, 64 - 63] + [64] * 150
+    starts = np.cumsum([2025 - 52 - 64 * (k - 1)] + steps)
+    assert starts[k] == 2025
+    cap = len(starts) - 1
+    picks, _ = _ted_picks(size, int(starts[0]), 0, starts[:-1], starts[-1],
+                          INT32_MAX, cap, p)
+    assert picks[k].min() == 2053 and picks[k + 1].min() == 2042
+    rng = np.random.default_rng(5)
+    row = (rng.standard_normal(size)
+           + 1j * rng.standard_normal(size)).astype(np.complex64)
+    got, broke = _ring_model(row, size, picks, starts, plan, int(starts[0]),
+                             True, publish="picks")
+    assert k + 1 in broke and not np.array_equal(got[k + 1],
+                                                 row[picks[k + 1]])
+    for eager in (True, False):
+        got, broke = _ring_model(row, size, picks, starts, plan,
+                                 int(starts[0]), eager)
+        assert broke == [] and np.array_equal(got, row[picks])
+
+
+def test_ted_backward_stepping_parameters_take_the_l2_route():
+    """A CLI parameter set whose correction exceeds a symbol (timing_
+    recovery_cc GARDNER 16 4 2: |corr| up to 64 > 16) steps bitstart back
+    on real data, so ring_plan routes it to the L2 design from the
+    parameters alone; a ring laid out for it anyway loses picks in the
+    model.  Its non-finite and oversized relatives take the same route."""
+    p = ted_cuda.TedParams(16, (24, 8, 16), True, True, 2.0, 4.0)
+    planes, size, bs, corr, cap, hi, _ = _ted_case(4, 4_096, 16, seed=12)
+    plan = ted_cuda.ring_plan(size, p)
+    assert plan.route == "l2" and "step back" in plan.why
+    assert ted_cuda.max_correction(p) == 64
+    lanes = _ring_lanes(planes, size, bs, corr, cap, hi, p)
+    assert any(np.any(np.diff(st.astype(np.int64)) < 0)
+               for *_, st in lanes)
+    forced = plan._replace(route="ring", tile=64, tiles=4,
+                           lead=128)
+    assert any(_ring_model(row, size, picks, st, forced, b0, True)[1]
+               for row, b0, picks, _, st in lanes)
+    inf = p._replace(max_error=float("inf"))
+    assert ted_cuda.ring_plan(size, inf).route == "l2"
+    assert ted_cuda.max_correction(p._replace(loop_gain=1e30)) is None
+    wide = ted_cuda.TedParams(8192, (12288, 4096, 8192), True, True, 2.0,
+                              0.5)
+    assert ted_cuda.ring_plan(1 << 20, wide).route == "l2"
+
+
 def test_ted_scan_checks_its_arguments():
     planes, size, bs, corr, cap, hi, lo = _ted_case(2, 256, 16, 2)
     p = _ted_params(16)
@@ -1574,30 +1776,41 @@ def test_ted_chain_probe_runs_on_the_card_only():
 
 
 # G's shape (64 rows of 58 368 samples, sps 256: 230 slots), a segmented
-# shape (64 x 4 lanes), early-late with the error from I alone, and a NaN
+# shape (64 x 4 lanes), a small segmented shape, early-late with the error
+# from I alone, a NaN, early-late at loop gain 1 (corrections up to a
+# symbol, the ring), and a backward-stepping loop gain (the L2 route)
 TED_CUDA_CASES = (
     dict(rows=64, n=57_344, nsb=256, segs=1, gardner=True, use_q=True),
     dict(rows=64, n=57_344, nsb=256, segs=4, gardner=True, use_q=True),
+    dict(rows=4, n=4_096, nsb=64, segs=3, gardner=True, use_q=True),
     dict(rows=16, n=8_192, nsb=64, segs=1, gardner=False, use_q=False),
     dict(rows=16, n=8_192, nsb=64, segs=3, gardner=False, use_q=True,
-         nan_row=5))
+         nan_row=5),
+    dict(rows=16, n=8_192, nsb=64, segs=3, gardner=False, use_q=False,
+         loop_gain=1.0),
+    dict(rows=16, n=8_192, nsb=64, segs=1, gardner=True, use_q=True,
+         loop_gain=4.0))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TED_CUDA_CASES)
 def test_cuda_ted_scan_matches_plain(cuda, case):
-    """ted_cuda.scan (one launch) against scan_plain on the card, bit for
-    bit: the final state and every slot's picks, raw error, start and
-    emit."""
+    """ted_cuda.scan (one launch, of the ring or of the L2 route as
+    ring_plan picks) against scan_plain on the card, bit for bit: the
+    final state and every slot's picks, raw error, start and emit."""
     case = dict(case)
     p = _ted_params(case.pop("nsb"), case.pop("gardner"), case.pop("use_q"))
+    p = p._replace(loop_gain=case.get("loop_gain", p.loop_gain))
     planes, size, bs, corr, cap, hi, lo = (
         t.to(cuda) if isinstance(t, torch.Tensor) else t
         for t in _ted_case(case["rows"], case["n"], p.nsb, case["segs"],
                            nan_row=case.get("nan_row")))
-    n0 = ted_cuda.LAUNCHES["ted_scan"]
+    key = ("ted_scan" if ted_cuda.ring_plan(size, p).route == "ring"
+           else "ted_scan_l2")
+    assert (key == "ted_scan_l2") == (p.loop_gain > 1.0)
+    n0 = dict(ted_cuda.LAUNCHES)
     got = ted_cuda.scan(planes, size, bs, corr, cap, hi, lo, params=p)
-    assert ted_cuda.LAUNCHES["ted_scan"] == n0 + 1
+    assert ted_cuda.LAUNCHES == dict(n0, **{key: n0[key] + 1})
     want = ted_cuda.scan_plain(planes, size, bs, corr, cap, hi, lo,
                                params=p)
     torch.cuda.synchronize()
@@ -1730,3 +1943,79 @@ def test_cuda_agc_scan_probe_times_a_scan(cuda):
 def test_agc_scan_probe_runs_on_the_card_only():
     with pytest.raises(ValueError, match="CUDA"):
         agc_cuda.scan_cycles(16, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# agc_ff's exact recurrence (csrc/agc_exact.cu)
+# ---------------------------------------------------------------------------
+
+def _same_bits_or_nan(a, b):
+    """Equal bits, but where both hold a NaN: a NaN's payload is the
+    hardware's (x86 keeps the input's, the card writes its canonical one),
+    so only its place is compared."""
+    a, b = a.cpu(), b.cpu()
+    if not a.is_floating_point():
+        return _same_bits(a, b)
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and _same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def _scan_case(name):
+    """tests/test_torch_agc_kernel.py's exact-scan case ``name``: its input
+    and agc_ff's keyword arguments."""
+    import test_torch_agc_kernel as m
+    make, kw = m.SCAN_CASES[name]
+    return make(), dict(kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wait0", "wait5", "wait200", "continuing",
+                                  "n1", "nan_inf", "edges",
+                                  "max_gain_negative"])
+def test_cuda_agc_ff_scan_matches_plain(cuda, name):
+    """agc_ff on the card (one launch of the exact scan's kernel) against
+    the host loop, bit for bit: y and the next gain, hang, peak and
+    attack-wait count, which stay on the card."""
+    from csdr_tpu_torch.ops import agc
+    x, kw = _scan_case(name)
+    n0 = agc_cuda.LAUNCHES["agc_ff_scan"]
+    got = agc.agc_ff(torch.from_numpy(x).to(cuda), full_state=True, **kw)
+    assert agc_cuda.LAUNCHES["agc_ff_scan"] == n0 + 1
+    want = agc.agc_ff(torch.from_numpy(x), full_state=True, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.device == got[0].device and _same_bits_or_nan(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_agc_scan_block_is_one_launch_with_its_state_on_the_card(cuda):
+    """agc_block(method="scan") on the card: one launch a chunk, its state
+    read and written on the card, the CPU's output and state bit for bit."""
+    from csdr_tpu_torch.ops import agc
+    _, _, speech_like = _agc_cases()
+    x = torch.from_numpy(speech_like(30_000, 8))
+    blk = agc.agc_block(method="scan", attack_wait_time=5)
+    sk, sc = blk.init(cuda), blk.init("cpu")
+    n0 = agc_cuda.LAUNCHES["agc_ff_scan"]
+    for part in (x[:12_000], x[12_000:12_001], x[12_001:]):
+        sk, yk = blk(sk, part.to(cuda))
+        sc, yc = blk(sc, part)
+        assert _same_bits(yk, yc)
+    assert agc_cuda.LAUNCHES["agc_ff_scan"] == n0 + 3
+    assert all(t.is_cuda for t in sk[:4])
+    for a, b in zip(sk, sc):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_agc_ff_chain_probe_times_its_chain(cuda):
+    """The exact scan's probe takes the same cycles a sample at two lengths
+    within 5 %, more than a float add's latency; no launch counted."""
+    _, _, speech_like = _agc_cases()
+    x = torch.from_numpy(speech_like(agc_cuda.PROBE_MAX, 9)).to(cuda)
+    n0 = dict(agc_cuda.LAUNCHES)
+    a, b = (agc_cuda.exact_cycles(x[:n], attack_wait_time=5)
+            for n in (agc_cuda.PROBE_MAX // 2, agc_cuda.PROBE_MAX))
+    assert a > 8.0 and abs(a - b) < 0.05 * b
+    assert agc_cuda.LAUNCHES == n0

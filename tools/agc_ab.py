@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The chunked AGC's relaxation kernel (csrc/agc.cu) on two trees of this
-repository, in turns on one GPU:
+"""The chunked AGC's relaxation kernel (csrc/agc.cu) and agc_ff's exact
+scan (csrc/agc_exact.cu) on two trees of this repository, in turns on one
+GPU:
 
     git archive <parent> | tar -x -C build/parent     # build/ is git-ignored
     python3 tools/agc_ab.py build/parent .
@@ -17,8 +18,13 @@ of tests/test_torch_agc_kernel.py, timed as chip_smoke.agc_case times it
   the last of which never settles.
 
 Each case reports the scans on the chain (per outer round the most of any
-row) and the kernel's ms a scan on it.  Every output (y, gain, hang,
-converged) must equal the first run's bit for bit.  Prints the card's name
+row) and the kernel's ms a scan on it.  Then ``agc_cuda.scan`` on the
+CLI's chunk as chip_smoke.agc_exact_case times it (65 536 samples of
+chip_smoke.agc_exact_input, AGC_EXACT_KW, continuing from gain 1.5 and
+peak 0.133 on the card), with its SM cycles a sample at 1980 MHz and the
+chain probe's (``agc_cuda.exact_cycles``, the least of three).  Every
+output (y, gain, hang, converged; y and the four state values of the
+exact scan) must equal the first run's bit for bit.  Prints the card's name
 and power limit, one JSON line per run, then the bit-for-bit verdict;
 exits non-zero if a run fails or an output differs.
 """
@@ -62,6 +68,25 @@ for name, (x, kw) in cases.items():
                  "ms_a_scan": ms / chain}
     for k, g in zip(("y", "gain", "hang", "converged"), got):
         ys[f"{name} {k}"] = g.cpu().numpy()
+import chip_smoke as cs
+x = torch.from_numpy(cs.agc_exact_input(cs.AGC_EXACT_CHUNK, 140)).to(dev)
+state = [torch.tensor(np.float32(1.5), device=dev),
+         torch.tensor(0, dtype=torch.int32, device=dev),
+         torch.tensor(np.float32(0.133), device=dev),
+         torch.tensor(0, dtype=torch.int32, device=dev)]
+got = agc_cuda.scan(x, *state, started=True, **cs.AGC_EXACT_KW)
+ms = time_cuda(lambda: agc_cuda.scan(x, *state, started=True,
+                                     **cs.AGC_EXACT_KW),
+               iters=20, queue_ahead_ms=20.0)
+probe_in = torch.from_numpy(cs.agc_exact_input(agc_cuda.PROBE_MAX, 142)
+                            ).to(dev)
+probe = min(agc_cuda.exact_cycles(probe_in, **cs.AGC_EXACT_KW)
+            for _ in range(3))
+out["exact_cli_chunk"] = {"samples": x.shape[0], "ms": ms,
+                          "cycles_a_sample": ms * 1e-3 * 1980e6 / x.shape[0],
+                          "probe_cycles_a_sample": probe}
+for k, g in zip(("y", "gain", "hang", "peak", "awc"), got):
+    ys[f"exact {k}"] = g.cpu().numpy()
 np.savez(dump, **ys)
 print("RESULT " + json.dumps(out), flush=True)
 '''

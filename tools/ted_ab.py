@@ -27,6 +27,12 @@ after it:
   lane in that step x the probe's slot chain (chip_smoke.ted_chains) at
   1980 MHz, with the share of it.
 
+Before the banks, where the tree has the TED kernel, the kernel alone on
+chip_smoke.phase_ted_kernels's inputs (chip_smoke.ted_inputs, seeds 51
+and 52): G's shape (64 lanes) and segmented (64 x TED_SEGMENTS lanes),
+timed as chip_smoke.ted_case times it, with its SM cycles a slot and its
+share of the same bound; its outputs are compared like the paths'.
+
 Every path's bits and counts over its three chunks must equal the first
 run's bit for bit.  Prints the card's name and power limit, one JSON line
 per run, then the bit-for-bit verdict; exits non-zero if a run fails or
@@ -60,6 +66,31 @@ dev = torch.device("cuda")
 out, ys = {}, {}
 chains = cs.ted_chains(torch) if ted_cuda else None
 out["probe"] = chains
+if ted_cuda:
+    m = cs.FRAMES_G // 25 * 448
+    params = ted_cuda.TedParams(cs.SPS, (3 * cs.SPS // 2, cs.SPS // 2,
+                                         cs.SPS), True, True, 2.0, 0.5)
+    for name, segs, seed in (("alone", 1, 51),
+                             ("alone segmented", cs.TED_SEGMENTS, 52)):
+        planes, size, bs, corr, cap, hi, lo = cs.ted_inputs(
+            torch, cs.CHANNELS, m, cs.SPS, segs, seed)
+
+        def run():
+            return ted_cuda.scan(planes, size, bs, corr, cap, hi, lo,
+                                 params=params)
+
+        got = run()
+        ms = time_cuda(run, iters=20, queue_ahead_ms=20.0)
+        lanes = bs.numel()
+        st = torch.cat([got[4].reshape(lanes, cap),
+                        got[0].reshape(lanes, 1)], 1)
+        slots = int((st[:, 1:] != st[:, :-1]).sum(1).max())
+        bound = slots * chains["slot_cycles"] / cs.SM_CLOCK_HZ * 1e3
+        out[name] = {"lanes": lanes, "alive_slots_most": slots, "ms": ms,
+                     "cycles_a_slot": ms * 1e-3 * cs.SM_CLOCK_HZ / slots,
+                     "bound_ms": bound, "share": bound / ms}
+        for i, t in enumerate(got):
+            ys[f"{name} {i}"] = t.cpu().numpy()
 rates, bpsk, centres = cs.bank_plan()
 for key, decim, frames in (("G", 50, cs.FRAMES_G), ("G'", 16, cs.FRAMES_GP)):
     init, step, meta = multichannel.build_ddc_bpsk31_bank(
@@ -117,7 +148,8 @@ for key, decim, frames in (("G", 50, cs.FRAMES_G), ("G'", 16, cs.FRAMES_GP)):
             ted = [(e.time_range.end - e.time_range.start) / 1e3
                    for e in p.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "ted_scan_kernel" in e.name]
+                   and ("ted_scan_kernel" in e.name
+                        or "ted_ring_kernel" in e.name)]
             bound = slots * chains["slot_cycles"] / cs.SM_CLOCK_HZ * 1e3
             res["ted_in_step"] = {
                 "lanes": lanes, "slots": cap, "alive_slots_most": slots,
