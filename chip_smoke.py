@@ -83,15 +83,19 @@ prints one JSON line per phase and exits non-zero at the first failure:
    (torch.profiler and utils/dispatch_lint: one kernel launch, no sync,
    no upload).
 8. throughput of D, E and F as for C.  Then the chunked AGC's kernel
-   (csrc/agc.cu, both relaxation loops in one cooperative launch) against
-   relax_plain on the card, bit for bit (y, gain, hang, converged): E's
-   and F's second audio chunk continuing from their first's state,
-   _agc_signal from the stream's start (a padded chunk that never
-   settles), the zero run at max_gain 100, n = 1, 5 x 8192 and 5 x 8192
-   + 1, and 2 rows more than the card holds blocks at once; each with
-   the rounds it ran, its time, the plain version's and its bound (the
-   scans on the chain x the probe's scan of an 8192-sample row in SM
-   cycles, csdr_agc_scan_probe), E's also by time_kernel.  Then agc_ff's
+   (csrc/agc.cu, both relaxation loops in one cooperative launch, a row
+   over a cluster of CTAs; its registers and spills from nvcc -Xptxas -v,
+   no spill allowed) against relax_plain on the card, bit for bit (y,
+   gain, hang, converged): E's and F's second audio chunk continuing from
+   their first's state, _agc_signal from the stream's start (a padded
+   chunk that never settles), the zero run at max_gain 100, n = 1, 5 x
+   8192 and 5 x 8192 + 1, E's audio over the fewest rows that get each
+   cluster size the rule picks, over 2 rows more than clusters fit (rows
+   in turns) and, at chunk 2048, the same with one CTA a row; each with
+   its cluster (size, CTAs, SMs read from %smid), the rounds it ran, its
+   time, the plain version's and its bound (the scans on the chain x the
+   probe's chain of a scan in SM cycles, csdr_agc_chain_probe), E's also
+   by time_kernel.  Then agc_ff's
    exact scan (csrc/agc_exact.cu, one warp a call) against the host loop,
    bit for bit (y, gain, hang, peak, attack-wait count): _agc_signal at
    attack wait 0, 5 and 200, its second half continuing from a carried
@@ -1742,6 +1746,7 @@ def phase_receiver_throughput(torch, paths):
 AGC_SOURCE = "csdr_tpu_torch/csrc/agc.cu"
 AGC_CHUNK = 8192           # agc_block's and the CLI's chunk: a kernel row
 AGC_PROBE_SCANS = 100      # affine scans of each probe run
+AGC_PROBE_STEPS = 13       # the probe's steps a scan: log2(AGC_CHUNK)
 AGC_FLOPS = 42             # float ops a sample a scan: ~13 steps of 3, 3 more
 
 
@@ -1773,38 +1778,57 @@ def agc_cases(torch, receivers) -> dict:
     continuing from the state of their first, _agc_signal from the
     stream's start (its padded 7th chunk never settles), the zero run at
     max_gain 100 (tests/test_torch_agc.py), n = 1, 5 x 8192 and 5 x 8192 +
-    1, and E's audio over 2 rows more than the card holds blocks at once."""
+    1; E's audio tiled over the fewest rows that get each other cluster
+    size and layout agc_cuda.plan picks, and over 2 rows more than
+    clusters fit on the card (rows in turns) at chunk 8192 and 2048."""
     from csdr_tpu_torch.kernels import agc_cuda
 
     e, e_kw = pre_agc_audio(torch, *receivers["E"][1:4])
     f, f_kw = pre_agc_audio(torch, *receivers["F"][1:4])
     k = 5 * AGC_CHUNK
-    rows = agc_cuda.resident_rows(AGC_CHUNK) + 2
     zero = np.concatenate([np.full(4096, 1e-6, np.float32),
                            np.zeros(15_904, np.float32)])
-    return {
+
+    def tiled(rows, chunk=AGC_CHUNK):
+        return np.tile(e, -(-rows * chunk // len(e)))[:rows * chunk - 100]
+    cases = {
         "E": (e, e_kw), "F": (f, f_kw),
         "agc_signal_start": (agc_signal(), {}),
         "zero_run_max_gain_100": (zero, {"max_gain": 100.0}),
         "n1": (e[:1], e_kw),
         "n5x8192": (e[:k], e_kw),
-        "n5x8192+1": (e[:k + 1], {}),
-        f"past_resident_{rows}_rows": (
-            np.tile(e, -(-rows * AGC_CHUNK // len(e)))[:rows * AGC_CHUNK - 100],
-            e_kw)}
+        "n5x8192+1": (e[:k + 1], {})}
+    resident = agc_cuda.resident_rows(AGC_CHUNK)
+    first = agc_cuda.plan(len(e))
+    seen = {(first["size"], first["spread"])}
+    for rows in range(1, resident + 1):
+        p = agc_cuda.plan(rows * AGC_CHUNK)
+        if (p["size"], p["spread"]) not in seen:
+            seen.add((p["size"], p["spread"]))
+            name = f"K{p['size']}{'' if p['spread'] else '_shared'}"
+            cases[f"{name}_{rows}_rows"] = (tiled(rows), e_kw)
+    for chunk in (AGC_CHUNK, 2048):
+        rows = agc_cuda.resident_rows(chunk) + 2
+        cases[f"past_resident_{rows}_rows" + (
+            "" if chunk == AGC_CHUNK else f"_chunk{chunk}")] = (
+            tiled(rows, chunk), dict(e_kw, chunk=chunk))
+    return cases
 
 
 def agc_case(torch, name: str, x: np.ndarray, kw: dict,
              scan_cycles: float) -> dict:
     """agc_cuda.relax (one launch) against relax_plain on the card, bit for
-    bit (y, gain, hang, converged); the rounds it ran; its time (queued,
-    the device alone), the plain version's (one call) and its bound: the
-    scans on the chain (per outer round the most of any row) x the probe's
-    scan of a row at the top SM clock, or the bytes and flops if longer.  E's case, the kernel table's row,
-    also runs through roofline_row (time_kernel)."""
+    bit (y, gain, hang, converged); the rounds it ran; its cluster (size,
+    layout, CTAs, and the SMs they ran on from one more launch); its time
+    (queued, the device alone), the plain version's (one call) and its
+    bound: the scans on the chain (per outer round the most of any row) x
+    the probe's chain of a scan (scaled to the chunk's steps) at the top
+    SM clock, or the bytes and flops if longer.  E's case, the kernel
+    table's row, also runs through roofline_row (time_kernel)."""
     from csdr_tpu_torch.kernels import agc_cuda
     from csdr_tpu_torch.utils.timing import time_cuda
 
+    chunk = kw.get("chunk", AGC_CHUNK)
     a = torch.from_numpy(x).to("cuda")
     *got, table = agc_cuda.relax(a, rounds=True, **kw)
     box = {}
@@ -1821,20 +1845,27 @@ def agc_case(torch, name: str, x: np.ndarray, kw: dict,
     require(1 <= outer and np.all(rounds[:outer] >= 1)
             and np.all(rounds <= 14) and np.all(rounds[outer:] == 0),
             f"agc {name}: rounds {rounds[:outer].tolist()}")
+    plan = agc_cuda.plan(len(x), chunk)
+    cluster = {**plan, "sms": agc_cuda.sms_used(a, **kw)}
+    require(cluster["sms"] <= cluster["ctas"]
+            and (not plan["spread"] or cluster["sms"] == cluster["ctas"]),
+            f"agc {name}: cluster {cluster}")
     scans = rounds - settled
     chain = int(scans.max(1).sum())
-    depth = int(np.log2(AGC_CHUNK))
+    depth = int(np.ceil(np.log2(chunk)))
     nbytes = 8 * len(x) + 16
-    flops = AGC_FLOPS * AGC_CHUNK * int(scans.sum())
+    flops = AGC_FLOPS * chunk * int(scans.sum())
     t_bytes = least_ms(torch, nbytes, flops)[0]
-    t_chain = chain * scan_cycles / SM_CLOCK_HZ * 1e3
+    scan = scan_cycles * depth / AGC_PROBE_STEPS
+    t_chain = chain * scan / SM_CLOCK_HZ * 1e3
     row = {
         "name": "agc_relax", "route": "cuda", "source": AGC_SOURCE,
         "replaces": "csdr_tpu/ops/agc.py:385, 437 (while_loop; no Pallas "
                     "kernel)",
         "case": name,
         "shape": {"samples": len(x), "rows": rounds.shape[1],
-                  "chunk": AGC_CHUNK, "started": bool(kw.get("started"))},
+                  "chunk": chunk, "started": bool(kw.get("started"))},
+        "cluster": cluster,
         "bit_exact": True, "max_abs_err": 0.0,
         "converged": bool(got[3]),
         "outer_rounds": outer,
@@ -1846,10 +1877,11 @@ def agc_case(torch, name: str, x: np.ndarray, kw: dict,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_chain),
         "bound_by": "bytes" if t_bytes >= t_chain else "operations",
-        "bound_note": (f"dependent chain: {chain} scans x {scan_cycles:.1f}"
-                       f" SM cycles (an affine scan of an {AGC_CHUNK}-sample "
-                       f"row as the kernel runs it, {depth} Hillis-Steele "
-                       f"steps, probed) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "bound_note": (f"dependent chain: {chain} scans x {scan:.1f} SM "
+                       f"cycles ({depth} Hillis-Steele steps of a "
+                       f"{chunk}-sample row, each a store, a barrier, the "
+                       f"partner's load, a product and a sum, probed) at "
+                       f"{SM_CLOCK_HZ / 1e6:.0f} MHz"),
         "cycles_a_step": (ms * 1e-3 * SM_CLOCK_HZ / (chain * depth)
                           if chain else None),
         "library_ms": None, "bytes": nbytes, "flops": flops,
@@ -1862,18 +1894,36 @@ def agc_case(torch, name: str, x: np.ndarray, kw: dict,
 
 
 def phase_agc_kernels(torch, receivers) -> list:
-    """The AGC kernel against its plain version on the card, bit for bit,
-    in every case of agc_cases, with the probe scan that bounds it; E's
-    case is the kernel table's row, with time_kernel.  Returns it."""
-    from csdr_tpu_torch.kernels import agc_cuda
+    """The AGC kernel's registers and spills (nvcc -Xptxas -v; a spill
+    fails), then the kernel against its plain version on the card, bit
+    for bit, in every case of agc_cases, with the probe chain that bounds
+    it; E's case is the kernel table's row, with time_kernel.  Returns
+    it."""
+    from csdr_tpu_torch.kernels import _build, agc_cuda
 
+    # one instance a number of samples a thread (agc_relax_kernel<E>)
+    usage = {k: v for k, v in _build.ptxas_usage("agc.cu").items()
+             if "agc_relax_kernel" in k}
+    require(len(usage) >= 1 and all("registers" in v
+                                     for v in usage.values()),
+            f"agc_relax_kernel: no ptxas report {usage}")
+    emit("kernels", name="agc_relax_ptxas", source=AGC_SOURCE,
+         check="nvcc -Xptxas -v for each agc_relax_kernel instance",
+         instances=usage)
+    require(all(v.get("spill_store_bytes", 1) == 0
+                and v.get("spill_load_bytes", 1) == 0
+                for v in usage.values()),
+            f"agc_relax_kernel spills: {usage}")
     scan = min(agc_cuda.scan_cycles(AGC_PROBE_SCANS) for _ in range(3))
-    require(scan > 500.0, f"agc scan probe: {scan} cycles a scan")
-    emit("kernels", name="agc_scan_probe", check="SM cycles of one affine "
-         "scan of an 8192-sample row as the kernel runs it (csrc/agc.cu: "
-         "10 barrier-separated steps through shared memory, 3 in "
-         "registers), the AGC's bound", scan_cycles=scan,
-         step_cycles_mean=scan / np.log2(AGC_CHUNK))
+    require(scan > AGC_PROBE_STEPS * 8.0,
+            f"agc chain probe: {scan} cycles a scan")
+    emit("kernels", name="agc_chain_probe", check="SM cycles of the chain "
+         "of one affine scan of an 8192-sample row (csrc/agc.cu: 13 "
+         "dependent steps on one warp, each a store to shared memory, a "
+         "warp barrier, the partner's load, a product and a sum), the "
+         "AGC's bound", scan_cycles=scan,
+         step_cycles_mean=scan / AGC_PROBE_STEPS,
+         cluster_max=agc_cuda.CLUSTER_MAX)
     rows = []
     for name, (x, kw) in agc_cases(torch, receivers).items():
         c = agc_case(torch, name, x, kw, scan)
@@ -4966,7 +5016,8 @@ def run(torch) -> int:
                         f"{c['name']} not launched on path {other}")
                 c["launches_by_path"][other] = got[c["name"]]
         table.append({k: c[k] for k in keys + (
-            "bound_tc_ms", "launches_by_path", "bound_note", "tk_ms",
+            "cluster", "bound_tc_ms", "launches_by_path", "bound_note",
+            "tk_ms",
             "share_published", "share_measured") if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -18,6 +18,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,8 +54,8 @@ _SIGNATURES = {
                         + [_F] * 3 + [_VP] * 7,
     "csdr_ted_chain_probe": [_VP, _VP, _VP, _I, _VP],
     "csdr_agc_relax": [_VP, _LL] + [_I] * 4 + [_F] * 5
-                      + [_VP, _F, _VP, _I] + [_VP] * 8,
-    "csdr_agc_scan_probe": [_VP, _VP, _I, _VP],
+                      + [_VP, _F, _VP, _I, _I, _I, _I] + [_VP] * 9,
+    "csdr_agc_chain_probe": [_VP, _VP, _I, _VP],
     "csdr_agc_ff_scan": [_VP, _LL, _I] + [_F] * 5 + [_I] * 2 + [_VP] * 10,
     "csdr_agc_ff_chain_probe": [_VP, _VP, _I] + [_F] * 5
                                + [_I, _I, _F, _I, _F, _I, _VP, _VP],
@@ -66,7 +67,8 @@ _QUERIES = {
     "csdr_fir_poly_smem_bytes": [_I, _I, _I, _I, _I],
     "csdr_fft_ko_pass_bits": [_I, _I],
     "csdr_fft_ko_frames_per_block": [_I, _LL],
-    "csdr_agc_relax_resident": [_I],
+    "csdr_agc_relax_clusters": [_I, _I, _I],
+    "csdr_agc_relax_threads": [_I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -141,6 +143,40 @@ def _build_locked(sources: list[Path], out: Path) -> None:
         _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
         os.replace(so, out)
     build_seconds = time.perf_counter() - t0
+
+
+def ptxas_usage(source: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel of one
+    ``csrc`` source, as ``nvcc -Xptxas -v`` reports them compiling it
+    alone with the build's flags: {mangled name: {"registers",
+    "stack_bytes", "spill_store_bytes", "spill_load_bytes"}}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp, "k.o")), str(CSRC / source)],
+            capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"csdr_tpu_torch: nvcc failed on {source}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return parse_ptxas(proc.stdout + proc.stderr)
+
+
+def parse_ptxas(text: str) -> dict:
+    """:func:`ptxas_usage`'s table from ptxas's ``-v`` report."""
+    info, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            info[name] = {}
+        elif name and re.search(r"Used \d+ registers", line):
+            info[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        elif name and "stack frame" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            info[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                              spill_load_bytes=nums[2])
+    return info
 
 
 def lib() -> ctypes.CDLL:

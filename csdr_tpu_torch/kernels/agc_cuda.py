@@ -8,17 +8,18 @@ masks and the outer one over the chunk boundaries, into one device
 program.  In eager torch they were Python loops of small ops and a host
 sync a round (~2 900 launches a chunk of the SSB and AM receivers' audio),
 so they are hand-written CUDA, ``csrc/agc.cu``: one cooperative launch a
-call, one block a chunk row, bit for bit :func:`relax_plain`.
-:func:`scan_cycles` measures on the card one affine scan of an
-8192-sample row as the kernel runs it, which bounds the function.
+call, a chunk row over a cluster of CTAs, bit for bit :func:`relax_plain`.
+:func:`cluster_plan` picks the cluster size from the row count;
+:func:`scan_cycles` measures on the card the chain of one affine scan of an
+8192-sample row, which bounds the function.
 
 :func:`relax` takes a 1-D stream and agc_ff's constants (``agc_ff_chunked``
 is the entry point) and returns (y, next_gain, next_hang, converged); on
 the card every output stays there, with no host sync and no scalar
 upload.  The kernel takes a ``chunk`` of at most ``MAX_CHUNK`` samples
-(its row, 24 B a sample, lives in shared memory); a larger one raises.
-With more rows than the card holds at once (:func:`resident_rows`), each
-block runs its rows in turns.
+(a CTA's slice of it, 20 B a sample, lives in shared memory); a larger
+one raises.  With more rows than clusters fit on the card at once
+(:func:`resident_rows`), each cluster runs its rows in turns.
 
 The exact recurrence (any attack wait time) is ``csrc/agc_exact.cu``:
 :func:`scan` runs it over a 1-D float32 stream from a state of four
@@ -42,7 +43,12 @@ from csdr_tpu_torch.core.scan import affine_scan
 from csdr_tpu_torch.kernels import _build
 
 LAUNCHES = {"agc_relax": 0, "agc_ff_scan": 0}
-MAX_CHUNK = 8192        # samples a row the kernel's shared memory holds
+MAX_CHUNK = 8192        # samples a row the kernel takes
+MAX_SLICE = 2048        # samples a CTA of the relaxation kernel holds
+CLUSTER_SIZES = (16, 8, 4, 2, 1)   # CTAs a row the kernel takes
+CLUSTER_MAX = 16        # the most cluster_plan gives (16 is non-portable:
+                        # the H100 takes it, and it beat 8 on E's and F's
+                        # six rows, PERF.md)
 PROBE_MAX = 4096        # samples the exact scan's probe stages
 _NEG = -(1 << 30)       # "no attack yet" in the distance scans
 
@@ -110,9 +116,23 @@ def relax(x: torch.Tensor, reference=0.2, attack_rate=0.01,
                 torch.tensor(True) if check else None) + (
                     (torch.empty((2, 2, 0), dtype=torch.int32, device=dev),)
                     if rounds else ())
+    return _relax_cuda(x, reference, attack_rate, decay_rate, max_gain,
+                       int(hang_time), gain_filter_alpha, last_gain,
+                       last_hang, started, chunk, iters, check, rounds)
+
+
+def _relax_cuda(x, reference, attack_rate, decay_rate, max_gain, hang_time,
+                gain_filter_alpha, last_gain, last_hang, started, chunk,
+                iters, check, rounds, smids=None):
+    """One launch of the relaxation kernel on a nonempty 1-D float32 CUDA
+    stream ``x`` (``chunk`` a multiple of 128); ``smids`` (int32, rows x
+    the cluster size), if given, gets each CTA's SM."""
+    dev, n = x.device, x.shape[0]
     f0, f0_val = _entry(last_gain, torch.float32, dev)
     h0, h0_val = _entry(last_hang, torch.int32, dev)
     rows = -(-n // chunk)
+    k, spread = cluster_plan(rows, chunk, lambda k, s: _fits(dev, chunk, k,
+                                                             s))
     y = torch.empty_like(x)
     gain = torch.empty((), dtype=torch.float32, device=dev)
     hang = torch.empty((), dtype=torch.int32, device=dev)
@@ -123,42 +143,134 @@ def relax(x: torch.Tensor, reference=0.2, attack_rate=0.01,
              if rounds else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _build.lib().csdr_agc_relax(
-        x.data_ptr(), n, chunk, iters, int(hang_time), int(bool(started)),
+        x.data_ptr(), n, chunk, iters, hang_time, int(bool(started)),
         np.float32(reference), np.float32(attack_rate),
         np.float32(decay_rate), np.float32(max_gain),
         np.float32(1.0 - gain_filter_alpha),
         None if f0 is None else f0.data_ptr(), f0_val,
-        None if h0 is None else h0.data_ptr(), h0_val,
-        y.data_ptr(), gain.data_ptr(), hang.data_ptr(), conv.data_ptr(),
+        None if h0 is None else h0.data_ptr(), h0_val, k, int(spread),
+        _fits(dev, chunk, k, spread), y.data_ptr(), gain.data_ptr(), hang.data_ptr(), conv.data_ptr(),
         table.data_ptr() if rounds else None, traj.data_ptr(),
-        xstate.data_ptr(), stream)
+        xstate.data_ptr(), None if smids is None else smids.data_ptr(),
+        stream)
     _build.check(code, "agc_relax")
     LAUNCHES["agc_relax"] += 1
     return (y, gain, hang, conv if check else None) + (
         (table,) if rounds else ())
 
 
+def cluster_sizes(chunk: int) -> list:
+    """The cluster sizes the relaxation kernel takes for a chunk (a
+    multiple of 128), largest first: each CTA a slice of a multiple of 128
+    samples, at most MAX_SLICE, a power of two when the row has more than
+    one (a scan step's pushed partners then come from one earlier slice),
+    and at most CLUSTER_MAX CTAs."""
+    return [k for k in CLUSTER_SIZES if k <= CLUSTER_MAX
+            and chunk % (128 * k) == 0 and chunk // k <= MAX_SLICE
+            and (k == 1 or (chunk // k) & (chunk // k - 1) == 0)]
+
+
+def cluster_plan(rows: int, chunk: int, fits):
+    """(K, spread): the CTAs a row and whether each takes an SM of its own,
+    for ``rows`` rows of ``chunk`` samples; ``fits(K, spread)`` gives the
+    clusters the card holds at once.  The rows all resident if they can
+    be, one CTA an SM before CTAs sharing SMs, the largest K first (the
+    shortest chain a row); else in turns, the fewest turns, then the
+    smallest K (the least exchange between SMs for the same work)."""
+    ks = [k for k in cluster_sizes(chunk) if fits(k, False) > 0]
+    if not ks:
+        raise RuntimeError(f"agc relax: no cluster fits at chunk {chunk}")
+    for spread in (True, False):
+        for k in ks:
+            if rows <= fits(k, spread):
+                return k, spread
+    return min(ks, key=lambda k: (-(-rows // fits(k, False)), k)), False
+
+
+_FITS: dict = {}
+
+
+def _fits(dev, chunk: int, k: int, spread: bool) -> int:
+    """Clusters of ``k`` CTAs the kernel fits on card ``dev`` at once
+    (asked once for each chunk, size and layout)."""
+    key = (dev.index, chunk, k, bool(spread))
+    if key not in _FITS:
+        with torch.cuda.device(dev):
+            _FITS[key] = _build.lib().csdr_agc_relax_clusters(
+                chunk, k, int(bool(spread)))
+    return _FITS[key]
+
+
+def plan(n: int, chunk: int = 8192, device="cuda") -> dict:
+    """How :func:`relax` lays ``n`` samples in rows of ``chunk`` over the
+    current card: the cluster size and layout, the CTAs launched, their
+    threads and the clusters resident at once."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("agc relax plan: a CUDA device only")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    chunk = -(-chunk // 128) * 128
+    rows = -(-n // chunk)
+    k, spread = cluster_plan(rows, chunk, lambda k, s: _fits(dev, chunk, k,
+                                                             s))
+    fit = _fits(dev, chunk, k, spread)
+    return {"size": k, "spread": spread, "rows": rows,
+            "ctas": min(rows, fit) * k,
+            "threads": _build.lib().csdr_agc_relax_threads(chunk, k,
+                                                           int(spread)),
+            "resident_clusters": fit}
+
+
+def sms_used(x: torch.Tensor, **kw) -> int:
+    """The SMs that one launch of the relaxation kernel on ``x`` (a 1-D
+    CUDA stream, :func:`relax`'s keywords) ran its CTAs on, read from
+    each CTA's %smid.  The launch is counted in ``LAUNCHES``."""
+    if not x.is_cuda or x.dim() != 1 or x.shape[0] == 0:
+        raise ValueError("agc relax sms_used: a nonempty 1-D CUDA stream")
+    args = dict(reference=0.2, attack_rate=0.01, decay_rate=0.0001,
+                max_gain=65536.0, hang_time=200, gain_filter_alpha=0.999,
+                last_gain=1.0, last_hang=0, started=False, chunk=8192,
+                iters=14)
+    args.update(kw)
+    args["chunk"] = -(-args["chunk"] // 128) * 128
+    args["hang_time"] = int(args["hang_time"])
+    p = plan(x.shape[0], args["chunk"], x.device)
+    smids = torch.full((p["rows"] * p["size"],), -1, dtype=torch.int32,
+                       device=x.device)
+    _relax_cuda(x.float().contiguous(), check=True, rounds=False,
+                smids=smids, **args)
+    got = smids[: p["ctas"]].cpu()
+    if bool((got < 0).any()):
+        raise RuntimeError("agc relax sms_used: a CTA left no SM")
+    return len(set(got.tolist()))
+
+
 def resident_rows(chunk: int = 8192) -> int:
     """Rows of ``chunk`` samples the kernel runs at once on the current
-    card (blocks a cooperative launch may hold)."""
-    got = _build.lib().csdr_agc_relax_resident(-(-chunk // 128) * 128)
+    card: the most clusters of any size it takes there (one row each)."""
+    chunk = -(-chunk // 128) * 128
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = max((_fits(dev, chunk, k, False) for k in cluster_sizes(chunk)),
+              default=0)
     if got < 1:
-        raise RuntimeError(f"agc relax: no resident blocks at chunk {chunk}")
+        raise RuntimeError(f"agc relax: no resident clusters at chunk "
+                           f"{chunk}")
     return got
 
 
 def scan_cycles(scans: int, device="cuda") -> float:
-    """SM cycles of one affine scan of an 8192-sample row on one block of
-    1024 threads, as the kernel runs it (``csrc/agc.cu``'s probe: ten
-    barrier-separated steps through shared memory, three in registers),
-    over ``scans`` scans after a first pass.  It relaxes nothing and is not
-    counted in ``LAUNCHES``."""
+    """SM cycles of the chain of one affine scan of an 8192-sample row
+    (``csrc/agc.cu``'s probe: 13 dependent Hillis-Steele steps on one warp,
+    each a store to shared memory, a warp barrier, the partner's load and
+    the add's product and sum), over ``scans`` scans after a first pass.
+    It relaxes nothing and is not counted in ``LAUNCHES``."""
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
     if not cycles.is_cuda:
         raise ValueError("agc scan probe: runs on a CUDA device only")
-    sink = torch.empty(1024, dtype=torch.float32, device=device)
+    sink = torch.empty(32, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(cycles.device).cuda_stream
-    _build.check(_build.lib().csdr_agc_scan_probe(
+    _build.check(_build.lib().csdr_agc_chain_probe(
         cycles.data_ptr(), sink.data_ptr(), scans, stream), "agc scan probe")
     return int(cycles.item()) / scans
 

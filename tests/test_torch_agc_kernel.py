@@ -74,14 +74,165 @@ def _row(c, live, f, ef, eh, start, p):
     return f, min(max(h, 0), hang), rounds, settled
 
 
+def _slice_counts(att, dec, width):
+    """The kernel's integer scans over a row cut into slices (axis 0) of
+    segments of ``width`` samples: each segment's decays and latest
+    attack, the segments scanned within their slice, the slices' totals
+    combined over the earlier slices (the cluster's carry).  Returns dc and
+    the latest attack's dc so far (NEG if none) for every sample."""
+    K, S = att.shape
+    a = att.reshape(K, S // width, width)
+    d = dec.reshape(K, S // width, width).astype(np.int64)
+    cs = np.cumsum(d, axis=2)                      # decays in the segment
+    at = np.maximum.accumulate(np.where(a, cs, NEG), axis=2)
+    seg_cnt, seg_last = cs[:, :, -1], at[:, :, -1]
+    # one warp's scan of the slice's segments: exclusive counts, carries
+    before = np.cumsum(seg_cnt, axis=1) - seg_cnt
+    lasts = np.where(seg_last != NEG, before + seg_last, NEG)
+    carry = np.concatenate([np.full((K, 1), NEG), np.maximum.accumulate(
+        lasts, axis=1)[:, :-1]], axis=1)
+    # the slice's summary, then the earlier slices' carry into it
+    tot_cnt, tot_last = seg_cnt.sum(axis=1), np.max(lasts, axis=1)
+    cnt_in = np.cumsum(tot_cnt) - tot_cnt
+    abs_last = np.where(tot_last != NEG, cnt_in + tot_last, NEG)
+    last_in = np.concatenate([[NEG], np.maximum.accumulate(abs_last)[:-1]])
+    start = cnt_in[:, None, None] + before[:, :, None]
+    dc = start + cs
+    last = np.maximum(np.where(carry != NEG, cnt_in[:, None] + carry,
+                               NEG)[:, :, None],
+                      np.where(at != NEG, start + at, NEG))
+    last = np.maximum(last, last_in[:, None, None])
+    return dc.reshape(-1), last.reshape(-1)
+
+
+def _scan_cluster(add, mul, K):
+    """The Hillis-Steele scan of one row's pairs as a cluster of K > 1 CTAs
+    runs it (csrc/agc.cu's affine_scan): CTA r holds a window of 2S
+    positions, the previous slice's pairs (the halo, r > 0) below its own.
+    A step at offset o < S updates the slice and the window positions
+    w >= 2o - 1 from the window alone, two at once (w >= 4o - 1, the
+    step-o pair at w - 2o computed beside) while 4o <= S; the positions no
+    later step reads are left NaN, so a read of one shows.  A step at
+    o >= S takes the slice's partners from slice r - o/S and the window's
+    last position's from slice r - o/S - 1, as they were pushed.  Returns the new
+    trajectory (K, S) and each slice's left neighbour's f (the window's
+    last position; NaN for slice 0)."""
+    S = add.shape[1]
+    C = K * S
+    nan = F32(np.nan)
+    wa = np.full((K, 2 * S), nan, F32)
+    wm = np.full((K, 2 * S), nan, F32)
+    wa[:, S:], wm[:, S:] = add, mul
+    wa[1:, :S], wm[1:, :S] = add[:-1], mul[:-1]
+
+    def step(a, m, p, q, first):
+        """Positions p after a step from their partners q (a partner below
+        `first`, the lowest position the CTA holds, is none)."""
+        ok = q >= first
+        qc = np.maximum(q, 0)
+        return (np.where(ok, a[p] + m[p] * a[qc], a[p]),
+                np.where(ok, m[p] * m[qc], m[p]))
+    off = 1
+    while off < S:
+        # two steps at once while 4 off <= S: the step-off pair at w - 2off
+        # from w - 2off and w - 3off, as the kernel's thread computes it
+        pair = 4 * off <= S
+        na = np.full_like(wa, nan)
+        nm = np.full_like(wm, nan)
+        w = np.arange((4 if pair else 2) * off - 1, 2 * S)
+        for r in range(K):
+            first = 0 if r > 0 else S       # slice 0 has no window
+            ww = w[w >= first]
+            a1, m1 = step(wa[r], wm[r], ww, ww - off, first)
+            if pair:
+                p2 = ww - 2 * off
+                a2, m2 = step(wa[r], wm[r], np.maximum(p2, 0), p2 - off,
+                              first)
+                has = p2 >= first
+                a1, m1 = (np.where(has, a1 + m1 * a2, a1),
+                          np.where(has, m1 * m2, m1))
+            na[r, ww], nm[r, ww] = a1, m1
+        wa, wm = na, nm
+        off *= 4 if pair else 2
+    sa, sm = wa[:, S:].copy(), wm[:, S:].copy()
+    ha, hm = wa[:, S - 1].copy(), wm[:, S - 1].copy()
+    while off < C:
+        q = off // S
+        na, nm, nha, nhm = sa.copy(), sm.copy(), ha.copy(), hm.copy()
+        na[q:] = sa[q:] + sm[q:] * sa[:-q]
+        nm[q:] = sm[q:] * sm[:-q]
+        nha[q + 1:] = ha[q + 1:] + hm[q + 1:] * sa[:-q - 1, -1]
+        nhm[q + 1:] = hm[q + 1:] * sm[:-q - 1, -1]
+        sa, sm, ha, hm = na, nm, nha, nhm
+        off *= 2
+    ha[0] = nan
+    return sa, ha
+
+
+def _row_sliced(c, live, f, ef, eh, start, p, K):
+    """:func:`_row` as the kernel runs it over a cluster of K CTAs: the row
+    in K slices of S samples (S a power of two when K > 1), the integer
+    scans by segment, slice and cluster (:func:`_slice_counts`), the
+    affine scan as :func:`_scan_cluster` exchanges it, and each slice's
+    left neighbour's f from its own window after a scan (from the
+    trajectory before the first)."""
+    hang = p["hang_time"]
+    C = len(f)
+    S = C // K
+    assert S * K == C and (K == 1 or S & (S - 1) == 0)
+    width = 32 if S % 32 == 0 else S
+    entry_last = eh - hang if eh > 0 else NEG
+    att_p = clip_p = None
+    settled, rounds = False, 0
+    left = np.concatenate([[ef], f.reshape(K, S)[:-1, -1]]).astype(F32)
+    for it in range(p["iters"]):
+        rounds = it + 1
+        fs = f.reshape(K, S)
+        left[0] = ef
+        fp = np.concatenate([left[:, None], fs[:, :-1]], axis=1).reshape(-1)
+        att = live & (c < fp)
+        dec = live & ~att
+        dc, last = _slice_counts(att.reshape(K, S), dec.reshape(K, S), width)
+        last = np.maximum(last, entry_last)
+        frozen = dec & (last > NEG // 2) & (dc - last <= hang)
+        rate = np.where(att, p["ar"], np.where(dec & ~frozen, p["dr"],
+                                               F32(0)))
+        clip = (fp + rate * (c - fp)) > p["mg"]
+        mul = np.where(clip, p["oma"], (F32(1) - rate) + p["oma"])
+        add = np.where(clip, p["mg"], rate * c)
+        if start:
+            mul[0], add[0] = F32(1), F32(0)
+        add[0] = add[0] + mul[0] * ef
+        dc_e, last_e = int(dc[-1]), int(last[-1])
+        if it > 0 and np.array_equal(att, att_p) \
+                and np.array_equal(clip, clip_p):
+            settled = True
+            break
+        att_p, clip_p = att, clip
+        if K == 1:
+            off = 1
+            while off < C:
+                add = np.concatenate([add[:off], add[off:] + mul[off:]
+                                      * add[:-off]])
+                mul = np.concatenate([mul[:off], mul[off:] * mul[:-off]])
+                off *= 2
+            f = add
+        else:
+            fs, left = _scan_cluster(add.reshape(K, S), mul.reshape(K, S), K)
+            f = fs.reshape(-1)
+    h = hang - (dc_e - last_e) if last_e > NEG // 2 else 0
+    return f, min(max(h, 0), hang), rounds, settled
+
+
 def agc_model(x, reference=0.2, attack_rate=0.01, decay_rate=0.0001,
               max_gain=65536.0, hang_time=200, gain_filter_alpha=0.999,
               last_gain=1.0, last_hang=0, started=False, chunk=8192,
-              iters=14):
+              iters=14, cluster=None):
     """csrc/agc.cu's relaxation in numpy float32: (y, gain, hang,
     converged, rounds), rounds (2, B + 2, B) int32 as ``agc_cuda.relax``
     returns it (the inner rounds of each row in each outer round, then
-    whether its masks settled)."""
+    whether its masks settled).  ``cluster``: each row as K CTAs run it
+    (:func:`_row_sliced`), else as one flat row (:func:`_row`)."""
     x = np.asarray(x, F32)
     n = len(x)
     f0, h0 = F32(last_gain), int(last_hang)
@@ -114,8 +265,11 @@ def agc_model(x, reference=0.2, attack_rate=0.01, decay_rate=0.0001,
                 first = r == 0 or b == 0
                 ef = f0 if first else xf[prev, b - 1]
                 eh = h0 if first else int(xh[prev, b - 1])
-                f, h, k, settled = _row(c[b], live[b], traj[b], ef, eh,
-                                        b == 0 and not started, p)
+                f, h, k, settled = (
+                    _row(c[b], live[b], traj[b], ef, eh,
+                         b == 0 and not started, p) if cluster is None
+                    else _row_sliced(c[b], live[b], traj[b], ef, eh,
+                                     b == 0 and not started, p, cluster))
                 traj[b] = f
                 xf[cur, b], xh[cur, b], xs[cur, b] = f[-1], h, settled
                 table[:, r, b] = k, settled
@@ -193,6 +347,72 @@ def test_kernel_model_equals_agc_ff_chunked_bit_for_bit(name):
     outer = int((rounds[:, 0] > 0).sum()) if len(x) else 0
     assert np.all(rounds[:outer] >= 1) and np.all(rounds[outer:] == 0)
     assert np.all(rounds <= 14) and np.all(table[1][outer:] == 0)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_a_row_over_a_cluster_equals_the_flat_row_bit_for_bit(name,
+                                                              cluster):
+    """The kernel's exchange over K slices (partners from the own slice or
+    an earlier one, segment summaries combined across slices) gives the
+    flat Hillis-Steele row's outputs and rounds bit for bit, whatever K."""
+    make, kw = CASES[name]
+    x = make()
+    flat = agc_model(x, **kw)
+    sliced = agc_model(x, cluster=cluster, **kw)
+    assert np.array_equal(sliced[0].view(np.int32), flat[0].view(np.int32))
+    assert F32(sliced[1]).view(np.int32) == F32(flat[1]).view(np.int32)
+    assert sliced[2:4] == flat[2:4]
+    assert np.array_equal(sliced[4], flat[4])
+
+
+def _fits(table):
+    return lambda k, spread: table.get((k, spread), 0)
+
+
+# (rows, chunk, most, the plan) with the clusters that fit by (K, spread)
+# as an H100 gives them at 8192 (132 SMs, two samples a thread sharing
+# SMs: a slice of 2048 samples an SM)
+PLAN_FITS = {(16, True): 7, (8, True): 15, (4, True): 33, (2, True): 66,
+             (1, True): 132, (16, False): 33, (8, False): 33,
+             (4, False): 33, (2, False): 66, (1, False): 132}
+
+
+@pytest.mark.parametrize("rows,chunk,most,want", [
+    (6, 8192, 16, (16, True)),     # E's and F's chunks: 96 SMs
+    (6, 8192, 8, (8, True)),
+    (7, 8192, 16, (16, True)),
+    (8, 8192, 16, (8, True)),
+    (16, 8192, 16, (4, True)),
+    (33, 8192, 16, (4, True)),
+    (34, 8192, 16, (4, False)),    # in turns: 2 turns at every K, K = 4
+    (134, 8192, 16, (4, False)),
+    (1, 384, 16, (1, True)),       # 3 x 128: a slice of 384 is K = 1
+    (12, 256, 16, (2, True)),
+    (200, 2048, 16, (1, False)),   # in turns at K = 1
+])
+def test_cluster_plan_picks_the_size_from_the_rows(rows, chunk, most, want,
+                                                   monkeypatch):
+    monkeypatch.setattr(agc_cuda, "CLUSTER_MAX", most)
+    assert agc_cuda.cluster_plan(rows, chunk, _fits(PLAN_FITS)) == want
+
+
+def test_cluster_plan_takes_only_slices_the_kernel_holds(monkeypatch):
+    """Slices of a multiple of 128 samples, at most 2048, a power of two
+    when K > 1, at most CLUSTER_MAX CTAs: 8192 takes K >= 4, 384 and 768
+    only K = 1; a chunk with no fitting size raises."""
+    assert agc_cuda.cluster_sizes(8192) == [16, 8, 4]
+    assert agc_cuda.cluster_sizes(4096) == [16, 8, 4, 2]
+    assert agc_cuda.cluster_sizes(384) == [1]
+    assert agc_cuda.cluster_sizes(768) == [1]      # 384-sample slices
+    assert agc_cuda.cluster_sizes(2048) == [16, 8, 4, 2, 1]
+    # fewest turns first, then the smallest K
+    fits = _fits({(8, False): 40, (4, False): 50, (16, False): 30})
+    assert agc_cuda.cluster_plan(100, 8192, fits) == (4, False)
+    with pytest.raises(RuntimeError, match="no cluster fits"):
+        agc_cuda.cluster_plan(3, 8192, _fits({}))
+    monkeypatch.setattr(agc_cuda, "CLUSTER_MAX", 8)
+    assert agc_cuda.cluster_sizes(8192) == [8, 4]
 
 
 def test_the_padded_chunk_runs_every_round_and_the_rest_settle():

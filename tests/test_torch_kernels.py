@@ -1891,18 +1891,70 @@ def test_cuda_agc_relax_matches_plain_and_the_model(cuda, name):
     assert np.array_equal(table.cpu().numpy(), model(make(), **kw)[4])
 
 
+def _rows_for_each_size(chunk, most_rows):
+    """For each (cluster size, spread) agc_cuda.plan gives at ``chunk`` up
+    to ``most_rows`` rows, the fewest rows that get it."""
+    seen = {}
+    for rows in range(1, most_rows + 1):
+        p = agc_cuda.plan(rows * chunk, chunk)
+        seen.setdefault((p["size"], p["spread"]), rows)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("most", [8, 16])
+def test_cuda_agc_relax_at_every_cluster_size_the_rule_picks(cuda, most,
+                                                             monkeypatch):
+    """Speech over the fewest rows that get each cluster size and layout
+    the rule picks up to 2 rows past the resident clusters (K = 8 or 16
+    down to 4 at chunk 8192, rows in turns at the end): bit for bit
+    relax_plain, one launch, the rounds the model's."""
+    monkeypatch.setattr(agc_cuda, "CLUSTER_MAX", most)
+    _, model, speech_like = _agc_cases()
+    resident = agc_cuda.resident_rows(8192)
+    sizes = _rows_for_each_size(8192, resident + 2)
+    assert {k for k, _ in sizes} == set(agc_cuda.cluster_sizes(8192))
+    kw = {"started": True, "last_gain": 2.0, "last_hang": 20}
+    for (k, spread), rows in sorted(sizes.items()):
+        x = speech_like(rows * 8192 - 100, 5)
+        a = torch.from_numpy(x).to(cuda)
+        n0 = agc_cuda.LAUNCHES["agc_relax"]
+        *got, table = agc_cuda.relax(a, rounds=True, **kw)
+        assert agc_cuda.LAUNCHES["agc_relax"] == n0 + 1
+        want = agc_cuda.relax_plain(a, **kw)
+        for g, w in zip(got, want):
+            assert _same_bits(g, w), (k, spread, rows)
+        if rows <= 8:
+            assert np.array_equal(table.cpu().numpy(), model(x, **kw)[4])
+
+
 @pytest.mark.cuda
 def test_cuda_agc_relax_past_the_resident_rows(cuda):
-    """More rows than the card holds blocks at once: each block runs its
-    rows in turns, bit for bit relax_plain."""
+    """More rows than clusters fit on the card: each cluster runs its rows
+    in turns, bit for bit relax_plain; at chunk 2048 the rule takes one
+    CTA a row (K = 1), at 8192 four."""
     _, _, speech_like = _agc_cases()
-    rows = agc_cuda.resident_rows(8192) + 2
-    x = torch.from_numpy(speech_like(rows * 8192 - 100, 5)).to(cuda)
     kw = {"started": True, "last_gain": 2.0, "last_hang": 20}
-    got = agc_cuda.relax(x, **kw)
-    want = agc_cuda.relax_plain(x, **kw)
-    for a, b in zip(got, want):
-        assert _same_bits(a, b)
+    for chunk, k in ((2048, 1), (8192, 4)):
+        rows = agc_cuda.resident_rows(chunk) + 2
+        p = agc_cuda.plan(rows * chunk, chunk)
+        assert (p["size"], p["spread"]) == (k, False)
+        assert p["ctas"] < rows * k
+        x = torch.from_numpy(speech_like(rows * chunk - 100, 5)).to(cuda)
+        got = agc_cuda.relax(x, chunk=chunk, **kw)
+        want = agc_cuda.relax_plain(x, chunk=chunk, **kw)
+        for a, b in zip(got, want):
+            assert _same_bits(a, b), chunk
+
+
+@pytest.mark.cuda
+def test_cuda_agc_relax_spreads_a_few_rows_over_the_sms(cuda):
+    """E's shape, 6 rows of 8192: clusters of 16 CTAs, one CTA an SM."""
+    _, _, speech_like = _agc_cases()
+    x = torch.from_numpy(speech_like(48_060, 7)).to(cuda)
+    p = agc_cuda.plan(len(x))
+    assert (p["size"], p["spread"], p["ctas"]) == (16, True, 96)
+    assert agc_cuda.sms_used(x, started=True) == 96
 
 
 @pytest.mark.cuda
@@ -1932,17 +1984,46 @@ def test_cuda_agc_relax_refuses_a_chunk_past_its_shared_memory(cuda):
 
 @pytest.mark.cuda
 def test_cuda_agc_scan_probe_times_a_scan(cuda):
-    """The probe's scan of a row takes the same cycles at two lengths
-    within 5 %, more than its 10 barriers alone; no AGC launch counted."""
+    """The probe's chain of a scan (13 dependent steps on one warp) takes
+    the same cycles a scan at two lengths within 5 %, more than 13 times a
+    dependent product and sum (8 cycles); no AGC launch counted."""
     n0 = dict(agc_cuda.LAUNCHES)
     a, b = (agc_cuda.scan_cycles(n) for n in (20, 100))
-    assert a > 500.0 and abs(a - b) < 0.05 * b
+    assert a > 13 * 8.0 and abs(a - b) < 0.05 * b
     assert agc_cuda.LAUNCHES == n0
 
 
 def test_agc_scan_probe_runs_on_the_card_only():
     with pytest.raises(ValueError, match="CUDA"):
         agc_cuda.scan_cycles(16, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        agc_cuda.plan(8192, device="cpu")
+
+
+def test_ptxas_report_gives_each_kernel_its_registers_and_spills():
+    """_build.parse_ptxas reads nvcc -Xptxas -v's report (the form ptxas
+    prints for sm_90a), one entry a kernel, as chip_smoke.py's AGC phase
+    reads it for every agc_relax_kernel instance."""
+    from csdr_tpu_torch.kernels import _build
+    text = (
+        "ptxas info    : Compiling entry function '_Z1aILi1EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aILi1EEvv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 55 registers, used 1 barriers, 560 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1aILi2EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aILi2EEvv\n"
+        "    40 bytes stack frame, 52 bytes spill stores, 92 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers\n")
+    assert _build.parse_ptxas(text) == {
+        "_Z1aILi1EEvv": {"registers": 55, "stack_bytes": 0,
+                         "spill_store_bytes": 0, "spill_load_bytes": 0},
+        "_Z1aILi2EEvv": {"registers": 64, "stack_bytes": 40,
+                         "spill_store_bytes": 52, "spill_load_bytes": 92}}
 
 
 # ---------------------------------------------------------------------------

@@ -34,24 +34,6 @@ KERNELS = ("adpcm_encode_kernel", "adpcm_decode_kernel")
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
-def ptxas_info(text: str) -> dict:
-    """Function name -> registers, stack frame, spill stores and loads."""
-    info, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            info[name] = {}
-        elif name and "registers" in line:
-            m = re.search(r"Used (\d+) registers", line)
-            info[name]["registers"] = int(m.group(1))
-        elif name and "stack frame" in line:
-            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
-            info[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
-                              spill_load_bytes=nums[2])
-    return info
-
-
 def functions(sass: str) -> dict:
     """Function name -> [(address, instruction text)]."""
     funcs, name = {}, None
@@ -108,7 +90,7 @@ def main() -> int:
         proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
                                "-c", "-o", obj, str(src)],
                               capture_output=True, text=True, check=True)
-        info = ptxas_info(proc.stdout + proc.stderr)
+        info = _build.parse_ptxas(proc.stdout + proc.stderr)
         sass = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
                               text=True, check=True).stdout
     spills = False
