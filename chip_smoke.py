@@ -153,6 +153,22 @@ prints one JSON line per phase and exits non-zero at the first failure:
    and per path each rank's step ms (CUDA events and host clock), the
    mesh's wideband Msps, its collective bytes a step, the staged
    collectives' host ms, and each rank's start-up apart from the steps.
+11'. graph (phase_graph): the captured step (core/graph.CapturedStep:
+   ``pipeline.jit_apply()``, and the bank's step from
+   build_ddc_bpsk31_bank) against the eager step, over 6 chunks from one
+   state each, on WFM at shift -0.2 and at -0.123456789 (the tone's
+   carrier there: the NCO phase moves every chunk), C, D, E and F at
+   CHUNK_C, G and G': every output, VarOut count and carried state leaf
+   bit for bit (NaNs by place); at most 2 captures a path, at most 1
+   after the first chunk where the phase moves; each step's launches
+   equal; an output held from one call unchanged after the next; a state
+   saved through core/checkpoint after 3 chunks resumed bit for bit; then
+   each step eager beside graph: issued ms, device-only ms and busy
+   share, the host's CUDA calls a step (torch.profiler: kernel launches,
+   graph launches, copies), dispatch_lint's ops (no sync, no upload), the
+   captures, and the card's name and power limit.  run_offline on the
+   card replays the captured step on every path above that goes through
+   it (WFM, C, D, E, F, W).
 
 12. the ddcd DDC server, driven through server.ddcd.DdcdServer: K2 at the
    shape of S'' (D=16, T=79, kout=16 384) against its plain version, then
@@ -766,6 +782,22 @@ def kernel_case(torch, name, d, t, kout, rate, theta, seed):
                           iters=40, queue_ahead_ms=20.0)
     plain_ms = time_cuda(lambda: plain(*pick(), taps, d, kout, *phase),
                          iters=3, warmup=1, repeats=3)
+    theta_form = {}
+    if mix:
+        # K1 reading theta from a float32 on the card (the captured step's
+        # form) against the by-value form at that float32, bit for bit
+        th32 = np.float32(theta)
+        th = torch.tensor(th32, device=dev)
+        y_dev = kern(tail, x, taps, d, kout, rate, th)
+        y_val = kern(tail, x, taps, d, kout, rate, float(th32))
+        torch.cuda.synchronize()
+        require(same_bits(torch, torch.view_as_real(y_dev),
+                          torch.view_as_real(y_val)),
+                f"{name}: theta from the card differs from theta by value")
+        theta_form = {"theta_on_card_bit_for_bit": True,
+                      "ms_theta_on_card": time_cuda(
+                          lambda: kern(*pick(), taps, d, kout, rate, th),
+                          iters=40, queue_ahead_ms=20.0)}
     # library yardstick: one conv1d (cuDNN, TF32 off) over [tail|x] as
     # (re, im) planes, pre-mixed for the shifted kernel; never used by
     # the port
@@ -809,7 +841,7 @@ def kernel_case(torch, name, d, t, kout, rate, theta, seed):
                         "TF32 off" + (", on the pre-mixed stream" if mix
                                       else ""),
         "library_snr_db": lib_snr,
-        "bytes": nbytes, "flops": flops,
+        "bytes": nbytes, "flops": flops, **theta_form,
         **roofline_row(torch, name,
                        lambda v, h: kern(*v, h, d, kout, *phase), sets[0],
                        taps, nbytes, flops, kernel_ms),
@@ -2532,7 +2564,7 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
     require_launches(launches, {kernel: chunks, "ted_scan": chunks},
                      f"path {key}")
     with torch.no_grad():
-        lint_step(torch, key, step, init(chunk), xs[0])
+        lint_step(torch, key, bank.step, init(chunk), xs[0])
 
     bers = {}
     for i, c in enumerate(bpsk):
@@ -2678,6 +2710,253 @@ def phase_bank_throughput(torch, banks):
                   "queued_device_ms: 10 steps queued behind a spin kernel, "
                   "median of 5; launches and host syncs from "
                   "torch.profiler")
+
+
+# ---------------------------------------------------------------------------
+# the captured step (core/graph.CapturedStep) against the eager step
+# ---------------------------------------------------------------------------
+
+GRAPH_CHUNKS = 6           # chunks of each path through both steps
+GRAPH_SAVED_AT = 3         # chunks before the checkpoint the resume starts at
+GRAPH_MOVING = -0.123456789    # a WFM shift whose NCO phase moves each chunk
+GRAPH_API = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchCooperativeKernel",
+                        "cuLaunchCooperativeKernel", "cudaLaunchKernelEx",
+                        "cuLaunchKernelEx"),
+             "graph": ("cudaGraphLaunch", "cuGraphLaunch"),
+             "copy": ("cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")}
+
+
+def host_api_calls(torch, fn) -> dict:
+    """The CUDA API calls (cuda* and cu*) of one call of ``fn`` that put
+    work on the card, under torch.profiler: kernel launches, graph
+    launches and copies (memsets among them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    calls = {k: sum(1 for n in names if n.startswith(v))
+             for k, v in GRAPH_API.items()}
+    calls["total"] = sum(calls.values())
+    return calls
+
+
+def host_tree(torch, tree):
+    """``tree`` with every tensor copied to the host."""
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda v: v.to("cpu", copy=True)
+                           if isinstance(v, torch.Tensor) else v, tree)
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two host pytrees bit for bit, NaNs compared by place."""
+    from torch.utils import _pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    if sa != sb:
+        return False
+    for u, v in zip(la, lb):
+        if isinstance(u, torch.Tensor):
+            if not (isinstance(v, torch.Tensor) and u.dtype == v.dtype):
+                return False
+            if u.is_complex():
+                u, v = torch.view_as_real(u), torch.view_as_real(v)
+            if not same_bits_or_nan(torch, u, v):
+                return False
+        elif u != v:
+            return False
+    return True
+
+
+def graph_paths(torch):
+    """(key, label, eager step, captured step, init, chunks on the card)
+    for each path of the graph phase."""
+    from csdr_tpu_torch.models import multichannel, receivers, wfm
+
+    dev = torch.device("cuda")
+
+    def pipe_path(key, label, pipe, x, chunk):
+        pipe = pipe.to(dev)
+        xs = [torch.from_numpy(x[c * chunk:(c + 1) * chunk]).to(dev)
+              for c in range(GRAPH_CHUNKS)]
+        return key, label, pipe, pipe.jit_apply(), lambda: pipe.init(dev), xs
+
+    n = GRAPH_CHUNKS * CHUNK
+    yield pipe_path("WFM", "wfm_advanced(shift_rate=-0.2)",
+                    wfm.wfm_advanced(shift_rate=SHIFT), fm_tone(n), CHUNK)
+    yield pipe_path("WFM moving", f"wfm_advanced(shift_rate={GRAPH_MOVING})",
+                    wfm.wfm_advanced(shift_rate=GRAPH_MOVING),
+                    fm_tone(n, carrier=-GRAPH_MOVING), CHUNK)
+    n = GRAPH_CHUNKS * CHUNK_C
+    s = np.arange(n, dtype=np.float64)
+    ssb = np.exp(2j * np.pi * np.mod(0.0005 * s, 1.0)).astype(np.complex64)
+    yield pipe_path("C", "ssb_receiver(agc_on=False)",
+                    receivers.ssb_receiver(0.0, 0.1, 0.05, decimation=50,
+                                           agc_on=False), ssb, CHUNK_C)
+    yield pipe_path("D", "nfm_receiver(50, 48000, fastagc_block_size="
+                    f"{CHUNK_C // 50})", receivers.nfm_receiver(
+                        decimation=50, audio_rate=AUDIO_RATE,
+                        fastagc_block_size=CHUNK_C // 50),
+                    fm_tone(n, carrier=0.0, dev=5_000.0), CHUNK_C)
+    yield pipe_path("E", "ssb_receiver(0.0, 0.1, 0.05, decimation=50)",
+                    receivers.ssb_receiver(0.0, 0.1, 0.05, decimation=50),
+                    ssb, CHUNK_C)
+    am = (1.0 + 0.5 * np.sin(2 * np.pi * 1000.0 * s / FS)
+          ).astype(np.complex64)
+    yield pipe_path("F", "am_receiver()", receivers.am_receiver(), am,
+                    CHUNK_C)
+    rates, _, centres = bank_plan()
+    for key, decim, frames in (("G", 50, FRAMES_G), ("G'", 16, FRAMES_GP)):
+        init, step, meta = multichannel.build_ddc_bpsk31_bank(
+            rates, decim, SPS, device=dev)
+        chunk = frames * meta["input_size"]
+        _, x = bank_input(torch, decim, GRAPH_CHUNKS * chunk, centres,
+                          60 + decim)
+        yield (key, f"build_ddc_bpsk31_bank(64 rates, decimation={decim}, "
+               f"sps={SPS})", meta["bank"].step, step,
+               lambda init=init, chunk=chunk: init(chunk),
+               [x[c * chunk:(c + 1) * chunk] for c in range(GRAPH_CHUNKS)])
+
+
+def graph_run(torch, step, init, xs, captured=None):
+    """``step`` over ``xs`` from ``init()``: per chunk the output and the
+    state on the host and the launches; with ``captured`` (the step
+    itself), also whether each output held on the card is unchanged after
+    the next call, and the captures after the first chunk."""
+    from csdr_tpu_torch.core import checkpoint
+
+    state, rows, held, saved = init(), [], None, None
+    for i, x in enumerate(xs):
+        before = launches_all()
+        t0 = time.perf_counter()
+        state, y = step(state, x)
+        if i == 0:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        after = launches_all()
+        host_y = host_tree(torch, y)
+        rows.append({"y": host_y, "state": host_tree(torch, state),
+                     "launches": {k: after[k] - before[k] for k in after}})
+        if held is not None:
+            rows[-2]["held"] = same_tree(torch, host_tree(torch, held[0]),
+                                         held[1])
+        held = (y, host_y)
+        if i == 0 and captured is not None:
+            first = captured.captures
+        if i + 1 == GRAPH_SAVED_AT and captured is not None:
+            saved = MISMATCH_DIR / "graph_checkpoint.npz"
+            saved.parent.mkdir(exist_ok=True)
+            checkpoint.save_state(str(saved), state)
+    torch.cuda.synchronize()
+    out = {"rows": rows, "first_call_s": first_s}
+    if captured is not None:
+        out["captures_after_first"] = captured.captures - first
+        state = checkpoint.load_state(str(saved), init())
+        resumed = []
+        for x in xs[GRAPH_SAVED_AT:]:
+            state, y = step(state, x)
+            resumed.append({"y": host_tree(torch, y),
+                            "state": host_tree(torch, state)})
+        out["resumed"] = resumed
+        saved.unlink()
+    return out
+
+
+def graph_cost(torch, step, init, x) -> dict:
+    """Issued step ms (back to back), device-only ms (queued behind a
+    spin) and the busy share, the host's calls a step (torch.profiler) and
+    dispatch_lint's launching ops a step."""
+    from csdr_tpu_torch.utils import dispatch_lint
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    box = {"s": init()}
+
+    def one():
+        box["s"], y = step(box["s"], x)
+        return y
+
+    issued = time_cuda(one, iters=10, warmup=3, repeats=5)
+    device = time_cuda(one, iters=10, warmup=1, repeats=5,
+                       queue_ahead_ms=100.0)
+    calls = host_api_calls(torch, one)
+    trace, (box["s"], _) = dispatch_lint.trace_fn(step, box["s"], x)
+    return {"issued_ms": issued, "device_only_ms": device,
+            "busy_share": device / issued, "host_api_calls": calls,
+            "lint_ops": sum(trace.ops.values()),
+            "lint_syncs": len(trace.syncs),
+            "lint_uploads": len(trace.uploads)}
+
+
+def phase_graph(torch):
+    """The graph phase: every path's captured step against its eager step
+    over GRAPH_CHUNKS chunks from one state, bit for bit in every output,
+    count and carried state leaf; at most 2 captures a path (1 after the
+    first chunk where the NCO phase moves); each step's launches equal;
+    an output held from one call unchanged after the next; a state saved
+    through core/checkpoint after GRAPH_SAVED_AT chunks resumed bit for
+    bit; then each step's cost, eager beside graph."""
+    smi = nvidia_smi_line()
+    results = {}
+    with torch.no_grad():
+        for key, label, eager, captured, init, xs in graph_paths(torch):
+            ref = graph_run(torch, eager, init, xs)
+            got = graph_run(torch, captured, init, xs, captured)
+            for i, (a, b) in enumerate(zip(ref["rows"], got["rows"])):
+                require(same_tree(torch, a["y"], b["y"]),
+                        f"graph {key}: chunk {i}'s output differs from the "
+                        "eager step's")
+                require(same_tree(torch, a["state"], b["state"]),
+                        f"graph {key}: chunk {i}'s state differs from the "
+                        "eager step's")
+                require(a["launches"] == b["launches"],
+                        f"graph {key}: chunk {i} launched {b['launches']}, "
+                        f"the eager step {a['launches']}")
+                require(b.get("held", True), f"graph {key}: chunk {i}'s "
+                        "output changed under the next call")
+            for i, (a, b) in enumerate(zip(ref["rows"][GRAPH_SAVED_AT:],
+                                           got["resumed"])):
+                require(same_tree(torch, a["y"], b["y"])
+                        and same_tree(torch, a["state"], b["state"]),
+                        f"graph {key}: resumed from a checkpoint, chunk "
+                        f"{GRAPH_SAVED_AT + i} differs from the eager step")
+            require(captured.captures <= 2,
+                    f"graph {key}: {captured.captures} captures")
+            if key == "WFM moving":
+                require(got["captures_after_first"] <= 1,
+                        f"graph {key}: {got['captures_after_first']} "
+                        "captures after the first chunk")
+            cost_e = graph_cost(torch, eager, init, xs[1])
+            cost_g = graph_cost(torch, captured, init, xs[1])
+            require(cost_g["lint_syncs"] == 0 and cost_g["lint_uploads"] == 0,
+                    f"graph {key}: the captured step syncs or uploads")
+            results[key] = {"eager": cost_e, "graph": cost_g,
+                            "captures": captured.captures}
+            emit("graph", path=key, pipeline=label, chunks=len(xs),
+                 chunk=int(xs[0].shape[0]), bit_for_bit="outputs, counts "
+                 "and state leaves, every chunk; checkpoint resume",
+                 launches_a_step={k: v for k, v in
+                                  got["rows"][-1]["launches"].items() if v},
+                 captures=captured.captures, replays=captured.replays,
+                 captures_after_first=got["captures_after_first"],
+                 first_call_s={"eager": ref["first_call_s"],
+                               "graph": got["first_call_s"]},
+                 eager=cost_e, graph=cost_g,
+                 issued_speedup=cost_e["issued_ms"] / cost_g["issued_ms"],
+                 smi=smi, note="issued_ms: CUDA events around 10 steps "
+                 "back to back (median of 5); device_only_ms: the same "
+                 "queued behind a 100 ms spin; host_api_calls: CUDA "
+                 "API calls of one step under torch.profiler; "
+                 "lint_ops: dispatch_lint's dispatcher ops a step (the "
+                 "graph's replay is not one); first_call_s: host clock of "
+                 "the first chunk to a sync (the graph's: its eager warm-up "
+                 "and its capture)")
+            del eager, captured, xs, ref, got
+            torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -4931,6 +5210,7 @@ def run(torch) -> int:
     mesh = phase_mesh_paths(torch, banks)
     g_launches = {k: b["launches"] for k, b in banks.items()}
     del banks
+    phase_graph(torch)
     servers, server_cases = phase_server_paths(torch)
     quiet_server(torch)
     edge_cases = phase_byte_edge_kernels(torch)

@@ -89,6 +89,15 @@ class Block(nn.Module):
         resolve_device(device)
         return None
 
+    def jit_apply(self):
+        """The block's step as one CUDA graph a key, replayed
+        (:class:`~csdr_tpu_torch.core.graph.CapturedStep`): the counterpart
+        of csdr_tpu's ``Pipeline.jit_apply``, ``jax.jit(self.apply)``.  It
+        is called as the block is, ``step(state, x) -> (state', y)``; on
+        CPU tensors it is the block itself."""
+        from csdr_tpu_torch.core.graph import CapturedStep
+        return CapturedStep(self)
+
 
 class _Stateless(Block):
     def __init__(self, name: str, fn: Callable[[torch.Tensor], torch.Tensor]):

@@ -1,0 +1,385 @@
+"""A step captured once as a CUDA graph and replayed: the counterpart of
+csdr_tpu's jitted step (``Pipeline.jit_apply``, ``StreamRunner``'s
+``jax.jit(pipeline.apply, donate_argnums=(0,))`` and the bank's jitted
+``step``).
+
+csdr_tpu compiles a step into one XLA program; the port issues every op of
+a step from Python, one launch at a time (PERF.md §5: 1.4-9x the card's
+own time on the host-bound paths).  :class:`CapturedStep` wraps any
+``fn(state, x) -> (state', y)`` and, on CUDA tensors, runs it as one
+``torch.cuda.CUDAGraph`` replay a call.
+
+Host leaves.  A state leaf that is not a tensor on the card (a 0-dim CPU
+tensor or a number) is host bookkeeping, advanced on the host so that a
+chunk never waits on the card (``core/block``).  Each host leaf is a
+function of the host leaves and the input's shape only.  Two kinds:
+
+- a *key leaf* sets a shape, an offset or a host count (the fractional
+  decimator's ``occ`` and ``where``, the AGC's ``started``).  It is part of
+  the graph's key, so a graph only ever replays the values it was captured
+  with; the next key leaves and the host ``VarOut`` counts a key gives are
+  recorded at its capture and handed back on every replay.
+- a *value leaf* only carries a value into a launch (the NCO phase of
+  ``ShiftedFirDecimateBlock`` and ``ShiftBlock``).  Its block reads it
+  through :func:`carried_value`: eagerly the leaf itself, inside a capture
+  a 0-dim tensor on the card that each call fills (one ``fill_`` launch,
+  the value in its arguments) before the replay.  The host advances it
+  with the block's own float32 arithmetic.  It is not part of the key, so
+  a stream whose phase never repeats replays one graph.
+
+A launch argument written into a pinned host buffer that a captured copy
+reads would be read when the card reaches the copy, after the host, which
+runs ahead, may have written the next call's value; a ``fill_`` carries
+its value in its launch, in stream order.
+
+Each call on the card: the key; on its first call, the step runs eagerly
+on the capture stream (kernels build, tables upload, caches fill: the
+warm-up, whose result is the call's) and is then captured; on every later
+call the state goes into the graph's buffers (by copy, unless it is the
+state the last call returned: csdr_tpu's ``StreamRunner`` donates it), the
+input is copied into the graph's input, the value leaves are filled, the
+graph replays, and each output on the card is copied once out of the
+graph's pool, so an output never changes under a later call.
+
+At most ``MAX_GRAPHS`` graphs are kept (the least recently used one is
+dropped past that); ``captures`` counts captures.  A capture records the
+launches every kernel wrapper counted while it ran; each replay adds them
+to the kernels' ``LAUNCHES``, so the counts go on counting launches the
+card ran.  A step that cannot be captured raises, naming its block, the
+op and the exception; it is never run eagerly instead.
+
+On CPU tensors the call is ``fn`` itself: the tests hold that against
+csdr_tpu.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import functools
+import importlib
+import pkgutil
+import traceback
+from collections import OrderedDict
+from typing import Callable
+
+import torch
+from torch.utils import _pytree as pytree
+
+MAX_GRAPHS = 4             # graphs a step keeps: start-up and steady keys
+
+_RECORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "csdr_graph_recorder", default=None)
+
+
+def carried_value(leaf, advance: Callable, device):
+    """A value leaf of a block's state: ``(read, next)``, ``read`` what the
+    block's launch takes, ``next = advance(leaf)`` the leaf's next value
+    (a new host tensor).  Eagerly ``read`` is ``leaf``; while a
+    :class:`CapturedStep` captures, a 0-dim tensor on ``device`` that each
+    replay fills with the then current leaf, whose next value the host
+    computes with ``advance``."""
+    nxt = advance(leaf)
+    rec = _RECORDER.get()
+    if rec is None:
+        return leaf, nxt
+    return rec.value(leaf, nxt, advance, device), nxt
+
+
+@functools.cache
+def launch_counts() -> dict:
+    """Every kernel wrapper's ``LAUNCHES`` dict, by module name: each
+    module of ``csdr_tpu_torch.kernels`` that counts launches."""
+    import csdr_tpu_torch.kernels as pkg
+    mods = (importlib.import_module(f"{pkg.__name__}.{m.name}")
+            for m in pkgutil.iter_modules(pkg.__path__))
+    return {m.__name__: m.LAUNCHES for m in mods if hasattr(m, "LAUNCHES")}
+
+
+class _Value:
+    """A value leaf of a captured step: its position among the input's
+    host leaves, the scalar on the card its launch reads, and its step."""
+
+    def __init__(self, pos: int, scalar: torch.Tensor, advance: Callable,
+                 nxt):
+        self.pos, self.scalar, self.advance, self.nxt = (pos, scalar,
+                                                         advance, nxt)
+
+
+class _Recorder:
+    """What a capture learns of the step's value leaves: ``leaves`` are
+    the input state's leaves as the capture passes them in, ``host_pos``
+    the positions of its host leaves."""
+
+    def __init__(self, host_pos: list[int], leaves: list):
+        self.host = [(i, leaves[i]) for i in host_pos]
+        self.values: dict[int, _Value] = {}
+
+    def value(self, leaf, nxt, advance, device):
+        pos = next((i for i, h in self.host if h is leaf), None)
+        if pos is None:
+            raise RuntimeError("carried_value: the leaf is not a host leaf "
+                               "of the captured step's state")
+        if pos not in self.values:        # a second run of the body reuses it
+            dtype = (leaf.dtype if isinstance(leaf, torch.Tensor)
+                     else torch.float32)
+            self.values[pos] = _Value(pos, torch.empty(
+                (), dtype=dtype, device=device), advance, nxt)
+        return self.values[pos].scalar
+
+
+class _Graph:
+    """A CUDA graph of one body, captured on ``stream``."""
+
+    def __init__(self, stream):
+        self.graph, self.stream, self.out = torch.cuda.CUDAGraph(), stream, \
+            None
+
+    def capture(self, body):
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            self.out = body()
+        return self.out
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
+
+
+class _Entry:
+    """One key's graph: its static input, state buffers (by leaf
+    position), value leaves, recorded host results and launches (counter,
+    name, count)."""
+
+    def __init__(self, graph, x, bufs, values, host_out, out_values, y_spec,
+                 y_const, launches):
+        self.graph, self.x, self.bufs, self.values = graph, x, bufs, values
+        self.host_out, self.out_values = host_out, out_values
+        self.y_spec, self.y_const, self.launches = y_spec, y_const, launches
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _host_key(v):
+    if isinstance(v, torch.Tensor):
+        return (str(v.dtype), tuple(v.shape), v.numpy().tobytes())
+    return (type(v).__name__, v)
+
+
+def _where(e: BaseException) -> str:
+    """The innermost Block of ``e``'s traceback and the op it failed at."""
+    from csdr_tpu_torch.core.block import Block
+
+    block, last = None, None
+    for frame, line in traceback.walk_tb(e.__traceback__):
+        me = frame.f_locals.get("self")
+        if isinstance(me, Block):
+            block = me.name
+        last = (frame.f_code.co_filename, line, frame.f_code.co_name)
+    at = f"{last[0]}:{last[1]} in {last[2]}" if last else "?"
+    return f"block '{block}', at {at}" if block else f"at {at}"
+
+
+class CapturedStep:
+    """``fn(state, x) -> (state', y)`` captured as one CUDA graph a key and
+    replayed (module docstring).  ``captures`` counts captures,
+    ``replays`` replays."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.name = getattr(fn, "name", None) or getattr(
+            fn, "__qualname__", repr(fn))
+        self.captures = self.replays = 0
+        self._graphs: OrderedDict = OrderedDict()
+        self._value_pos: frozenset | None = None
+        self._static: dict[int, _Entry] = {}   # id of a state buffer
+        self._spec = None                      # the state's structure
+        self._last = None                      # the state the last call gave
+        self._last_leaves, self._host = None, None   # its leaves, host ones
+        self._stream = None
+
+    # -- what a backend decides; the tests' CPU rehearsal overrides these --
+
+    def _on_card(self, x) -> bool:
+        return isinstance(x, torch.Tensor) and x.is_cuda
+
+    def _host_positions(self, leaves: list, dev) -> list[int]:
+        """Positions of the host leaves: every leaf but a tensor on the
+        step's device; a tensor on another card raises."""
+        host = []
+        for i, v in enumerate(leaves):
+            if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+                if v.device != dev:
+                    raise ValueError(f"{self.name}: a state leaf on "
+                                     f"{v.device}, the input on {dev}")
+                continue
+            host.append(i)
+        return host
+
+    def _capture_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        return self._stream
+
+    def _new_graph(self):
+        return _Graph(self._capture_stream())
+
+    def _eager(self, state, x):
+        """The first call of a key, on the capture stream, as the warm-up
+        before its capture."""
+        cur, side = torch.cuda.current_stream(), self._capture_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(state, x)
+        cur.wait_stream(side)
+        for t in pytree.tree_leaves((state, x)):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(side)
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(cur)
+        return out
+
+    # -- the call ---------------------------------------------------------
+
+    def __call__(self, state, x):
+        if not self._on_card(x):
+            return self.fn(state, x)
+        with torch.no_grad():
+            if state is self._last and self._last is not None:
+                leaves, host_pos = self._last_leaves, self._host
+            else:
+                leaves, spec = pytree.tree_flatten(state)
+                if any(id(v) in self._static for v in leaves):
+                    raise ValueError(
+                        f"{self.name}: a state donated to an earlier call; "
+                        "pass the state the last call returned")
+                if self._spec is None:
+                    self._spec = spec
+                elif spec != self._spec:
+                    raise ValueError(f"{self.name}: a state of structure "
+                                     f"{spec}, the step's is {self._spec}")
+                host_pos = self._host_positions(leaves, x.device)
+            key = None if self._value_pos is None else self._key(
+                x, leaves, host_pos)
+            entry = self._graphs.get(key)
+            if entry is None:
+                out = self._eager(state, x)
+                self._capture(x, leaves, host_pos)
+                self._remember(out[0], x.device)
+                return out
+            self._graphs.move_to_end(key)
+            return self._replay(entry, x, leaves)
+
+    def _remember(self, state, dev) -> None:
+        """``state`` as the last call's: the next call that passes it back
+        skips its flattening and its checks."""
+        self._last = state
+        self._last_leaves = pytree.tree_leaves(state)
+        self._host = self._host_positions(self._last_leaves, dev)
+
+    def _key(self, x, leaves, host_pos) -> tuple:
+        return (tuple(x.shape), x.dtype, x.device, tuple(
+            _host_key(leaves[i]) for i in host_pos
+            if i not in self._value_pos))
+
+    def _capture(self, x, leaves, host_pos) -> None:
+        bufs = {i: leaves[i].clone() for i in range(len(leaves))
+                if i not in set(host_pos)}
+        xs = x.clone()
+        static = list(leaves)
+        for i, b in bufs.items():
+            static[i] = b
+        static_state = pytree.tree_unflatten(static, self._spec)
+        rec = _Recorder(host_pos, static)
+
+        def body():
+            token = _RECORDER.set(rec)
+            try:
+                new_state, y = self.fn(static_state, xs)
+            finally:
+                _RECORDER.reset(token)
+            new, new_spec = pytree.tree_flatten(new_state)
+            if new_spec != self._spec or self._host_positions(
+                    new, x.device) != host_pos:
+                raise ValueError(f"{self.name}: the step's state changes "
+                                 f"structure ({self._spec} -> {new_spec})")
+            y_leaves, y_spec = pytree.tree_flatten(y)
+            # what reads a state buffer is copied before the buffers are
+            # written (the state donated, as csdr_tpu's runner donates it)
+            ptrs = {_storage(b) for b in bufs.values()}
+            for seq in (new, y_leaves):
+                for j, v in enumerate(seq):
+                    if (isinstance(v, torch.Tensor) and v.device == x.device
+                            and _storage(v) in ptrs
+                            and not (seq is new and v is bufs.get(j))):
+                        seq[j] = v.clone()
+            for i, b in bufs.items():
+                if new[i] is not b:
+                    b.copy_(new[i])
+            return new, (y_leaves, y_spec)
+
+        graph = self._new_graph()
+        counters = launch_counts()
+        before = {m: dict(c) for m, c in counters.items()}
+        try:
+            new, (y_leaves, y_spec) = graph.capture(body)
+        except Exception as e:
+            raise RuntimeError(
+                f"{self.name}: cannot be captured in a CUDA graph: "
+                f"{_where(e)}: {type(e).__name__}: {e}") from e
+        finally:
+            launched = [(c, k, c[k] - before[m].get(k, 0))
+                        for m, c in counters.items() for k in c
+                        if c[k] != before[m].get(k, 0)]
+            for m, c in counters.items():
+                c.update(before[m])
+        value_pos = frozenset(rec.values)
+        if self._value_pos is None:
+            self._value_pos = value_pos
+        elif value_pos != self._value_pos:
+            raise RuntimeError(f"{self.name}: value leaves at "
+                               f"{sorted(value_pos)}, an earlier capture "
+                               f"had {sorted(self._value_pos)}")
+        out_values = {j: rec.values[p] for j, v in enumerate(new)
+                      for p in rec.values if v is rec.values[p].nxt}
+        host_out = [None if (j in bufs or j in out_values) else v
+                    for j, v in enumerate(new)]
+        # outputs on the card are copied out after each replay; the rest
+        # (host counts) are the capture's
+        y_const = [(isinstance(v, torch.Tensor) and v.device == x.device, v)
+                   for v in y_leaves]
+        entry = _Entry(graph, xs, bufs, list(rec.values.values()), host_out,
+                       out_values, y_spec, y_const, launched)
+        self._graphs[self._key(x, leaves, host_pos)] = entry
+        for b in bufs.values():
+            self._static[id(b)] = entry
+        self.captures += 1
+        while len(self._graphs) > MAX_GRAPHS:
+            _, old = self._graphs.popitem(last=False)
+            for b in old.bufs.values():
+                self._static.pop(id(b), None)
+
+    def _replay(self, e: _Entry, x, leaves):
+        for i, b in e.bufs.items():
+            if leaves[i] is not b:
+                b.copy_(leaves[i])
+        if x is not e.x:
+            e.x.copy_(x)
+        for val in e.values:
+            v = leaves[val.pos]
+            val.scalar.fill_(v.item() if isinstance(v, torch.Tensor) else v)
+        _, (y_static, _) = e.graph.replay()
+        self.replays += 1
+        for counter, k, n in e.launches:
+            counter[k] += n
+        new = list(e.host_out)
+        for i, b in e.bufs.items():
+            new[i] = b
+        for j, val in e.out_values.items():
+            new[j] = val.advance(leaves[val.pos])
+        y = [v.clone() if on_card else c
+             for v, (on_card, c) in zip(y_static, e.y_const)]
+        state = pytree.tree_unflatten(new, self._spec)
+        self._last, self._last_leaves = state, new
+        return state, pytree.tree_unflatten(y, e.y_spec)

@@ -1,7 +1,11 @@
 """Host-side streaming runner (counterpart of csdr_tpu.core.stream).
 
 Feeds a long host array to a pipeline in fixed blocks on one device,
-carrying the state between blocks, and gathers the output on the host.
+carrying the state between blocks, and gathers the output on the host.  On
+the card each block is one replay of the pipeline's captured step
+(``pipeline.jit_apply()``, core/graph), as csdr_tpu's runner calls
+``jax.jit(pipeline.apply, donate_argnums=(0,))``; on the CPU the pipeline
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ class StreamRunner:
         self.device = resolve_device(device)
         self.pipeline = pipeline.to(self.device)
         self.block_size = block_size
+        self.step = (self.pipeline.jit_apply() if self.device.type == "cuda"
+                     else self.pipeline)
 
     @torch.no_grad()
     def run(self, x: np.ndarray, drop_warmup: bool = False) -> np.ndarray:
@@ -36,7 +42,7 @@ class StreamRunner:
         state = self.pipeline.init(self.device)
         outs = []
         for start in range(0, len(x) - n + 1, n):
-            state, y = self.pipeline(state, cplx.from_numpy(
+            state, y = self.step(state, cplx.from_numpy(
                 x[start: start + n], self.device))
             outs.append(cplx.to_numpy(y.compact() if isinstance(y, VarOut)
                                       else y))

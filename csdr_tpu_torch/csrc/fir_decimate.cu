@@ -175,8 +175,15 @@ fir_decimate_kernel(const float2* __restrict__ tail, long long tail_len,
                     const float2* __restrict__ x, long long n,
                     const float* __restrict__ taps, int T, int D,
                     long long kout, float2* __restrict__ y,
-                    double rate, double theta, int M, int L, int RS) {
+                    double rate, double theta,
+                    const float* __restrict__ theta_dev, int M, int L,
+                    int RS) {
   extern __shared__ float4 smem4[];
+  // the pointer form: theta as a float32 on the card, widened as the host
+  // widens the by-value form's
+  if constexpr (MIX) {
+    if (theta_dev != nullptr) theta = (double)__ldg(theta_dev);
+  }
   const int U = M + R - 1;
   float* hu = reinterpret_cast<float*>(smem4);    // U*D*R taps, then D rows
   float2* w = reinterpret_cast<float2*>(hu + ((U * D * R + 3) & ~3));
@@ -283,8 +290,8 @@ fir_decimate_kernel(const float2* __restrict__ tail, long long tail_len,
 template <bool MIX, int R, int S>
 int launch_r(const void* tail, long long tail_len, const void* x, long long n,
              const void* taps, int T, int D, long long kout, void* y,
-             double rate, double theta, int tile, const Layout& g,
-             cudaStream_t stream) {
+             double rate, double theta, const float* theta_dev, int tile,
+             const Layout& g, cudaStream_t stream) {
   auto kern = fir_decimate_kernel<MIX, R, S>;
   if (g.bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -295,7 +302,8 @@ int launch_r(const void* tail, long long tail_len, const void* x, long long n,
   kern<<<(unsigned)blocks, tile / (R * S) * (MIX ? kMixStagers : 1), g.bytes,
          stream>>>(
       (const float2*)tail, tail_len, (const float2*)x, n, (const float*)taps,
-      T, D, kout, (float2*)y, rate, theta, (int)g.M, (int)g.L, (int)g.RS);
+      T, D, kout, (float2*)y, rate, theta, theta_dev, (int)g.M, (int)g.L,
+      (int)g.RS);
   return (int)cudaGetLastError();
 }
 
@@ -311,8 +319,8 @@ bool valid_tile(int tile, int R, int S, bool mix) {
 template <bool MIX>
 int launch(const void* tail, long long tail_len, const void* x, long long n,
            const void* taps, int T, int D, long long kout, void* y,
-           double rate, double theta, int tile, int R, int S,
-           void* stream) {
+           double rate, double theta, const float* theta_dev, int tile,
+           int R, int S, void* stream) {
   if (T < 1 || D < 1 || tail_len < 0 || n < 0 || kout < 0 ||
       !valid_tile(tile, R, S, MIX))
     return (int)cudaErrorInvalidValue;
@@ -325,7 +333,7 @@ int launch(const void* tail, long long tail_len, const void* x, long long n,
 #define CSDR_FIR_CASE(R_, S_)                                              \
   case R_ * 10 + S_:                                                       \
     return launch_r<MIX, R_, S_>(tail, tail_len, x, n, taps, T, D, kout, y, \
-                                 rate, theta, tile, g, s);
+                                 rate, theta, theta_dev, tile, g, s);
   switch (rs) {
     CSDR_FIR_CASE(1, 1) CSDR_FIR_CASE(2, 1) CSDR_FIR_CASE(4, 1)
     CSDR_FIR_CASE(1, 2) CSDR_FIR_CASE(2, 2) CSDR_FIR_CASE(4, 2)
@@ -346,7 +354,7 @@ int csdr_fir_decimate(const void* tail, long long tail_len, const void* x,
                       long long kout, void* y, int tile, int per_thread,
                       int groups, void* stream) {
   return launch<false>(tail, tail_len, x, n, taps, T, D, kout, y, 0.0, 0.0,
-                       tile, per_thread, groups, stream);
+                       nullptr, tile, per_thread, groups, stream);
 }
 
 // As csdr_fir_decimate, with [tail|x][s] mixed by exp(j*2*pi*(theta +
@@ -357,7 +365,21 @@ int csdr_shift_fir_decimate(const void* tail, long long tail_len,
                             double rate, double theta, int tile,
                             int per_thread, int groups, void* stream) {
   return launch<true>(tail, tail_len, x, n, taps, T, D, kout, y, rate, theta,
-                      tile, per_thread, groups, stream);
+                      nullptr, tile, per_thread, groups, stream);
+}
+
+// As csdr_shift_fir_decimate, with theta read on the card from the float32
+// at `theta` (widened to double as the by-value form's caller widens it):
+// the form a captured step launches, its phase filled in before each
+// replay.
+int csdr_shift_fir_decimate_dev(const void* tail, long long tail_len,
+                                const void* x, long long n, const void* taps,
+                                int T, int D, long long kout, void* y,
+                                double rate, const void* theta, int tile,
+                                int per_thread, int groups, void* stream) {
+  if (theta == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<true>(tail, tail_len, x, n, taps, T, D, kout, y, rate, 0.0,
+                      (const float*)theta, tile, per_thread, groups, stream);
 }
 
 // Shared memory of one block of `tile` outputs, in runs of `per_thread`

@@ -39,6 +39,8 @@ _SIGNATURES = {
                           _I, _VP],
     "csdr_shift_fir_decimate": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL, _VP,
                                 _D, _D, _I, _I, _I, _VP],
+    "csdr_shift_fir_decimate_dev": [_VP, _LL, _VP, _LL, _VP, _I, _I, _LL,
+                                    _VP, _D, _VP, _I, _I, _I, _VP],
     "csdr_fft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_ifft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,

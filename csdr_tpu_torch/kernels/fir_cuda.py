@@ -186,7 +186,8 @@ def _check(tail, x, taps, decimation, kout, precision):
             f"[tail|x] has {tail.shape[0] + x.shape[0]}")
 
 
-def _launch(name: str, tail, x, taps, decimation, kout, plan, *phase):
+def _launch(name: str, tail, x, taps, decimation, kout, plan, *phase,
+            entry: str | None = None):
     if not (tail.is_contiguous() and x.is_contiguous()
             and taps.is_contiguous()):
         raise ValueError(f"{name}: tail, x and taps must be contiguous")
@@ -197,7 +198,7 @@ def _launch(name: str, tail, x, taps, decimation, kout, plan, *phase):
     lib = _build.lib()
     y = torch.empty(kout, dtype=torch.complex64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = getattr(lib, "csdr_" + name)
+    fn = getattr(lib, "csdr_" + (entry or name))
     code = fn(tail.data_ptr(), tail.shape[0], x.data_ptr(), x.shape[0],
               taps.data_ptr(), taps.shape[0], int(decimation), kout,
               y.data_ptr(), *phase, plan["tile"], plan["per_thread"],
@@ -223,15 +224,29 @@ def fir_decimate(tail: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
 
 def shift_fir_decimate(tail: torch.Tensor, x: torch.Tensor,
                        taps: torch.Tensor, decimation: int, kout: int,
-                       rate: float, theta: float,
+                       rate: float, theta,
                        precision: str = "HIGHEST",
                        plan: dict | None = None) -> torch.Tensor:
     """K1: as :func:`fir_decimate`, with sample s of ``[tail | x]`` first
-    mixed by ``exp(j*2*pi*(theta + rate*s))`` (rate and theta in cycles)."""
+    mixed by ``exp(j*2*pi*(theta + rate*s))`` (rate and theta in cycles).
+
+    ``theta`` is a number or a 0-dim CPU tensor, passed by value, or a
+    one-element float32 tensor on ``x``'s card, which the kernel reads
+    there (``csdr_shift_fir_decimate_dev``: the form a captured step
+    launches, core/graph.carried_value); both give the same bits."""
     _check(tail, x, taps, decimation, kout, precision)
     if not x.is_cuda:
         return shift_fir_decimate_plain(tail, x, taps, decimation, kout,
                                         rate, theta)
+    if isinstance(theta, torch.Tensor) and theta.device.type != "cpu":
+        if (theta.device != x.device or theta.dtype != torch.float32
+                or theta.numel() != 1):
+            raise ValueError(f"theta: want one float32 on {x.device}, got "
+                             f"{theta.numel()} {theta.dtype} on "
+                             f"{theta.device}")
+        return _launch("shift_fir_decimate", tail, x, taps, decimation,
+                       kout, plan, float(rate), theta.data_ptr(),
+                       entry="shift_fir_decimate_dev")
     return _launch("shift_fir_decimate", tail, x, taps, decimation, kout,
                    plan, float(rate), float(theta))
 
@@ -418,8 +433,9 @@ def fir_decimate_plain(tail, x, taps, decimation, kout) -> torch.Tensor:
 
 def shift_fir_decimate_plain(tail, x, taps, decimation, kout, rate,
                              theta) -> torch.Tensor:
+    """``theta`` a number or a one-element tensor, read as a float64."""
     v = torch.cat([tail, x])
-    v = v * nco_phasor(v.shape[0], rate, theta, v.device)
+    v = v * nco_phasor(v.shape[0], rate, float(theta), v.device)
     return strided_corr(v, taps.tolist(), decimation, kout)
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Pipeline, resolve_device
+from csdr_tpu_torch.core.graph import CapturedStep
 from csdr_tpu_torch.ops import digital, fastddc as fd, sync
 from csdr_tpu_torch.parallel import mesh as pmesh, sharded_ddc
 
@@ -237,15 +238,23 @@ def build_ddc_bpsk31_bank(shift_rates, decimation: int, sps: int = 256,
     mesh: a ``parallel.mesh.Mesh`` for csdr_tpu's mesh form
     (:class:`MeshDdcBpsk31Bank`, on the mesh's device; ``device`` is not
     read): ``init`` takes the whole chunk's length, ``step`` the rank's
-    time slice and returns its channel rows."""
+    time slice and returns its channel rows.
+
+    Without a mesh, on the card ``step`` is :meth:`DdcBpsk31Bank.step`
+    captured as one CUDA graph and replayed (core/graph.CapturedStep,
+    csdr_tpu's jitted bank step): it donates its state, as csdr_tpu's
+    does.  ``meta["bank"].step``, ``.channelize`` and ``.modem`` stay
+    eager."""
     if mesh is not None:
         bank = MeshDdcBpsk31Bank(mesh, shift_rates, decimation, sps,
                                  use_costas, costas_bw, tr_segments,
                                  tr_subchunks)
-    else:
-        bank = DdcBpsk31Bank(shift_rates, decimation, sps, use_costas,
-                             costas_bw, tr_segments, tr_subchunks, device)
-    return bank.init, bank.step, bank.meta
+        return bank.init, bank.step, bank.meta
+    bank = DdcBpsk31Bank(shift_rates, decimation, sps, use_costas,
+                         costas_bw, tr_segments, tr_subchunks, device)
+    step = CapturedStep(bank.step) if bank.device.type == "cuda" \
+        else bank.step
+    return bank.init, step, bank.meta
 
 
 def example_flagship(mesh, frames_per_shard: int = 4, c_total: int = 8,

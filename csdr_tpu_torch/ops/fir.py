@@ -37,6 +37,7 @@ import torch
 
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.core.block import Block, resolve_device
+from csdr_tpu_torch.core.graph import carried_value
 from csdr_tpu_torch.core.precision import full_f32_matmul
 from csdr_tpu_torch.kernels import fir_cuda
 
@@ -130,7 +131,9 @@ class ShiftedFirDecimateBlock(FirDecimateBlock):
     State: (theta, tail).  theta is the phase in cycles of tail[0], a
     float32 0-dim CPU tensor advanced with csdr_tpu's own float32 step
     (``_th``), so the carried phase tracks csdr_tpu's chunk for chunk;
-    stream sample 0 starts at phase 0, as in the serial chain."""
+    stream sample 0 starts at phase 0, as in the serial chain.  theta is a
+    value leaf (core/graph.carried_value): a captured step's K1 reads it on
+    the card."""
 
     def __init__(self, rate: float, taps, decimation: int,
                  name: str = "shift_fir_decimate_cc",
@@ -156,10 +159,12 @@ class ShiftedFirDecimateBlock(FirDecimateBlock):
         if n % self.decimation:
             raise ValueError(f"chunk size {n} must be a multiple of "
                              f"decimation {self.decimation}")
+        th, th_next = carried_value(theta, lambda t: self._th(t, n),
+                                    x.device)
         y = fir_cuda.shift_fir_decimate(
             tail, x.contiguous(), self.taps, self.decimation,
-            n // self.decimation, self.rate, float(theta), self.precision)
-        return (self._th(theta, n), self._new_tail(tail, x)), y
+            n // self.decimation, self.rate, th, self.precision)
+        return (th_next, self._new_tail(tail, x)), y
 
 
 def shifted_fir_decimate_block(rate: float, taps, decimation: int,

@@ -25,6 +25,7 @@ import torch
 
 from csdr_tpu_torch.core.block import Block, resolve_device
 from csdr_tpu_torch.core.cplx import expj
+from csdr_tpu_torch.core.graph import carried_value
 from csdr_tpu_torch.core.precision import fma_f32
 
 TWO_PI = 2.0 * np.pi
@@ -134,7 +135,9 @@ def shift_fc(x: torch.Tensor, rate: float, phase=0.0):
 
 class ShiftBlock(Block):
     """Streaming shift carrying the oscillator phase across chunks (the
-    reference's ``starting_phase`` return value)."""
+    reference's ``starting_phase`` return value).  The phase is a value
+    leaf (core/graph.carried_value): a captured step reads it as a 0-dim
+    tensor on the card."""
 
     def __init__(self, rate: float, name: str = "shift_cc"):
         super().__init__(name)
@@ -151,8 +154,10 @@ class ShiftBlock(Block):
         if key not in self._cycles:
             self._cycles[key] = torch.from_numpy(
                 _frac_cycles_static(n, self.rate)).to(x.device)
-        y = x * expj(phase + TWO_PI * self._cycles[key])
-        return _next_phase(phase, n, self.rate), y
+        ph, ph_next = carried_value(
+            phase, lambda p: _next_phase(p, n, self.rate), x.device)
+        y = x * expj(ph + TWO_PI * self._cycles[key])
+        return ph_next, y
 
 
 def shift_block(rate: float, name: str = "shift_cc") -> Block:

@@ -2100,3 +2100,122 @@ def test_cuda_agc_ff_chain_probe_times_its_chain(cuda):
             for n in (agc_cuda.PROBE_MAX // 2, agc_cuda.PROBE_MAX))
     assert a > 8.0 and abs(a - b) < 0.05 * b
     assert agc_cuda.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# the captured step (core/graph.CapturedStep) and K1's theta from the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t,rate,theta", [c for c in CASES if c[0] <= 10])
+def test_cuda_k1_theta_on_the_card_is_the_by_value_form(cuda, d, t, rate,
+                                                        theta):
+    """K1 reading theta from a float32 on the card gives the by-value
+    form's bits (theta widened alike), and both match the plain version."""
+    kout = 3 * 256 + 17
+    tail, x, taps = _inputs(d, t, kout, seed=11)
+    args = (torch.from_numpy(tail).to(cuda), torch.from_numpy(x).to(cuda),
+            torch.from_numpy(taps).to(cuda), d, kout)
+    th = np.float32(theta)
+    n0 = fir_cuda.LAUNCHES["shift_fir_decimate"]
+    by_value = fir_cuda.shift_fir_decimate(*args, rate, float(th))
+    on_card = fir_cuda.shift_fir_decimate(
+        *args, rate, torch.tensor(th, device=cuda))
+    plain = fir_cuda.shift_fir_decimate_plain(*args, rate, float(th))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(by_value),
+                       torch.view_as_real(on_card))
+    assert _snr_db(plain.cpu().numpy(), on_card.cpu().numpy()) > 110
+    assert fir_cuda.LAUNCHES["shift_fir_decimate"] == n0 + 2
+    with pytest.raises(ValueError, match="theta"):
+        fir_cuda.shift_fir_decimate(*args, rate, torch.tensor(
+            [th, th], device=cuda))
+
+
+def _same_tree(a, b):
+    from torch.utils import _pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    assert sa == sb
+    for u, v in zip(la, lb):
+        if isinstance(u, torch.Tensor):
+            u, v = u.cpu(), v.cpu()
+            if u.is_complex():
+                u, v = torch.view_as_real(u), torch.view_as_real(v)
+            if u.is_floating_point():
+                assert torch.equal(torch.isnan(u), torch.isnan(v))
+                u, v = torch.nan_to_num(u), torch.nan_to_num(v)
+            assert torch.equal(u, v)
+        else:
+            assert u == v
+
+
+def _launch_counts():
+    from csdr_tpu_torch.core.graph import launch_counts
+    return {(m, k): n for m, c in launch_counts().items()
+            for k, n in c.items()}
+
+
+def _eager_against_captured(eager, captured, init, xs):
+    """Both steps over ``xs`` from one state: outputs and states bit for
+    bit, each step's launches equal."""
+    se, sg = init(), init()
+    with torch.no_grad():
+        for x in xs:
+            c0 = _launch_counts()
+            se, ye = eager(se, x)
+            c1 = _launch_counts()
+            sg, yg = captured(sg, x)
+            c2 = _launch_counts()
+            torch.cuda.synchronize()
+            _same_tree((se, ye), (sg, yg))
+            assert {k: c1[k] - c0[k] for k in c0} == \
+                {k: c2[k] - c1[k] for k in c1}
+    assert captured.replays >= len(xs) - 2
+
+
+def _tone(n, rate):
+    s = np.arange(n, dtype=np.float64)
+    rng = np.random.default_rng(12)
+    return (np.exp(2j * np.pi * np.mod(rate * s, 1.0))
+            + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [-0.2, -0.123456789])
+def test_cuda_captured_wfm_step_is_the_eager_step(cuda, rate):
+    from csdr_tpu_torch.models import wfm
+    pipe = wfm.wfm_advanced(shift_rate=rate).to(cuda)
+    n = 240_000
+    x = _tone(5 * n, -rate)
+    xs = [torch.from_numpy(x[c * n:(c + 1) * n]).to(cuda) for c in range(5)]
+    step = pipe.jit_apply()
+    _eager_against_captured(pipe, step, lambda: pipe.init(cuda), xs)
+    assert step.captures <= 2
+
+
+@pytest.mark.cuda
+def test_cuda_captured_ssb_with_agc_step_is_the_eager_step(cuda):
+    from csdr_tpu_torch.models import receivers
+    pipe = receivers.ssb_receiver().to(cuda)
+    n = 50 * pipe.blocks[1].input_size * 6
+    x = _tone(5 * n, 0.0005)
+    xs = [torch.from_numpy(x[c * n:(c + 1) * n]).to(cuda) for c in range(5)]
+    step = pipe.jit_apply()
+    _eager_against_captured(pipe, step, lambda: pipe.init(cuda), xs)
+    assert step.captures == 2                # the AGC's started, then not
+
+
+@pytest.mark.cuda
+def test_cuda_captured_bank_step_is_the_eager_step(cuda):
+    from csdr_tpu_torch.core.graph import CapturedStep
+    from csdr_tpu_torch.models import multichannel
+    init, step, meta = multichannel.build_ddc_bpsk31_bank(
+        [0.3, 0.1, -0.15, -0.35], 50, 64, device=cuda)
+    assert isinstance(step, CapturedStep)
+    n = 500 * meta["input_size"]
+    x = torch.from_numpy(0.3 * _tone(4 * n, 0.1)).to(cuda)
+    xs = [x[c * n:(c + 1) * n] for c in range(4)]
+    _eager_against_captured(meta["bank"].step, step, lambda: init(n), xs)
+    assert step.captures == 1
