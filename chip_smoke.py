@@ -168,7 +168,13 @@ prints one JSON line per phase and exits non-zero at the first failure:
    graph launches, copies), dispatch_lint's ops (no sync, no upload), the
    captures, and the card's name and power limit.  run_offline on the
    card replays the captured step on every path above that goes through
-   it (WFM, C, D, E, F, W).
+   it (WFM, C, D, E, F, W).  Then the server paths S, S', S'' (below):
+   DdcdServer's captured step (``_step``) against an eager twin (``_step
+   = step``), both through ``_run_chunk`` over 12's schedule (claims, a
+   retune, a release, the retune back): every chunk's outputs, counts and
+   state bit for bit, launches equal, 1 capture, the row buffers' storage
+   unchanged, no sync or upload in the captured step; each step's cost as
+   above, and ``_run_chunk``'s host ms eager and captured.
 
 12. the ddcd DDC server, driven through server.ddcd.DdcdServer: K2 at the
    shape of S'' (D=16, T=79, kout=16 384) against its plain version, then
@@ -184,9 +190,10 @@ prints one JSON line per phase and exits non-zero at the first failure:
    for bit to a run without them), a release after chunk 4 (zeros; in
    the td method shift 0, as csdr_tpu's), a retune back whose host rows
    equal the first bit for bit, every claimed slot card vs CPU >= 100 dB;
-   each path's cost (Msps, step ms as issued and device-only, busy share,
-   _run_chunk and set_shift-to-output ms by the host clock); then serve()
-   over loopback with two clients (shift=, a retune mid-stream,
+   each path's cost (Msps, the captured step's ms as issued and
+   device-only, busy share, _run_chunk and set_shift-to-output ms by the
+   host clock; _run_chunk replays the captured step in all of 12); then
+   serve() over loopback with two clients (shift=, a retune mid-stream,
    bypass=1), and path S's server with six tone slots and six noise-only
    slots, card and CPU against float64 per channel.
 
@@ -2956,7 +2963,94 @@ def phase_graph(torch):
                  "and its capture)")
             del eager, captured, xs, ref, got
             torch.cuda.empty_cache()
+        for key in SERVER_PATHS:
+            results[key] = graph_server(torch, key, smi)
+            torch.cuda.empty_cache()
     return results
+
+
+def graph_server(torch, key: str, smi: str) -> dict:
+    """Server path ``key``: ``DdcdServer``'s captured step (``_step``, a
+    CapturedStep of ``step``) against an eager twin (``_step = step``),
+    each driven through ``_run_chunk`` by drive_server's schedule (the
+    claims, the retune, the release and the retune back); every chunk's
+    outputs, counts and carried state bit for bit, its launches equal, one
+    capture, the row buffers where ``__init__`` put them; then both steps'
+    costs and ``_run_chunk``'s host ms."""
+    from csdr_tpu_torch.server.ddcd import DdcdServer
+
+    args = SERVER_PATHS[key][0]
+    runs = {}
+    for mode in ("eager", "graph"):
+        srv = DdcdServer(transition_bw=0.05, device="cuda", **args)
+        if mode == "eager":
+            srv._step = srv.step
+        c, d, n = srv.max_channels, srv.decimation, srv.chunk_in
+        x = server_input(SERVER_CHUNKS * n, d, 60 + d + c)
+        ptrs = [r.data_ptr() for r in srv.rows]
+        rows = []
+
+        def each(k, seconds, srv=srv, rows=rows):
+            rows.append({"state": host_tree(torch, srv.state),
+                         "launches": launches_all(), "s": seconds})
+
+        reset_all()
+        outs, _, _ = drive_server(srv, x, server_slots(c), each=each)
+        prev = {k: 0 for k in rows[0]["launches"]}
+        for r in rows:
+            r["launches"], prev = ({k: v - prev[k] for k, v in
+                                    r["launches"].items()}, r["launches"])
+        require([r.data_ptr() for r in srv.rows] == ptrs,
+                f"graph {key} ({mode}): a retune or release moved the rows")
+        runs[mode] = {"srv": srv, "x": x, "outs": outs, "rows": rows}
+    e, g = runs["eager"], runs["graph"]
+    for k in range(SERVER_CHUNKS):
+        (de, ce), (dg, cg) = e["outs"][k], g["outs"][k]
+        require(np.array_equal(ce, cg) and same_tree(
+            torch, torch.from_numpy(de), torch.from_numpy(dg)),
+            f"graph {key}: chunk {k}'s output differs from the eager step's")
+        require(same_tree(torch, e["rows"][k]["state"], g["rows"][k]["state"]),
+                f"graph {key}: chunk {k}'s state differs from the eager "
+                "step's")
+        require(e["rows"][k]["launches"] == g["rows"][k]["launches"],
+                f"graph {key}: chunk {k} launched {g['rows'][k]['launches']}"
+                f", the eager step {e['rows'][k]['launches']}")
+    step = g["srv"]._step
+    replays = step.replays
+    require(step.captures == 1 and replays == SERVER_CHUNKS - 1,
+            f"graph {key}: {step.captures} captures, {replays} replays")
+    xc = e["x"][:e["srv"].chunk_in]
+    run_ms = {m: host_ms(lambda m=m: runs[m]["srv"]._run_chunk(xc))
+              for m in runs}
+    xd = torch.from_numpy(xc).to(e["srv"].device)
+    cost_e = graph_cost(torch, e["srv"].step, e["srv"].init, xd)
+    cost_g = graph_cost(torch, step, g["srv"].init, xd)
+    require(cost_g["lint_syncs"] == 0 and cost_g["lint_uploads"] == 0,
+            f"graph {key}: the captured step syncs or uploads")
+    require(step.captures == 1, f"graph {key}: a fresh state was captured "
+            "again instead of copied in")
+    emit("graph", path=key, pipeline=f"DdcdServer {args}",
+         chunks=SERVER_CHUNKS, chunk=int(xc.shape[0]),
+         bit_for_bit="outputs, counts and state leaves, every chunk, "
+         f"through a retune before chunk {RETUNE_AT + 1}, a release before "
+         f"{RELEASE_AT + 1} and the retune back before {BACK_AT + 1}",
+         rows_storage_unchanged=True,
+         rows_bytes=int(sum(r.nbytes for r in g["srv"].rows)),
+         launches_a_step={k: v for k, v in
+                          g["rows"][-1]["launches"].items() if v},
+         captures=step.captures, replays_in_the_run=replays,
+         first_call_s={"eager": e["rows"][0]["s"], "graph": g["rows"][0]["s"]},
+         eager=cost_e, graph=cost_g,
+         issued_speedup=cost_e["issued_ms"] / cost_g["issued_ms"],
+         run_chunk_ms={m: v[0] for m, v in run_ms.items()},
+         run_chunk_ms_span={m: v[1] for m, v in run_ms.items()},
+         smi=smi, note="as the other graph lines; first_call_s: host clock "
+         "of the first _run_chunk (rows up, the step, the output down; the "
+         "graph's: its eager warm-up and its capture); run_chunk_ms: host "
+         "clock of _run_chunk on one chunk (input up, the step, every slot "
+         "down), median of 7, span min and max")
+    return {"eager": cost_e, "graph": cost_g, "captures": step.captures,
+            "run_chunk_ms": run_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -3416,13 +3510,15 @@ def slot_rows(srv, s: int) -> tuple:
     return tuple(np.array(a[s]) for a in srv._host_rows())
 
 
-def drive_server(srv, x: np.ndarray, slots, changes: bool = True):
+def drive_server(srv, x: np.ndarray, slots, changes: bool = True,
+                 each=None):
     """Claim ``slots`` at SERVER_RATES, then SERVER_CHUNKS chunks through
     ``_run_chunk``: slot 1 retuned to slot 4's shift before chunk
     RETUNE_AT, slot 2 released before RELEASE_AT, slot 1 back before
-    BACK_AT (``changes=False``: the claims alone).  Returns the outputs
-    (data, counts) a chunk, and slot 1's rows at the claim and after the
-    retune back."""
+    BACK_AT (``changes=False``: the claims alone).  ``each(k, seconds)``,
+    if given, runs after chunk k with its ``_run_chunk``'s host seconds.
+    Returns the outputs (data, counts) a chunk, and slot 1's rows at the
+    claim and after the retune back."""
     for s, r in zip(slots, SERVER_RATES):
         srv.set_shift(s, r)
     first = back = slot_rows(srv, slots[1])
@@ -3436,7 +3532,10 @@ def drive_server(srv, x: np.ndarray, slots, changes: bool = True):
         if changes and k == BACK_AT:
             srv.set_shift(slots[1], SERVER_RATES[1])
             back = slot_rows(srv, slots[1])
+        t0 = time.perf_counter()
         outs.append(srv._run_chunk(x[k * n:(k + 1) * n]))
+        if each is not None:
+            each(k, time.perf_counter() - t0)
     return outs, first, back
 
 
@@ -3475,11 +3574,11 @@ def server_path(torch, key):
     require_launches(launches, {kernel: per_chunk * SERVER_CHUNKS},
                      f"path {key}")
     if key in LINT_ALLOW:
-        # the card step of _run_chunk, past its upload and before its
-        # download to the sockets, on the rows the chunks ran with
-        with torch.no_grad():
-            lint_step(torch, key, srv._step, torch.from_numpy(x[:n]).to(
-                "cuda"), srv._dev)
+        # the eager step that _run_chunk captures, past its upload and
+        # before its download to the sockets, on the rows the chunks ran
+        # with, from a fresh state
+        lint_step(torch, key, srv.step, srv.init(),
+                  torch.from_numpy(x[:n]).to(srv.device))
     count = int(outs[0][1][0])
     require(all(o.shape[0] == c and np.all(k == count) and
                 np.all(np.isfinite(o.view(np.float32))) for o, k in outs),
@@ -3551,10 +3650,21 @@ def server_path(torch, key):
             "wall": wall}
 
 
+def host_ms(fn, reps=7):
+    """Median milliseconds of ``fn`` by the host clock, and [min, max]."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), [float(min(ts)), float(max(ts))]
+
+
 def server_cost(torch, srv, x: np.ndarray, slot: int) -> dict:
-    """The step as issued and device-only (CUDA events), and by the host
-    clock ``_run_chunk`` (input up, rows up when changed, step, slots
-    back) and a retune to the next chunk's output."""
+    """The server's step (the captured one ``_run_chunk`` calls) as issued
+    and device-only (CUDA events), and by the host clock ``_run_chunk``
+    (input up, rows up when changed, step, slots back) and a retune to
+    the next chunk's output."""
     import itertools
 
     from csdr_tpu_torch.utils.timing import time_cuda
@@ -3563,28 +3673,24 @@ def server_cost(torch, srv, x: np.ndarray, slot: int) -> dict:
     xc = x[:n]
     xd = torch.from_numpy(xc).to(srv.device)
     srv._run_chunk(xc)
-    rows = srv._dev
+    box = {"s": srv.state}
 
-    def host_ms(fn, reps=7):
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts)), [float(min(ts)), float(max(ts))]
+    def one():
+        box["s"], y = srv._step(box["s"], xd)
+        return y
 
-    step_ms = time_cuda(lambda: srv._step(xd, rows), iters=10, warmup=2,
-                        repeats=5)
-    device_ms = time_cuda(lambda: srv._step(xd, rows), iters=10, warmup=1,
-                          repeats=5, queue_ahead_ms=100.0)
+    step_ms = time_cuda(one, iters=10, warmup=2, repeats=5)
+    device_ms = time_cuda(one, iters=10, warmup=1, repeats=5,
+                          queue_ahead_ms=100.0)
+    profile = profile_call(torch, one)
+    srv.state = box["s"]                 # the state the step returned last
     run_ms, run_span = host_ms(lambda: srv._run_chunk(xc))
     flip = itertools.cycle((SERVER_RATES[4], SERVER_RATES[1]))
     retune_ms, retune_span = host_ms(
         lambda: (srv.set_shift(slot, next(flip)), srv._run_chunk(xc)))
     return {"chunk": n, "step_ms": step_ms, "msps": n / step_ms / 1e3,
             "device_ms": device_ms, "device_busy_share": device_ms / step_ms,
-            "step_profile": profile_call(torch,
-                                         lambda: srv._step(xd, rows)),
+            "step_profile": profile,
             "run_chunk_ms": run_ms, "run_chunk_ms_span": run_span,
             "retune_to_output_ms": retune_ms,
             "retune_to_output_ms_span": retune_span,
@@ -3742,8 +3848,9 @@ def phase_server_paths(torch):
         emit("throughput", path=key,
              pipeline=f"DdcdServer {SERVER_PATHS[key][0]}", **cost,
              drive_msps=SERVER_CHUNKS * sv["srv"].chunk_in / sv["wall"] / 1e6,
-             note="step_ms: CUDA events around back-to-back device steps "
-                  "as issued; device_ms: the same queued ahead of the card; "
+             note="step_ms: CUDA events around back-to-back captured steps "
+                  "(the graph's replays) as issued; device_ms: the same "
+                  "queued ahead of the card; "
                   "run_chunk_ms: host clock, input up, rows up when changed, "
                   "the step and every slot back to the host; "
                   "retune_to_output_ms: host clock from set_shift to the "

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import contextvars
 import functools
+import gc
 import importlib
 import pkgutil
 import traceback
@@ -128,15 +129,29 @@ class _Recorder:
 
 
 class _Graph:
-    """A CUDA graph of one body, captured on ``stream``."""
+    """A CUDA graph of one body, captured on ``stream``.
+
+    A graph destroyed while another is captured (an old step's, freed by
+    Python's cyclic collector, in any thread) invalidates that capture in
+    CUDA's global capture mode.  So the capture is thread-local (only the
+    capturing thread's own unsafe calls fail it: a step that syncs still
+    raises) and the cyclic collector waits until it ends; the DDC server
+    captures on its device-loop thread while other threads run."""
 
     def __init__(self, stream):
         self.graph, self.stream, self.out = torch.cuda.CUDAGraph(), stream, \
             None
 
     def capture(self, body):
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            self.out = body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.out = body()
+        finally:
+            if collecting:
+                gc.enable()
         return self.out
 
     def replay(self):

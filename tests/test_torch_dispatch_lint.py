@@ -76,11 +76,11 @@ def _server():
     srv = DdcdServer(16, 0.05, max_channels=8, frames=8, device="cpu")
     for s, r in zip((1, 3, 5), (-0.3, 0.1, 0.2)):
         srv.set_shift(s, r)
-    srv._run_chunk(_noise(srv.chunk_in).numpy())      # uploads the rows
+    srv._run_chunk(_noise(srv.chunk_in).numpy())      # copies the rows in
 
     def make_args(n):
-        return (_noise(n * srv.chunk_in // 8), srv._dev)
-    return srv._step, make_args
+        return (srv.init(), _noise(n * srv.chunk_in // 8))
+    return srv.step, make_args
 
 
 W_ROW = chip_smoke.W_EVERY * chip_smoke.W_AVG         # samples a dB row

@@ -2219,3 +2219,86 @@ def test_cuda_captured_bank_step_is_the_eager_step(cuda):
     xs = [x[c * n:(c + 1) * n] for c in range(4)]
     _eager_against_captured(meta["bank"].step, step, lambda: init(n), xs)
     assert step.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,method,frames", [
+    (16, "fastddc", 64), (50, "fastddc", 100), (16, "td", 4)],
+    ids=["d16_factored", "d50_classed", "d16_td"])
+def test_cuda_captured_server_is_the_eager_server(cuda, d, method, frames):
+    """The ddcd server's captured step (``DdcdServer._step``) against its
+    eager twin (``_step = step``) on the card over 5 chunks: claims, a
+    retune between the first replay and the second, a release, the retune
+    back, a new claim.  Every chunk's outputs, counts and state bit for
+    bit, launches equal, one capture, the row buffers never moved."""
+    from csdr_tpu_torch.server.ddcd import DdcdServer
+
+    eager, graph = (DdcdServer(d, 0.05, 8, method, frames, port=0,
+                               device=cuda) for _ in range(2))
+    eager._step = eager.step
+    ptrs = [r.data_ptr() for r in graph.rows]
+
+    def release(s):
+        with s.lock:
+            s._zero_slot_locked(0)
+
+    events = {0: lambda s: [s.set_shift(i, r) for i, r in
+                            ((0, -0.11), (1, 0.23), (3, 0.3))],
+              1: lambda s: s.set_shift(1, -0.31), 2: release,
+              3: lambda s: s.set_shift(1, 0.23),
+              4: lambda s: s.set_shift(2, -0.2)}
+    rng = np.random.default_rng(d)
+    for k in range(5):
+        x = (rng.standard_normal(eager.chunk_in)
+             + 1j * rng.standard_normal(eager.chunk_in)).astype(np.complex64)
+        for s in (eager, graph):
+            events[k](s)
+        c0 = _launch_counts()
+        de, ce = eager._run_chunk(x)
+        c1 = _launch_counts()
+        dg, cg = graph._run_chunk(x)
+        c2 = _launch_counts()
+        _same_tree((torch.from_numpy(de), torch.from_numpy(ce), eager.state),
+                   (torch.from_numpy(dg), torch.from_numpy(cg), graph.state))
+        assert {n: c1[n] - c0[n] for n in c0} == \
+            {n: c2[n] - c1[n] for n in c1}
+        assert [r.data_ptr() for r in graph.rows] == ptrs
+    assert graph._step.captures == 1 and graph._step.replays == 4
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_graph_freed_in_another_thread(cuda):
+    """Another thread frees an old step's graph while a step is captured
+    (Python's cyclic collector can do that at any time, and the DDC server
+    captures on its device-loop thread): the capture holds, with the
+    cyclic collector paused while it runs."""
+    import gc
+    import threading
+
+    from csdr_tpu_torch.core.graph import CapturedStep
+
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    old = CapturedStep(lambda s, v: (s + 1, v * 2))
+    s = torch.zeros(1, device=cuda)
+    for _ in range(2):
+        s, _ = old(s, x)
+    assert old.captures == 1
+    held, seen = [old], []
+    del old
+
+    def body(state, v):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            t = threading.Thread(target=held.clear)
+            t.start()
+            t.join()
+        return state + 1, v * 3
+
+    step = CapturedStep(body)
+    s = torch.zeros(1, device=cuda)
+    for k in range(3):
+        s, y = step(s, x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, x * 3) and s.item() == k + 1
+    assert step.captures == 1 and step.replays == 2
+    assert seen == [False] and not held
