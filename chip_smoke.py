@@ -150,7 +150,16 @@ prints one JSON line per phase and exits non-zero at the first failure:
        K1's plain version in K1's place >= 100 dB and atol 5e-5 on each
        of the 64 channels, the tones within 5 Hz, 2x2 vs 1x1 >= 90 dB
        and atol 5e-3, K1 once a channel a time shard, bytes as predicted;
-   and per path each rank's step ms (CUDA events and host clock), the
+   every bank as its builder gives it on the card (captured,
+   parallel/segments: one CUDA graph a step where time is 1, else a graph
+   between each two collectives, the halo, fixup and corner turn run
+   between the replays) and eagerly, in the same rank on the same chunks:
+   outputs, counts and state leaves bit for bit on every rank, launches
+   and collective bytes equal, the segments, one capture a segment and
+   none after the first chunk (the K1-plain comparison runs the eager
+   step and must launch no K1); and per path each rank's step ms (CUDA
+   events and host clock), eager and captured issued and device-only ms,
+   busy share and host CUDA calls a step, each rank's peak memory, the
    mesh's wideband Msps, its collective bytes a step, the staged
    collectives' host ms, and each rank's start-up apart from the steps.
 11'. graph (phase_graph): the captured step (core/graph.CapturedStep:
@@ -3059,6 +3068,7 @@ def graph_server(torch, key: str, smi: str) -> dict:
 
 MESH_CHUNKS = 2            # M, M': G's (G''s) first chunks (depth cut from 3)
 MESH_TIMED_STEPS = 3       # steps a rank times after the counted run
+MESH_COST_ITERS = 5        # steps each cost repeat times back to back
 MESH_DDC_ATOL = 2e-4       # sharded vs one shard (tests/test_sharded.py)
 WFM_BANK_CHANNELS = 64     # bench_scaling.py's default --channels
 WFM_BANK_BARS = (90.0, 5e-3)   # 2x2 vs 1x1, dB and atol (test_sharded.py)
@@ -3126,18 +3136,76 @@ def counted_run(torch, mesh, run):
     return out, launches, collectives.mesh_total(mesh)
 
 
+def mesh_cost(torch, mesh, one) -> list:
+    """Every rank's cost of a step ``one()``: issued ms (CUDA events around
+    MESH_COST_ITERS steps back to back, median of 3), device-only ms (the
+    same queued behind a 100 ms spin, as graph_cost) and its busy share,
+    the host's CUDA calls a step, and from torch.profiler the rank's own
+    kernels in one step (the union of their intervals, its share of the
+    issued step, the five of most time).  A host-staged collective waits
+    for the card, so on a staged mesh the spin cannot queue past it, and
+    only the profiler's share is the device's alone."""
+    from csdr_tpu_torch.utils.timing import time_cuda
+    issued = time_cuda(one, iters=MESH_COST_ITERS, warmup=1, repeats=3)
+    device = time_cuda(one, iters=MESH_COST_ITERS, warmup=0, repeats=3,
+                       queue_ahead_ms=100.0)
+    prof = profile_call(torch, one)
+    return rank_info(mesh, {"issued_ms": issued, "device_only_ms": device,
+                            "busy_share": device / issued,
+                            "host_api_calls": host_api_calls(torch, one),
+                            "profiler_device_ms": prof["device_ms"],
+                            "profiler_busy_share": prof["device_ms"]
+                            / issued,
+                            "top_kernels_ms": prof["top_kernels_ms"]})
+
+
+def eager_vs_graph(torch, mesh, steps: dict, drive) -> dict:
+    """``drive(step, after)`` -> (state, outputs a chunk), appending to
+    ``after`` the step's captures after each chunk, for the eager and the
+    captured step of ``steps``, each with every count zeroed just before
+    and read just after (counted_run): each one's launches, collective
+    bytes and outputs, and every rank's outputs and state compared bit for
+    bit (a flag a rank)."""
+    runs = {}
+    for mode, step in steps.items():
+        after = []
+        (st, outs), launches, nbytes = counted_run(
+            torch, mesh, lambda step=step: drive(step, after))
+        runs[mode] = {"tree": host_tree(torch, (st, outs)), "outs": outs,
+                      "launches": launches, "bytes": nbytes,
+                      "captures": after}
+    same = rank_info(mesh, same_tree(torch, runs["eager"].pop("tree"),
+                                     runs["graph"].pop("tree")))
+    return {"runs": runs, "same_by_rank": same}
+
+
+def graph_fields(pair: dict, graph, costs: dict) -> dict:
+    """What a mesh line prints of a step's eager and captured runs, the
+    captured step's segments and its captures: after each chunk of the
+    compared run, and in all once its costs were taken."""
+    return {"eager_vs_graph_bit_for_bit_by_rank": pair["same_by_rank"],
+            "segments": sorted(graph.segments),
+            "captures_by_chunk": pair["runs"]["graph"]["captures"],
+            "captures": graph.captures,
+            "launches_eager": pair["runs"]["eager"]["launches"],
+            "bytes_eager": pair["runs"]["eager"]["bytes"],
+            "cost_by_rank": costs}
+
+
 def mesh_bank_job(mesh, decim: int, frames: int, x_path: str,
                   flagship: bool) -> dict:
     """One rank of path M (1x1) or M' (2x2) at one decimation, on G's (or
     G''s) first MESH_CHUNKS chunks (``x_path``, saved by the parent): the
-    DDC bank (``sharded_ddc``) on chunk 1, then, where ``flagship``,
-    ``build_ddc_bpsk31_bank(..., mesh=mesh)`` over the chunks and its
-    channel streams."""
+    DDC bank (``sharded_ddc``), then, where ``flagship``,
+    ``build_ddc_bpsk31_bank(..., mesh=mesh)``, each as the builder gives
+    it on the card (captured, parallel/segments) and eagerly, on the same
+    chunks in this rank."""
     import torch
     from csdr_tpu_torch.models import multichannel
     from csdr_tpu_torch.ops import fastddc as fd
     from csdr_tpu_torch.parallel import mesh as pm, sharded_ddc
 
+    torch.cuda.reset_peak_memory_stats()
     rates, _, _ = bank_plan()
     ddc = fd.fastddc_init(0.05, decim)
     chunk = frames * ddc.input_size
@@ -3147,43 +3215,70 @@ def mesh_bank_job(mesh, decim: int, frames: int, x_path: str,
     del x
     where = {"comm": mesh.comm, "mesh": dict(mesh.shape)}
     out = {"decim": decim, "chunk": chunk, **where}
-    ddc_step, _ = sharded_ddc.build_ddc_bank_step(mesh, ddc, rates)
-    with torch.no_grad():
-        y, launches, nbytes = counted_run(torch, mesh,
-                                          lambda: ddc_step(xs[0]))
-        out["ddc"] = {"y": pm.gather_output(y, mesh), "launches": launches,
-                      "bytes": nbytes, **where,
-                      "ranks": timed_steps(torch, mesh,
-                                           lambda: ddc_step(xs[0]))}
-    if not flagship:
-        return out
-    init, step, meta = multichannel.build_ddc_bpsk31_bank(
-        rates, decim, SPS, mesh=mesh)
-    bank = meta["bank"]
+    graph, _ = sharded_ddc.build_ddc_bank_step(mesh, ddc, rates)
+    steps = {"eager": sharded_ddc.DdcBankStep(mesh, ddc, rates),
+             "graph": graph}
 
-    def drive():
-        st, outs = init(chunk), []
+    def drive_ddc(step, after):
+        ys = []
         for v in xs:
-            st, o = step(st, v)
-            outs.append(o)
-        return st, outs
+            ys.append(step(v))
+            after.append(getattr(step, "captures", 0))
+        return (), ys
+
+    def cost(step, v):
+        return lambda: step(v)
 
     with torch.no_grad():
-        (st, outs), launches, nbytes = counted_run(torch, mesh, drive)
-        box = {"state": st}
+        pair = eager_vs_graph(torch, mesh, steps, drive_ddc)
+        g = pair["runs"]["graph"]
+        costs = {m: mesh_cost(torch, mesh, cost(st, xs[0]))
+                 for m, st in steps.items()}
+        out["ddc"] = {"y": pm.gather_output(g["outs"][0], mesh),
+                      "streams": [pm.gather_output(y, mesh)
+                                  for y in g["outs"]],
+                      "launches": g["launches"], "bytes": g["bytes"],
+                      **where, **graph_fields(pair, graph, costs),
+                      "ranks": timed_steps(torch, mesh,
+                                           lambda: graph(xs[0]))}
+    if flagship:
+        init, step, meta = multichannel.build_ddc_bpsk31_bank(
+            rates, decim, SPS, mesh=mesh)
+        bank = meta["bank"]
+        steps = {"eager": bank.step, "graph": step}
 
-        def one_step():
-            box["state"], _ = step(box["state"], xs[0])
+        def drive(step, after):
+            st, outs = init(chunk), []
+            for v in xs:
+                st, o = step(st, v)
+                outs.append(o)
+                after.append(getattr(step, "captures", 0))
+            return st, outs
 
-        ranks = timed_steps(torch, mesh, one_step)
-        streams = [pm.gather_output(bank.channelize(v), mesh,
-                                    time_sharded=False) for v in xs]
-    out["flagship"] = {
-        "outs": [(pm.gather_output(b, mesh, time_sharded=False),
-                  pm.gather_output(k, mesh, time_sharded=False))
-                 for b, k in outs],
-        "streams": streams, "launches": launches, "bytes": nbytes,
-        "ranks": ranks, "m": bank.samples_per_chunk(chunk), **where}
+        def stepping(step):
+            box = {"state": init(chunk)}
+
+            def one():
+                box["state"], o = step(box["state"], xs[0])
+                return o
+            return one
+
+        with torch.no_grad():
+            pair = eager_vs_graph(torch, mesh, steps, drive)
+            g = pair["runs"]["graph"]
+            costs = {m: mesh_cost(torch, mesh, stepping(st))
+                     for m, st in steps.items()}
+            one = stepping(step)
+            ranks = timed_steps(torch, mesh, one)
+        out["flagship"] = {
+            "outs": [(pm.gather_output(b, mesh, time_sharded=False),
+                      pm.gather_output(k, mesh, time_sharded=False))
+                     for b, k in g["outs"]],
+            "launches": g["launches"], "bytes": g["bytes"], "ranks": ranks,
+            "m": bank.samples_per_chunk(chunk), **where,
+            **graph_fields(pair, step, costs)}
+    out["peak_memory_bytes_by_rank"] = rank_info(
+        mesh, torch.cuda.max_memory_allocated())
     return out
 
 
@@ -3214,27 +3309,53 @@ def k1_plain():
 
 def wfm_bank_job(mesh) -> dict:
     """One rank of path M'': ``sharded_wfm`` at 64 channels over one 2.4
-    M-sample chunk, firdes_lowpass_f(81, 0.05), D1=10, D2=5; then the
-    same step with K1's plain version (not counted, not timed)."""
+    M-sample chunk, firdes_lowpass_f(81, 0.05), D1=10, D2=5, as the
+    builder gives it on the card (captured) and eagerly, twice each; then
+    the eager step with K1's plain version (counted: it must launch no K1,
+    not timed)."""
     import torch
     from csdr_tpu_torch import firdes
     from csdr_tpu_torch.parallel import mesh as pm, sharded_wfm
 
+    torch.cuda.reset_peak_memory_stats()
     # bank_plan's rates: its 8 BPSK31 channels carry the FM tones here
     rates, _, centres = bank_plan()
-    step = sharded_wfm.build_wfm_bank_step(
-        mesh, rates, firdes.firdes_lowpass_f(81, 0.05), WFM_D1, WFM_D2)
+    args = (mesh, rates, firdes.firdes_lowpass_f(81, 0.05), WFM_D1, WFM_D2)
+    steps = {"eager": sharded_wfm.WfmBankStep(*args),
+             "graph": sharded_wfm.build_wfm_bank_step(*args)}
     xl = pm.shard_input(wfm_bank_input(torch, centres), mesh)
+
+    def drive(step, after):
+        ys = []
+        for _ in range(2):
+            ys.append(step(xl))
+            after.append(getattr(step, "captures", 0))
+        return (), ys
+
     with torch.no_grad():
-        y, launches, nbytes = counted_run(torch, mesh, lambda: step(xl))
-        ranks = timed_steps(torch, mesh, lambda: step(xl))
+        pair = eager_vs_graph(torch, mesh, steps, drive)
+        g = pair["runs"]["graph"]
+        costs = {m: mesh_cost(torch, mesh, lambda st=st: st(xl))
+                 for m, st in steps.items()}
+        ranks = timed_steps(torch, mesh, lambda: steps["graph"](xl))
         with k1_plain():
-            y_plain = step(xl)
-    return {"audio": pm.gather_output(y, mesh),
+            y_plain, plain_launches, _ = counted_run(
+                torch, mesh, lambda: steps["eager"](xl))
+
+    def a_step(counts):          # drive's two calls
+        return {k: v // 2 for k, v in counts.items()}
+
+    fields = graph_fields(pair, steps["graph"], costs)
+    for k in ("launches_eager", "bytes_eager"):
+        fields[k] = a_step(fields[k])
+    return {"audio": pm.gather_output(g["outs"][1], mesh),
             "audio_plain": pm.gather_output(y_plain, mesh),
-            "launches": launches,
-            "bytes": nbytes, "ranks": ranks, "tail_ext": step.tail_ext,
-            "comm": mesh.comm, "mesh": dict(mesh.shape)}
+            "launches": a_step(g["launches"]), "bytes": a_step(g["bytes"]),
+            "k1_plain_launches": plain_launches,
+            "ranks": ranks, "tail_ext": steps["eager"].tail_ext,
+            "comm": mesh.comm, "mesh": dict(mesh.shape),
+            "peak_memory_bytes_by_rank": rank_info(
+                mesh, torch.cuda.max_memory_allocated()), **fields}
 
 
 def predicted_bytes(kind: str, chan: int, time_: int, **shape) -> dict:
@@ -3253,12 +3374,45 @@ def predicted_bytes(kind: str, chan: int, time_: int, **shape) -> dict:
     return out
 
 
+GRAPH_FIELDS = ("eager_vs_graph_bit_for_bit_by_rank", "segments",
+                "captures_by_chunk", "captures", "cost_by_rank",
+                "peak_memory_bytes_by_rank")
+# a captured step's segments where the mesh's time axis is > 1: a graph
+# between each two collectives (parallel/segments); one, "step", where 1
+MESH_SEGMENTS = {"ddc": ["body"], "flagship": ["body", "modem"],
+                 "wfm": ["body", "finish"]}
+
+
+def require_graph(what: str, kind: str, res: dict, time_: int,
+                  chunks: int) -> None:
+    """The captured step against the eager one in every rank: outputs and
+    state bit for bit, the same launches and collective bytes, its
+    segments, one capture a segment, none after the first chunk nor while
+    its costs were taken."""
+    require(all(res["eager_vs_graph_bit_for_bit_by_rank"]),
+            f"{what}: the captured step differs from the eager step, by "
+            f"rank {res['eager_vs_graph_bit_for_bit_by_rank']}")
+    require(res["launches_eager"] == res["launches"]
+            and res["bytes_eager"] == res["bytes"],
+            f"{what}: the eager step launched {res['launches_eager']}, sent "
+            f"{res['bytes_eager']}; the captured one {res['launches']}, "
+            f"{res['bytes']}")
+    segs = ["step"] if time_ == 1 else MESH_SEGMENTS[kind]
+    require(res["segments"] == segs, f"{what}: segments {res['segments']}, "
+            f"want {segs}")
+    want = [len(segs)] * chunks
+    require(res["captures_by_chunk"] == want and res["captures"] == len(segs),
+            f"{what}: captures {res['captures_by_chunk']} by chunk, "
+            f"{res['captures']} in all, want {want}")
+
+
 def mesh_line(key: str, pipeline: str, res: dict, wide: int, steps: int,
               startup: list, t_spawn: float, **extra) -> dict:
     """A path's printed line: per rank the event and host ms a step, the
     wideband Msps of the whole mesh (the chunk over the slowest rank's
     host step), the collective bytes a step, the staged collectives' host
-    ms, and each rank's start-up apart from the steps."""
+    ms, each rank's start-up apart from the steps, and the captured step
+    against the eager one (graph_fields)."""
     ranks = res["ranks"]
     slowest = max(r["host_ms"] for r in ranks)
     line = {"path": key, "pipeline": pipeline, "mesh": res["mesh"],
@@ -3271,7 +3425,8 @@ def mesh_line(key: str, pipeline: str, res: dict, wide: int, steps: int,
             "collective_host_ms_a_step_by_rank": [
                 r["collective_host_ms_a_step"] for r in ranks],
             "rank_startup_s": [s["first_job_at"] - t_spawn
-                               for s in startup], **extra}
+                               for s in startup],
+            **{k: res[k] for k in GRAPH_FIELDS if k in res}, **extra}
     emit("path", **line)
     return line
 
@@ -3348,25 +3503,28 @@ def phase_mesh_paths(torch, banks) -> dict:
     _, bpsk, _ = bank_plan()
     launches = {"M": [], "M'": []}
 
-    # M: the 1x1 mesh is paths G and G' bit for bit
+    # M: the 1x1 mesh is paths G and G' bit for bit, its captured step one
+    # graph a step
     for res, (d, g, _, kernel) in zip((m50, m16), cases):
-        ref, f = banks[g]["mesh_ref"], res["flagship"]
+        ref, f, b = banks[g]["mesh_ref"], res["flagship"], res["ddc"]
         ov = fd.fastddc_init(0.05, d).overlap_length
-        require(np.array_equal(res["ddc"]["y"], ref["y_card"][0]),
+        require_graph(f"path M D={d} DDC bank", "ddc", b, 1, MESH_CHUNKS)
+        require_graph(f"path M D={d}", "flagship", f, 1, MESH_CHUNKS)
+        require(np.array_equal(b["y"], ref["y_card"][0]),
                 f"path M D={d}: the 1x1 DDC bank differs from path {g}'s "
                 "channelizer")
-        for (b, k), (rb, rk) in zip(f["outs"], ref["outs"]):
-            require(np.array_equal(k, rk) and np.array_equal(b, rb),
+        for (bits, k), (rb, rk) in zip(f["outs"], ref["outs"]):
+            require(np.array_equal(k, rk) and np.array_equal(bits, rb),
                     f"path M D={d}: bits or counts differ from path {g}'s")
-        for s, rs in zip(f["streams"], ref["y_card"]):
-            require(np.array_equal(s, rs), f"path M D={d}: channel streams "
+        for st, rs in zip(b["streams"], ref["y_card"]):
+            require(np.array_equal(st, rs), f"path M D={d}: channel streams "
                     f"differ from path {g}'s")
         snr = min(require_match(f"path_M_D{d}: card vs CPU channel streams",
-                                s[bpsk], c[bpsk], CHANNEL_BAR)
-                  for s, c in zip(f["streams"], ref["y_cpu"]))
+                                st[bpsk], c[bpsk], CHANNEL_BAR)
+                  for st, c in zip(b["streams"], ref["y_cpu"]))
         gates = mesh_flagship_gates(f"M D={d}", f, ref["outs"],
                                     ref["tx_bits"], bpsk, 0)
-        require_launches(res["ddc"]["launches"], {kernel: 1},
+        require_launches(b["launches"], {kernel: MESH_CHUNKS},
                          f"path M D={d} DDC bank")
         require_launches(f["launches"], {kernel: MESH_CHUNKS,
                                          "ted_scan": MESH_CHUNKS},
@@ -3374,40 +3532,49 @@ def phase_mesh_paths(torch, banks) -> dict:
         require(f["bytes"] == predicted_bytes("flagship", 1, 1, halo=ov,
                                               channels=CHANNELS, m=f["m"]),
                 f"path M D={d}: collective bytes {f['bytes']} on a 1x1 mesh")
-        launches["M"] += [res["ddc"]["launches"], f["launches"]]
+        launches["M"] += [b["launches"], f["launches"]]
         mesh_line("M", f"build_ddc_bpsk31_bank(64 rates, {d}, sps={SPS}, "
                   "mesh=1x1)", f, res["chunk"], MESH_CHUNKS, start1, t1,
                   chunks=MESH_CHUNKS, chunk=res["chunk"],
                   bits_and_streams_vs_path=f"{g}: equal",
-                  card_vs_cpu_bpsk_channel_min_snr_db=snr, **gates)
+                  card_vs_cpu_bpsk_channel_min_snr_db=snr,
+                  ddc_bank={k: b[k] for k in GRAPH_FIELDS if k in b},
+                  peak_memory_bytes_by_rank=res["peak_memory_bytes_by_rank"],
+                  **gates)
 
     # M': 2x2 on the one card against M's 1x1
     for res, one, (d, g, frames, kernel) in zip((p50, p16), (m50, m16),
                                                  cases):
         ov = fd.fastddc_init(0.05, d).overlap_length
-        y, y1 = res["ddc"]["y"], one["ddc"]["y"]
+        b = res["ddc"]
+        require_graph(f"path M' D={d} DDC bank", "ddc", b, 2, MESH_CHUNKS)
+        y, y1 = b["y"], one["ddc"]["y"]
         err = float(np.abs(y - y1).max())
         require(err <= MESH_DDC_ATOL, f"path M' D={d}: DDC bank 2x2 vs 1x1 "
                 f"max abs error {err} > {MESH_DDC_ATOL}")
         snr = require_match(f"path_M'_D{d}: DDC bank 2x2 vs 1x1",
                             y[bpsk], y1[bpsk], CHANNEL_BAR)
-        require_launches(res["ddc"]["launches"], {kernel: 4},
+        require_launches(b["launches"], {kernel: 4 * MESH_CHUNKS},
                          f"path M' D={d} DDC bank")
-        want = predicted_bytes("ddc", 2, 2, halo=ov)
-        require(res["ddc"]["bytes"] == want, f"path M' D={d}: DDC bank "
-                f"collective bytes {res['ddc']['bytes']}, predicted {want}")
-        launches["M'"].append(res["ddc"]["launches"])
+        want = {k: v * MESH_CHUNKS
+                for k, v in predicted_bytes("ddc", 2, 2, halo=ov).items()}
+        require(b["bytes"] == want, f"path M' D={d}: DDC bank "
+                f"collective bytes {b['bytes']}, predicted {want}")
+        launches["M'"].append(b["launches"])
         extra = {"ddc_bank_vs_1x1_max_abs": err,
                  "ddc_bank_vs_1x1_bpsk_min_snr_db": snr,
-                 "ddc_bank_collective_bytes": res["ddc"]["bytes"],
+                 "ddc_bank_collective_bytes": b["bytes"],
                  "ddc_bank_host_ms_by_rank": [
-                     r["host_ms"] for r in res["ddc"]["ranks"]]}
+                     r["host_ms"] for r in b["ranks"]],
+                 "peak_memory_bytes_by_rank":
+                     res["peak_memory_bytes_by_rank"]}
         if "flagship" not in res:
             mesh_line("M'", f"sharded_ddc.build_ddc_bank_step(64 rates, "
-                      f"D={d}), mesh=2x2", res["ddc"], res["chunk"], 1,
+                      f"D={d}), mesh=2x2", b, res["chunk"], MESH_CHUNKS,
                       start4, t4, **extra)
             continue
         f = res["flagship"]
+        require_graph(f"path M' D={d}", "flagship", f, 2, MESH_CHUNKS)
         gates = mesh_flagship_gates(f"M' D={d}", f,
                                     one["flagship"]["outs"],
                                     banks[g]["mesh_ref"]["tx_bits"], bpsk,
@@ -3423,13 +3590,18 @@ def phase_mesh_paths(torch, banks) -> dict:
         launches["M'"].append(f["launches"])
         mesh_line("M'", f"build_ddc_bpsk31_bank(64 rates, {d}, sps={SPS}, "
                   "mesh=2x2)", f, res["chunk"], MESH_CHUNKS, start4, t4,
-                  chunks=MESH_CHUNKS, predicted_bytes=want, **gates,
-                  **extra)
+                  chunks=MESH_CHUNKS, predicted_bytes=want,
+                  ddc_bank={k: b[k] for k in GRAPH_FIELDS if k in b},
+                  **gates, **extra)
 
-    # M'': the WFM bank against itself with K1's plain version at both
-    # mesh shapes, then tones, 2x2 against 1x1, K1 once a channel a shard
+    # M'': the WFM bank against itself with K1's plain version (through
+    # the eager step: a replayed graph would launch K1) at both mesh
+    # shapes, then tones, 2x2 against 1x1, K1 once a channel a time shard
     vs_plain = {}
     for res, name in ((w1, "1x1"), (w4, "2x2")):
+        require(res["k1_plain_launches"]["shift_fir_decimate"] == 0,
+                f"path M'' {name}: the K1-plain step launched K1 "
+                f"{res['k1_plain_launches']['shift_fir_decimate']} times")
         a, p = res["audio"], res["audio_plain"]
         err = float(np.abs(a - p).max())
         db = require_match(f"path_M''_{name}: the WFM bank vs K1's plain "
@@ -3438,7 +3610,8 @@ def phase_mesh_paths(torch, banks) -> dict:
                 f"vs K1's plain version, max abs {err} > "
                 f"{WFM_PLAIN_BARS[1]}")
         vs_plain[name] = {"vs_k1_plain_min_snr_db": db,
-                          "vs_k1_plain_max_abs": err}
+                          "vs_k1_plain_max_abs": err,
+                          "k1_plain_run_k1_launches": 0}
     hz = [tone_hz(w1["audio"][c]) for c in bpsk]
     require(all(abs(h - 1000.0) < 5.0 for h in hz),
             f"path M'': tones at {hz} Hz")
@@ -3450,6 +3623,8 @@ def phase_mesh_paths(torch, banks) -> dict:
     for res, (chan, time_), start, t0 in ((w1, (1, 1), start1, t1),
                                           (w4, (2, 2), start4, t4)):
         name = f"{chan}x{time_}"
+        # the run compared eager and captured over two calls each
+        require_graph(f"path M'' {name}", "wfm", res, time_, 2)
         require_launches(res["launches"], {
             "shift_fir_decimate": WFM_BANK_CHANNELS * time_},
             f"path M'' {name}")

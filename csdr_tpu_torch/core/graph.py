@@ -48,6 +48,10 @@ to the kernels' ``LAUNCHES``, so the counts go on counting launches the
 card ran.  A step that cannot be captured raises, naming its block, the
 op and the exception; it is never run eagerly instead.
 
+``x`` is a tensor or a tuple of tensors on one card (a mesh step's
+segment takes the halo and the shard, parallel/segments): each is copied
+into a static input of its own, and the key covers every shape.
+
 On CPU tensors the call is ``fn`` itself: the tests hold that against
 csdr_tpu.
 """
@@ -84,6 +88,12 @@ def carried_value(leaf, advance: Callable, device):
     if rec is None:
         return leaf, nxt
     return rec.value(leaf, nxt, advance, device), nxt
+
+
+def capturing() -> bool:
+    """Whether a :class:`CapturedStep` is capturing its body in this
+    context (a collective there raises: utils/collectives)."""
+    return _RECORDER.get() is not None
 
 
 @functools.cache
@@ -171,6 +181,17 @@ class _Entry:
         self.y_spec, self.y_const, self.launches = y_spec, y_const, launches
 
 
+def _inputs(x) -> tuple:
+    """The step's input tensors: the tuple ``x`` or ``(x,)``."""
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _signature(x) -> tuple:
+    if isinstance(x, tuple):
+        return (tuple(_signature(t) for t in x),)
+    return (tuple(x.shape), x.dtype, x.device)
+
+
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
@@ -216,7 +237,8 @@ class CapturedStep:
     # -- what a backend decides; the tests' CPU rehearsal overrides these --
 
     def _on_card(self, x) -> bool:
-        return isinstance(x, torch.Tensor) and x.is_cuda
+        return all(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in _inputs(x))
 
     def _host_positions(self, leaves: list, dev) -> list[int]:
         """Positions of the host leaves: every leaf but a tensor on the
@@ -260,6 +282,7 @@ class CapturedStep:
     def __call__(self, state, x):
         if not self._on_card(x):
             return self.fn(state, x)
+        dev = _inputs(x)[0].device
         with torch.no_grad():
             if state is self._last and self._last is not None:
                 leaves, host_pos = self._last_leaves, self._host
@@ -274,14 +297,14 @@ class CapturedStep:
                 elif spec != self._spec:
                     raise ValueError(f"{self.name}: a state of structure "
                                      f"{spec}, the step's is {self._spec}")
-                host_pos = self._host_positions(leaves, x.device)
+                host_pos = self._host_positions(leaves, dev)
             key = None if self._value_pos is None else self._key(
                 x, leaves, host_pos)
             entry = self._graphs.get(key)
             if entry is None:
                 out = self._eager(state, x)
-                self._capture(x, leaves, host_pos)
-                self._remember(out[0], x.device)
+                self._capture(x, dev, leaves, host_pos)
+                self._remember(out[0], dev)
                 return out
             self._graphs.move_to_end(key)
             return self._replay(entry, x, leaves)
@@ -294,14 +317,15 @@ class CapturedStep:
         self._host = self._host_positions(self._last_leaves, dev)
 
     def _key(self, x, leaves, host_pos) -> tuple:
-        return (tuple(x.shape), x.dtype, x.device, tuple(
+        return _signature(x) + (tuple(
             _host_key(leaves[i]) for i in host_pos
-            if i not in self._value_pos))
+            if i not in self._value_pos),)
 
-    def _capture(self, x, leaves, host_pos) -> None:
+    def _capture(self, x, dev, leaves, host_pos) -> None:
         bufs = {i: leaves[i].clone() for i in range(len(leaves))
                 if i not in set(host_pos)}
-        xs = x.clone()
+        xs = tuple(t.clone() for t in x) if isinstance(x, tuple) \
+            else x.clone()
         static = list(leaves)
         for i, b in bufs.items():
             static[i] = b
@@ -316,7 +340,7 @@ class CapturedStep:
                 _RECORDER.reset(token)
             new, new_spec = pytree.tree_flatten(new_state)
             if new_spec != self._spec or self._host_positions(
-                    new, x.device) != host_pos:
+                    new, dev) != host_pos:
                 raise ValueError(f"{self.name}: the step's state changes "
                                  f"structure ({self._spec} -> {new_spec})")
             y_leaves, y_spec = pytree.tree_flatten(y)
@@ -325,7 +349,7 @@ class CapturedStep:
             ptrs = {_storage(b) for b in bufs.values()}
             for seq in (new, y_leaves):
                 for j, v in enumerate(seq):
-                    if (isinstance(v, torch.Tensor) and v.device == x.device
+                    if (isinstance(v, torch.Tensor) and v.device == dev
                             and _storage(v) in ptrs
                             and not (seq is new and v is bufs.get(j))):
                         seq[j] = v.clone()
@@ -362,7 +386,7 @@ class CapturedStep:
                     for j, v in enumerate(new)]
         # outputs on the card are copied out after each replay; the rest
         # (host counts) are the capture's
-        y_const = [(isinstance(v, torch.Tensor) and v.device == x.device, v)
+        y_const = [(isinstance(v, torch.Tensor) and v.device == dev, v)
                    for v in y_leaves]
         entry = _Entry(graph, xs, bufs, list(rec.values.values()), host_out,
                        out_values, y_spec, y_const, launched)
@@ -379,8 +403,9 @@ class CapturedStep:
         for i, b in e.bufs.items():
             if leaves[i] is not b:
                 b.copy_(leaves[i])
-        if x is not e.x:
-            e.x.copy_(x)
+        for t, static in zip(_inputs(x), _inputs(e.x)):
+            if t is not static:
+                static.copy_(t)
         for val in e.values:
             v = leaves[val.pos]
             val.scalar.fill_(v.item() if isinstance(v, torch.Tensor) else v)

@@ -29,7 +29,7 @@ import torch
 from csdr_tpu_torch.core.block import Pipeline, resolve_device
 from csdr_tpu_torch.core.graph import CapturedStep
 from csdr_tpu_torch.ops import digital, fastddc as fd, sync
-from csdr_tpu_torch.parallel import mesh as pmesh, sharded_ddc
+from csdr_tpu_torch.parallel import mesh as pmesh, segments, sharded_ddc
 
 
 class DdcBpsk31Bank:
@@ -175,8 +175,8 @@ class MeshDdcBpsk31Bank(DdcBpsk31Bank):
                  tr_subchunks: int):
         self.mesh, self.device = mesh, mesh.device
         ddc = fd.fastddc_init(0.05, decimation)
-        self.bank_step, meta = sharded_ddc.build_ddc_bank_step(
-            mesh, ddc, shift_rates)
+        self.bank_step = sharded_ddc.DdcBankStep(mesh, ddc, shift_rates)
+        meta = self.bank_step.meta
         self.rows = pmesh.chan_rows(len(shift_rates), mesh)
         self.ddc, self.q, self.group_out = ddc, meta["q"], meta["group_out"]
         self.channels = self.rows.stop - self.rows.start
@@ -204,15 +204,37 @@ class MeshDdcBpsk31Bank(DdcBpsk31Bank):
         leaves.pos += mine.pos
         return state
 
+    def _corner_turn(self, y: torch.Tensor) -> tuple:
+        """Every time shard's (C_l, m_l) streams of this chan row, in
+        order: an all-gather along "time", none where time is 1."""
+        if self.mesh.shape["time"] == 1:
+            return (y,)
+        return tuple(pmesh.all_gather(y, self.mesh, "time", "corner_turn"))
+
     def channelize(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's slice of the chunk -> (C_l, m) complex64: its rows of
         the channel streams over the whole chunk."""
         DdcBpsk31Bank.samples_per_chunk(self, x.shape[-1])
-        y = self.bank_step(x)
-        if self.mesh.shape["time"] == 1:
-            return y
-        return torch.cat(pmesh.all_gather(y, self.mesh, "time",
-                                          "corner_turn"), -1)
+        return _joined(self._corner_turn(self.bank_step(x)))
+
+    def _modem_on(self, state: tuple, parts: tuple):
+        return self.modem(state, _joined(parts))
+
+    def run(self, state: tuple, x: torch.Tensor, seg):
+        """The step with ``seg`` running its segments (parallel/segments):
+        the DDC bank's (the halo, its body), the corner turn, the modem on
+        the rank's rows (its state donated where captured)."""
+        DdcBpsk31Bank.samples_per_chunk(self, x.shape[-1])
+        _, y = self.bank_step.run((), x, seg)
+        return seg("modem", self._modem_on, state, self._corner_turn(y))
+
+    def step(self, state: tuple, x: torch.Tensor):
+        with torch.no_grad():
+            return self.run(state, x, segments.eager)
+
+
+def _joined(parts: tuple) -> torch.Tensor:
+    return torch.cat(parts, -1) if len(parts) > 1 else parts[0]
 
 
 def build_ddc_bpsk31_bank(shift_rates, decimation: int, sps: int = 256,
@@ -240,16 +262,20 @@ def build_ddc_bpsk31_bank(shift_rates, decimation: int, sps: int = 256,
     read): ``init`` takes the whole chunk's length, ``step`` the rank's
     time slice and returns its channel rows.
 
-    Without a mesh, on the card ``step`` is :meth:`DdcBpsk31Bank.step`
-    captured as one CUDA graph and replayed (core/graph.CapturedStep,
-    csdr_tpu's jitted bank step): it donates its state, as csdr_tpu's
-    does.  ``meta["bank"].step``, ``.channelize`` and ``.modem`` stay
-    eager."""
+    On the card ``step`` is :meth:`DdcBpsk31Bank.step` captured and
+    replayed (core/graph.CapturedStep, csdr_tpu's jitted bank step): one
+    CUDA graph without a mesh or where the mesh's time axis is 1, else
+    the channelizer body and the modem a graph each with the halo and the
+    corner turn run between them (parallel/segments.SegmentedStep).  It
+    donates its state, as csdr_tpu's does.  ``meta["bank"].step``,
+    ``.channelize`` and ``.modem`` stay eager."""
     if mesh is not None:
         bank = MeshDdcBpsk31Bank(mesh, shift_rates, decimation, sps,
                                  use_costas, costas_bw, tr_segments,
                                  tr_subchunks)
-        return bank.init, bank.step, bank.meta
+        step = segments.SegmentedStep(bank) \
+            if bank.device.type == "cuda" else bank.step
+        return bank.init, step, bank.meta
     bank = DdcBpsk31Bank(shift_rates, decimation, sps, use_costas,
                          costas_bw, tr_segments, tr_subchunks, device)
     step = CapturedStep(bank.step) if bank.device.type == "cuda" \

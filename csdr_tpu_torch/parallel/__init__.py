@@ -20,5 +20,8 @@ port's:
 
 The mesh is a ``DeviceMesh`` of shape (chan, time), one rank a shard
 (``mesh.init_mesh``, ``mesh.run_mesh``); every collective counts its bytes
-in ``utils.collectives``.
+in ``utils.collectives``.  On a card a rank's step is csdr_tpu's jitted
+step as CUDA graphs: one between each two collectives, which run eagerly
+between the replays, and one in all where time is 1
+(``segments.SegmentedStep``).
 """

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.ops import fastddc as fd
-from csdr_tpu_torch.parallel import halo as hx
+from csdr_tpu_torch.parallel import halo as hx, segments
 from csdr_tpu_torch.parallel.mesh import chan_rows
 
 
@@ -52,14 +52,25 @@ class FwdOnlyStep:
         self.mesh, self.ddc = mesh, ddc
         self.fwd = fd.FastddcFwdBlock(ddc, "kernel").to(mesh.device)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, state, xs):
+        """(halo, x) -> spectra: the forward block from the halo."""
+        tail, x = xs
+        return state, self.fwd(tail, x)[1]
+
+    def run(self, state, x: torch.Tensor, seg):
+        """The halo, then the body (parallel/segments)."""
         _frames(x.shape[-1], self.ddc)
         tail = hx.halo_from_left(x, self.ddc.overlap_length, self.mesh)
-        return self.fwd(tail, x)[1]
+        return seg("body", self.body, state, (tail, x))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run((), x, segments.eager)[1]
 
 
-def build_fwd_only_step(mesh, ddc: fd.FastDDC) -> FwdOnlyStep:
-    return FwdOnlyStep(mesh, ddc)
+def build_fwd_only_step(mesh, ddc: fd.FastDDC):
+    """The rank's :class:`FwdOnlyStep`, captured on a card
+    (``parallel.segments.on_card``)."""
+    return segments.on_card(FwdOnlyStep(mesh, ddc))
 
 
 class DdcBankStep:
@@ -104,24 +115,37 @@ class DdcBankStep:
                 ph.astype(np.float32)).to(self.mesh.device)
         return self._phase_cache[b_local]
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        b = _frames(x.shape[-1], self.ddc)
-        phases = self.phases(b)
-        tail = hx.halo_from_left(x, self.ddc.overlap_length, self.mesh)
+    def body(self, state, xs):
+        """The segment after the halo, (halo, x) -> (C_l, M_l): the fused
+        channelizer, or the forward block and the classed inverse, from
+        the phases of this shard length (a card tensor that ``run`` caches
+        on the first call, so a capture reads a fixed address)."""
+        tail, x = xs
+        phases = self.phases(_frames(x.shape[-1], self.ddc))
         if self.fused:
             _, out = self.chan((tail, phases), x)
         else:
             _, spectra = self.fwd(tail, x)
             _, out = self.inv(phases, spectra)
-        return out.data[:, :out.count]
+        return state, out.data[:, :out.count]
+
+    def run(self, state, x: torch.Tensor, seg):
+        """The halo, then the body (parallel/segments)."""
+        self.phases(_frames(x.shape[-1], self.ddc))
+        tail = hx.halo_from_left(x, self.ddc.overlap_length, self.mesh)
+        return seg("body", self.body, state, (tail, x))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run((), x, segments.eager)[1]
 
 
 def build_ddc_bank_step(mesh, ddc: fd.FastDDC, shift_rates):
     """Returns (step, meta): ``step`` the rank's :class:`DdcBankStep`,
+    captured on a card (``parallel.segments.on_card``: the body one graph),
     ``meta`` csdr_tpu's plan sizes (input_size, overlap, post_input, post,
     channels, q, group_out)."""
     step = DdcBankStep(mesh, ddc, shift_rates)
-    return step, step.meta
+    return segments.on_card(step), step.meta
 
 
 def example_ddc_bank(mesh, frames_per_shard: int = 4, c_total: int = 8,

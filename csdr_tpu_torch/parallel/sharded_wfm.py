@@ -34,7 +34,7 @@ import torch
 from csdr_tpu_torch.core.scan import affine_prefix
 from csdr_tpu_torch.kernels import fir_cuda
 from csdr_tpu_torch.ops.demod import fmdemod_quadri_cf
-from csdr_tpu_torch.parallel import halo as hx
+from csdr_tpu_torch.parallel import halo as hx, segments
 from csdr_tpu_torch.parallel.mesh import chan_rows
 
 
@@ -64,12 +64,15 @@ class WfmBankStep:
         tidx = np.float32(self.mesh.coords["time"])
         return np.mod(tidx * c1 + c2, np.float32(1.0))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, state, xs):
+        """The segment between the halo and the fixup: K1 once a local
+        channel, the discriminator, ``[::D2]`` and the local affine scan,
+        (halo, x) -> (cb, ca).  K1 takes theta by value: ``phases(nl)``
+        depends only on the shard length and the rank's time coordinate,
+        so a captured graph, keyed by the input shapes, replays the theta
+        it was captured with rightly."""
+        halo, x = xs
         d1, d2, nl = self.d1, self.d2, x.shape[-1]
-        if nl % (d1 * d2):
-            raise ValueError(f"a shard of {nl} samples is not a multiple of "
-                             f"D1*D2 = {d1 * d2}")
-        halo = hx.halo_from_left(x, self.tail_ext, self.mesh)
         kout = nl // d1 + 1
         theta = self.phases(nl)
         y = torch.stack([
@@ -78,17 +81,40 @@ class WfmBankStep:
             for r, th in zip(self.rates, theta)])          # (C_l, kout)
         # the discriminator over the extra leading output, then [::D2]
         dem = fmdemod_quadri_cf(y[:, 1:], y[:, 0])[0][:, ::d2]
-        cb, ca = affine_prefix(torch.full_like(dem, 1.0 - self.alpha),
-                               self.alpha * dem)
+        return state, affine_prefix(torch.full_like(dem, 1.0 - self.alpha),
+                                    self.alpha * dem)
+
+    @staticmethod
+    def finish(state, xs):
+        """The segment after the fixup: (cb, ca, carry) -> audio."""
+        cb, ca, carry = xs
+        return state, cb * carry[:, None] + ca
+
+    def run(self, state, x: torch.Tensor, seg):
+        """The step with ``seg`` running its segments (parallel/segments):
+        the halo, the body, the fixup's all-gather, the finish."""
+        d1, d2, nl = self.d1, self.d2, x.shape[-1]
+        if nl % (d1 * d2):
+            raise ValueError(f"a shard of {nl} samples is not a multiple of "
+                             f"D1*D2 = {d1 * d2}")
+        halo = hx.halo_from_left(x, self.tail_ext, self.mesh)
+        _, (cb, ca) = seg("body", self.body, state, (halo, x))
         carry = hx.affine_scan_fixup(cb[:, -1], ca[:, -1], 0.0, self.mesh)
-        return cb * carry[:, None] + ca
+        return seg("finish", self.finish, state, (cb, ca, carry))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run((), x, segments.eager)[1]
 
 
 def build_wfm_bank_step(mesh, chan_rates, taps, d1: int = 10, d2: int = 5,
                         tau: float = 50e-6, audio_rate: int = 48_000):
-    """The rank's step (see :class:`WfmBankStep`).  The channel count must
-    split over "chan" and every shard hold a multiple of D1*D2 samples."""
-    return WfmBankStep(mesh, chan_rates, taps, d1, d2, tau, audio_rate)
+    """The rank's step (see :class:`WfmBankStep`), captured on a card
+    (``parallel.segments.SegmentedStep``: the body and the finish a graph
+    each, one graph where time is 1; ``.eager`` the step).  The channel
+    count must split over "chan" and every shard hold a multiple of D1*D2
+    samples."""
+    return segments.on_card(WfmBankStep(mesh, chan_rates, taps, d1, d2, tau,
+                                        audio_rate))
 
 
 def example_bank(mesh, n_block: int, c_total: int = 8):

@@ -12,12 +12,18 @@ each rank that receives it (a halo its one right neighbour, an all-gather
 the other members of the group).  ``reset_collectives`` and
 ``read_collectives`` work as the kernels' launch counters do; the counts
 are per process, and :func:`mesh_total` sums them over a mesh's ranks.
+
+A collective never runs inside a captured segment (gloo's are host work
+and a staged one copies through the host): :func:`counted` raises there,
+so a capture that would hold one fails, naming it (parallel/segments).
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+
+from csdr_tpu_torch.core.graph import capturing
 
 KINDS = ("halo", "fixup", "corner_turn", "gather")
 
@@ -43,6 +49,10 @@ def counted(kind: str, nbytes: int):
     and the host time of the block it wraps."""
     if kind not in BYTES:
         raise ValueError(f"collective kind {kind!r} not in {KINDS}")
+    if capturing():
+        raise RuntimeError(f"a {kind!r} collective inside a captured "
+                           "segment: a rank's collectives run between its "
+                           "graphs (parallel/segments)")
     t0 = time.perf_counter()
     yield
     HOST_MS[kind] += (time.perf_counter() - t0) * 1e3

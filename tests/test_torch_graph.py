@@ -32,54 +32,13 @@ from csdr_tpu_torch.models import receivers as trec
 from csdr_tpu_torch.models import wfm as twfm
 from csdr_tpu_torch.ops import agc, fir, resamp, shift
 
+from tests.torch_rehearsal import Rehearsal, _Replayed  # noqa: F401
 from tests.util import assert_snr
 
 torch.set_num_threads(2)
 
 FS = 2_400_000
 SSB_SETTLE = 4000          # tests/test_torch_receivers.py's
-
-
-class _Replayed:
-    """A CUDA graph's semantics on the CPU: capture keeps the body, a
-    replay runs it again on the same static buffers."""
-
-    def capture(self, body):
-        self.body = body
-        return body()
-
-    def replay(self):
-        return self.body()
-
-
-class Rehearsal(CapturedStep):
-    """CapturedStep on CPU tensors with the stand-in graph.  ``like`` is
-    the step's state from ``init("meta")``: its leaves on the meta device
-    are the ones on the card, the rest the host leaves."""
-
-    def __init__(self, fn, like):
-        super().__init__(fn)
-        self.mask = [not (isinstance(v, torch.Tensor)
-                          and v.device.type == "meta")
-                     for v in pytree.tree_leaves(like)]
-        self.keys = []
-
-    def _on_card(self, x):
-        return True
-
-    def _host_positions(self, leaves, dev):
-        return [i for i, h in enumerate(self.mask) if h]
-
-    def _new_graph(self):
-        return _Replayed()
-
-    def _eager(self, state, x):
-        return self.fn(state, x)
-
-    def _key(self, *args):
-        key = super()._key(*args)
-        self.keys.append(key)
-        return key
 
 
 def _fm_tone(n, carrier=0.0, fs=FS):
@@ -402,3 +361,31 @@ def test_bank_step_rehearsed(decim):
         sg, yg = rehearsal(sg, x)
         _same((se, ye), (sg, yg), f"bank chunk {c}")
     assert rehearsal.captures == 1 and rehearsal.replays == 2
+
+
+def test_tuple_input_rehearsed():
+    """``x`` a tuple (a mesh segment's halo and shard): each tensor goes
+    into a static input of its own, and the key covers every shape.  Over
+    a run of shape pairs, outputs and state bit for bit against the eager
+    step; one capture a pair, a change of either shape a new key."""
+    def fn(state, xs):
+        h, x = xs
+        y = torch.cat([h, x]) * 2.0
+        return (state[0] + y[:4],), y
+
+    step = Rehearsal(fn, (torch.zeros(4, device="meta"),))
+    rng = np.random.default_rng(10)
+    shapes = [(3, 8), (3, 8), (3, 12), (5, 12), (5, 12), (3, 8)]
+    se, sg = (torch.zeros(4),), (torch.zeros(4),)
+    with torch.no_grad():
+        for c, (nh, nx) in enumerate(shapes):
+            xs = tuple(torch.from_numpy(rng.standard_normal(n).astype(
+                np.float32)) for n in (nh, nx))
+            se, ye = fn(se, xs)
+            sg, yg = step(sg, xs)
+            _same((se, ye), (sg, yg), f"call {c}")
+    assert step.captures == 3 and step.replays == 3
+    assert len(set(step.keys)) == 3
+    for entry in step._graphs.values():
+        assert isinstance(entry.x, tuple) and len(entry.x) == 2
+        assert entry.x[0].data_ptr() != entry.x[1].data_ptr()

@@ -15,19 +15,29 @@ bar of tests/test_torch_multichannel.py (D=16: csdr_tpu's fused inverse
 against K4's factored form, ~116 dB); the flagship's bits within 2
 errors a channel of csdr_tpu's and each channel's BER < 0.02 against its
 TX bits (tests/test_multichannel.py); collective bytes exactly the count
-the halo, fixup and corner-turn shapes give."""
+the halo, fixup and corner-turn shapes give.
+
+The captured steps (parallel/segments.SegmentedStep) run in the same
+ranks with the CPU rehearsal of a CUDA graph (tests/torch_rehearsal) in
+each segment's place: bit for bit the eager step on every rank, the same
+collective bytes, one graph where time is 1, else a graph between each
+two collectives, and held against csdr_tpu at the bars above."""
 
 import functools
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from csdr_tpu_torch.models import bpsk31 as tbpsk
 from csdr_tpu_torch.models import multichannel as tmc
 from csdr_tpu_torch.ops import fastddc as tfd
-from csdr_tpu_torch.parallel import halo, mesh as pm, sharded_ddc, sharded_wfm
+from csdr_tpu_torch.parallel import (halo, mesh as pm, segments, sharded_ddc,
+                                     sharded_wfm)
 from csdr_tpu_torch.utils import collectives as co
+from torch_rehearsal import Rehearsal
 
 torch.set_num_threads(2)
 
@@ -40,6 +50,10 @@ TEXTS = [bytes(f"CHANNEL {i} DE CSDR_TPU PSE K ".encode()) * 4
          for i in range(4)]
 HALO = 3
 C8 = 8                      # bytes of a complex64 sample
+# a captured step's segments: one graph where time is 1, else the split at
+# the collectives
+SEGMENTS = {"wfm": ["body", "finish"], "ddc16": ["body"], "ddc50": ["body"],
+            "fwd_only": ["body"], "flagship": ["body", "modem"]}
 
 
 def snr_db(ref, test) -> float:
@@ -115,12 +129,66 @@ def _job_halo(mesh, x, bs, as_):
             "bytes": nbytes}
 
 
+def _rehearsed(step):
+    """``step``'s SegmentedStep with the rehearsal in each graph's place
+    (every state leaf on the "card")."""
+    return segments.SegmentedStep(step, lambda fn: Rehearsal(fn, ()))
+
+
+def _same_bits(a, b) -> bool:
+    """Two pytrees of tensors bit for bit."""
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        u.dtype == v.dtype and u.shape == v.shape and torch.equal(
+            u.contiguous().reshape(-1).view(torch.uint8),
+            v.contiguous().reshape(-1).view(torch.uint8))
+        for u, v in zip(la, lb))
+
+
+def _every_rank(mesh, v) -> list:
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, v)
+    return out
+
+
+def _captured(mesh, step, xs, gather=pm.gather_output) -> dict:
+    """The stateless ``step`` eagerly and through its rehearsed capture on
+    each of ``xs`` in turn: whether each call's output is bit for bit on
+    every rank, the captured first output gathered, the collective bytes
+    and the captures after each call, and the segments."""
+    cap = _rehearsed(step)
+    same, nbytes, captures, first = [], [], [], None
+    for x in xs:
+        want = step(x)
+        got, b = _counted(mesh, lambda: cap(x))
+        same.append(_same_bits(want, got))
+        nbytes.append(b)
+        captures.append(cap.captures)
+        first = got if first is None else first
+    return {"same": _every_rank(mesh, same), "y": gather(first, mesh),
+            "bytes": nbytes, "captures": captures,
+            "segments": sorted(cap.segments)}
+
+
 def _job_wfm(mesh, n):
+    """The WFM bank; captured, on the chunk twice and on a chunk of half
+    its length (a key of its own), and captured whole where time > 1 (its
+    halo collective inside the capture must raise)."""
     step, x = sharded_wfm.example_bank(mesh, n)
     xl = pm.shard_input(x, mesh)
     y, nbytes = _counted(mesh, lambda: step(xl))
-    return {"y": pm.gather_output(y, mesh), "bytes": nbytes,
-            "tail_ext": step.tail_ext}
+    out = {"y": pm.gather_output(y, mesh), "bytes": nbytes,
+           "tail_ext": step.tail_ext,
+           "captured": _captured(mesh, step, [
+               xl, xl, pm.shard_input(x[:n // 2], mesh)])}
+    if mesh.shape["time"] > 1:
+        whole = Rehearsal(lambda s, v: step.run(s, v, segments.eager), ())
+        out["whole_capture_error"] = None
+        try:
+            whole((), xl)
+        except RuntimeError as e:
+            out["whole_capture_error"] = str(e)
+    return out
 
 
 def _job_ddc(mesh, d, frames, c_total):
@@ -128,27 +196,42 @@ def _job_ddc(mesh, d, frames, c_total):
         mesh, frames // mesh.shape["time"], c_total, d)
     xl = pm.shard_input(x, mesh)
     y, nbytes = _counted(mesh, lambda: step(xl))
-    return {"y": pm.gather_output(y, mesh), "bytes": nbytes}
+    return {"y": pm.gather_output(y, mesh), "bytes": nbytes,
+            "captured": _captured(mesh, step, [xl, xl])}
 
 
 def _job_flagship(mesh, chunks, decim, rates, kw):
+    """The mesh bank over the chunks, eagerly and through its rehearsed
+    capture: bits, counts and state."""
     init, step, meta = tmc.build_ddc_bpsk31_bank(rates, decim, SPS, mesh=mesh,
                                                  **kw)
     bank = meta["bank"]
+    cap, captures = _rehearsed(bank), []
 
-    def run():
+    def run(step):
         st, outs = init(len(chunks[0])), []
         for x in chunks:
             xl = pm.shard_input(torch.from_numpy(x), mesh)
             st, out = step(st, xl)
             outs.append(out)
-        return outs
+            if step is cap:
+                captures.append(cap.captures)
+        return st, outs
 
-    outs, nbytes = _counted(mesh, run)
-    got = [(pm.gather_output(b, mesh, time_sharded=False),
-            pm.gather_output(c, mesh, time_sharded=False)) for b, c in outs]
+    def gathered(outs):
+        return [(pm.gather_output(b, mesh, time_sharded=False),
+                 pm.gather_output(c, mesh, time_sharded=False))
+                for b, c in outs]
+
+    (st, outs), nbytes = _counted(mesh, lambda: run(step))
+    (cst, couts), cbytes = _counted(mesh, lambda: run(cap))
     m = bank.samples_per_chunk(len(chunks[0]))
-    return {"outs": got, "bytes": nbytes, "m": m}
+    return {"outs": gathered(outs), "bytes": nbytes, "m": m,
+            "captured": {"same": _every_rank(mesh, [
+                _same_bits(o, c) for o, c in zip(outs, couts)] + [
+                _same_bits(st, cst)]), "outs": gathered(couts),
+                "bytes": [cbytes], "captures": captures,
+                "segments": sorted(cap.segments)}}
 
 
 def _job_fwd_only(mesh, frames):
@@ -157,10 +240,16 @@ def _job_fwd_only(mesh, frames):
     _, x, _, _ = sharded_ddc.example_ddc_bank(
         mesh, frames // mesh.shape["time"], 4, 50)
     step = sharded_ddc.build_fwd_only_step(mesh, ddc)
-    spectra = step(pm.shard_input(x, mesh))
+    xl = pm.shard_input(x, mesh)
+    spectra, nbytes = _counted(mesh, lambda: step(xl))
+
     # frames run along time: gather them as the last axis
-    g = pm.gather_output(spectra.T.contiguous(), mesh)
-    return {"spectra": None if g is None else g.T, "x": x}
+    def gather(s, mesh):
+        g = pm.gather_output(s.T.contiguous(), mesh)
+        return None if g is None else g.T
+
+    return {"spectra": gather(spectra, mesh), "x": x, "bytes": nbytes,
+            "captured": _captured(mesh, step, [xl, xl], gather)}
 
 
 @functools.cache
@@ -286,13 +375,50 @@ def test_halo_and_fixup_against_numpy(port, shape):
     assert r["bytes"]["corner_turn"] == 0
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_wfm_bank_matches_csdr_tpu(port, jax_ref, shape):
-    chan, time = shape
-    got, ref = port[shape]["wfm"]["y"], jax_ref[shape]["wfm"]
+def _check_wfm(got, ref):
     assert got.shape == ref.shape == (8, N_WFM // 50)
     assert snr_db(ref, got) >= 90.0, snr_db(ref, got)
     np.testing.assert_allclose(got, ref, atol=5e-3)
+
+
+def _check_ddc(got, ref, d):
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.real, ref.real, atol=2e-4)
+    np.testing.assert_allclose(got.imag, ref.imag, atol=2e-4)
+    bar = 100.0 if d == 16 else 110.0
+    for c in range(got.shape[0]):
+        assert snr_db(ref[c], got[c]) >= bar, (c, snr_db(ref[c], got[c]))
+
+
+def _check_flagship(outs, ref_outs):
+    """Every channel decoded (BER < 0.02 over > 200 bits) and its bits
+    within 2 errors of csdr_tpu's."""
+    tx_bits, _ = _flagship_input()
+    for c in range(4):
+        got = np.concatenate([b[c, :k[c]] for b, k in outs])
+        ref = np.concatenate([b[c, :k[c]] for b, k in ref_outs])
+        errs, total = _align(tx_bits[c][8:], got[8:])
+        assert total > 200 and errs / total < 0.02, (c, errs, total)
+        errs, total = _align(ref, got)
+        assert errs <= 2 and total > 200, (c, errs, total)
+
+
+def _check_fwd_only(got, x, chan):
+    """Every time shard's spectra, in order, are the single-card forward
+    block's (kernel order) over the whole chunk, bit for bit."""
+    blk = tfd.fastddc_fwd_block(tfd.fastddc_init(0.05, 50),
+                                spectra_order="kernel")
+    _, want = blk(blk.init("cpu"), torch.from_numpy(x))
+    assert got.shape == (want.shape[0], chan * want.shape[1])
+    for c in range(chan):
+        np.testing.assert_array_equal(
+            got[:, c * want.shape[1]:(c + 1) * want.shape[1]], want.numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wfm_bank_matches_csdr_tpu(port, jax_ref, shape):
+    chan, time = shape
+    _check_wfm(port[shape]["wfm"]["y"], jax_ref[shape]["wfm"])
     r = port[shape]["wfm"]
     assert r["bytes"]["halo"] == chan * (time - 1) * r["tail_ext"] * C8
     assert r["bytes"]["fixup"] == time * (time - 1) * 2 * 8 * 4
@@ -302,13 +428,7 @@ def test_wfm_bank_matches_csdr_tpu(port, jax_ref, shape):
 @pytest.mark.parametrize("d", sorted(DDC_CASES))
 def test_ddc_bank_matches_csdr_tpu(port, jax_ref, shape, d):
     chan, time = shape
-    got, ref = port[shape][f"ddc{d}"]["y"], jax_ref[shape][f"ddc{d}"]
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got.real, ref.real, atol=2e-4)
-    np.testing.assert_allclose(got.imag, ref.imag, atol=2e-4)
-    bar = 100.0 if d == 16 else 110.0
-    for c in range(got.shape[0]):
-        assert snr_db(ref[c], got[c]) >= bar, (c, snr_db(ref[c], got[c]))
+    _check_ddc(port[shape][f"ddc{d}"]["y"], jax_ref[shape][f"ddc{d}"], d)
     ov = tfd.fastddc_init(0.05, d).overlap_length
     assert port[shape][f"ddc{d}"]["bytes"] == {
         "halo": chan * (time - 1) * ov * C8, "fixup": 0, "corner_turn": 0,
@@ -320,21 +440,74 @@ def test_flagship_matches_csdr_tpu(port, jax_ref, shape):
     """Bits within 2 errors a channel of csdr_tpu's mesh bank, every
     channel decoded (BER < 0.02 over > 200 bits)."""
     chan, time = shape
-    tx_bits, _ = _flagship_input()
     r = port[shape]["flagship"]
-    for c in range(4):
-        got = np.concatenate([b[c, :k[c]] for b, k in r["outs"]])
-        ref = np.concatenate([b[c, :k[c]]
-                              for b, k in jax_ref[shape]["flagship"]])
-        errs, total = _align(tx_bits[c][8:], got[8:])
-        assert total > 200 and errs / total < 0.02, (c, errs, total)
-        errs, total = _align(ref, got)
-        assert errs <= 2 and total > 200, (c, errs, total)
+    _check_flagship(r["outs"], jax_ref[shape]["flagship"])
     # per step: the overlap halo, and the (C_l, m/time) corner turn to
     # time-1 peers from every rank
     ov, m = tfd.fastddc_init(0.05, 16).overlap_length, r["m"]
     assert r["bytes"]["halo"] == 2 * chan * (time - 1) * ov * C8
     assert r["bytes"]["corner_turn"] == 2 * (time - 1) * 4 * m * C8
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("key", sorted(SEGMENTS))
+def test_captured_step_is_the_eager_step(port, shape, key):
+    """Every rank's rehearsed capture against its eager step: every
+    output (the flagship's state too) bit for bit on every call, the same
+    collective bytes; one graph where time is 1, else a graph between each
+    two collectives; each segment captured once a key, none on a later
+    call of the key, and a new shard length (WFM) captured anew."""
+    chan, time = shape
+    r = port[shape][key]
+    cap = r["captured"]
+    assert len(cap["same"]) == chan * time
+    assert all(all(rank) for rank in cap["same"]), cap["same"]
+    assert cap["bytes"][0] == r["bytes"]
+    assert len(set(map(str, cap["bytes"][:2]))) == 1
+    segs = ["step"] if time == 1 else SEGMENTS[key]
+    assert cap["segments"] == segs
+    n = len(segs)
+    assert cap["captures"] == {"wfm": [n, n, 2 * n]}.get(key, [n, n]), \
+        cap["captures"]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_captured_steps_match_csdr_tpu(port, jax_ref, shape):
+    """The captured steps held against csdr_tpu at the eager steps' bars
+    (the forward-only step against the single-card forward block)."""
+    r, ref = port[shape], jax_ref[shape]
+    _check_wfm(r["wfm"]["captured"]["y"], ref["wfm"])
+    for d in DDC_CASES:
+        _check_ddc(r[f"ddc{d}"]["captured"]["y"], ref[f"ddc{d}"], d)
+    _check_flagship(r["flagship"]["captured"]["outs"], ref["flagship"])
+    _check_fwd_only(r["fwd_only"]["captured"]["y"], r["fwd_only"]["x"],
+                    shape[0])
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_a_collective_inside_a_capture_raises(port, shape):
+    """The WFM step captured whole on a time-sharded mesh: its halo's
+    send would run inside the graph, and the capture raises, naming it."""
+    err = port[shape]["wfm"]["whole_capture_error"]
+    assert err is not None and "cannot be captured" in err, err
+    assert "'halo' collective inside a captured segment" in err, err
+
+
+def test_a_collective_in_a_rehearsed_capture_raises():
+    """utils/collectives.counted inside a capture raises (a one-process
+    check of the guard the mesh steps' segments rest on)."""
+    def fn(state, x):
+        with co.counted("corner_turn", 8):
+            pass
+        return state, x + 1
+
+    step = Rehearsal(fn, ())
+    try:
+        with pytest.raises(RuntimeError, match="'corner_turn' collective "
+                           "inside a captured segment"):
+            step((), torch.zeros(4))
+    finally:
+        co.reset_collectives()
 
 
 @pytest.mark.parametrize("key", ["wfm", "ddc16", "ddc50", "flagship"])
@@ -367,15 +540,7 @@ def test_fwd_only_step_is_the_forward_block(port, shape):
     order, are the single-card forward block's (kernel order) over the
     whole chunk, bit for bit (its halo is the block's carried tail)."""
     r = port[shape]["fwd_only"]
-    chan, time = shape
-    blk = tfd.fastddc_fwd_block(tfd.fastddc_init(0.05, 50),
-                                spectra_order="kernel")
-    _, want = blk(blk.init("cpu"), torch.from_numpy(r["x"]))
-    got = r["spectra"]
-    assert got.shape == (want.shape[0], chan * want.shape[1])
-    for c in range(chan):
-        np.testing.assert_array_equal(
-            got[:, c * want.shape[1]:(c + 1) * want.shape[1]], want.numpy())
+    _check_fwd_only(r["spectra"], r["x"], shape[0])
 
 
 def test_chan_only_mesh_moves_no_bytes(port):

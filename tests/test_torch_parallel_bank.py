@@ -3,7 +3,10 @@ mesh against the single-card bank bit for bit, and on a 2x2 mesh the
 checkpoint round trips (csdr_tpu's mesh state resumed in the port, the
 port's own save and load) and csdr_tpu's Costas, sub-chunked and
 segmented-TED cases, held as tests/test_multichannel.py and
-tests/test_checkpoint.py hold csdr_tpu's mesh bank.
+tests/test_checkpoint.py hold csdr_tpu's mesh bank.  The checkpoint round
+trips also run through the captured step (parallel/segments, with the CPU
+rehearsal of a CUDA graph in each segment's place), bit for bit the eager
+step's.
 
 One gloo spawn a mesh shape (``parallel.mesh.run_mesh``); the rank jobs
 are this module's ``_job_*`` functions, so the module imports no jax at
@@ -20,7 +23,8 @@ from csdr_tpu_torch.core.checkpoint import (load_state, save_state,
                                             state_from_jax_leaves)
 from csdr_tpu_torch.models import multichannel as tmc
 from csdr_tpu_torch.parallel import mesh as pm
-from test_torch_parallel import CENTERS, SPS, TEXTS, _align, _jmesh, wideband
+from test_torch_parallel import (CENTERS, SPS, TEXTS, _align, _jmesh,
+                                 _rehearsed, wideband)
 
 torch.set_num_threads(2)
 
@@ -45,11 +49,13 @@ def _inputs():
 # rank jobs
 # ---------------------------------------------------------------------------
 
-def _run(mesh, chunks, decim, rates, state=None, **kw):
-    """The mesh bank over ``chunks``: (state', [(bits, counts) gathered to
-    rank 0 a chunk], bank)."""
+def _run(mesh, chunks, decim, rates, state=None, captured=False, **kw):
+    """The mesh bank over ``chunks`` (``captured``: its rehearsed capture):
+    (state', [(bits, counts) gathered to rank 0 a chunk], bank)."""
     init, step, meta = tmc.build_ddc_bpsk31_bank(rates, decim, SPS,
                                                  mesh=mesh, **kw)
+    if captured:
+        step = _rehearsed(meta["bank"])
     st = init(len(chunks[0])) if state is None else state(meta["bank"])
     outs = []
     for x in chunks:
@@ -84,30 +90,38 @@ def _job_one_by_one(mesh, cases):
     return out
 
 
-def _job_checkpoint(mesh, jax_state, path):
+def _job_checkpoint(mesh, jax_state, path, captured=False):
     """Resume from csdr_tpu's mesh state after chunk 1; then the port's
     own round trip on ``example_flagship``'s bank and input, as
     tests/test_checkpoint.py runs csdr_tpu's: a step, a save (the state
     gathered, written by rank 0), the next step uninterrupted and from a
-    fresh bank that loads the file (each rank its rows)."""
+    fresh bank that loads the file (each rank its rows).  ``captured``:
+    every step through the bank's rehearsed capture, which donates the
+    state it is given (so the saved state is cloned to compare)."""
     torch.set_num_threads(1)
     chunks = _inputs()["d16"][1]
-    _, resumed, _ = _run(mesh, chunks[1:], 16, RATES,
+    _, resumed, _ = _run(mesh, chunks[1:], 16, RATES, captured=captured,
                          state=lambda bank: state_from_jax_leaves(
                              bank, jax_state, mesh.device))
     state, step, x, rates = tmc.example_flagship(
         mesh, frames_per_shard=2, c_total=4, decimation=16, sps=SPS)
+    if captured:
+        step = _rehearsed(step.__self__)
     xl = pm.shard_input(x, mesh)
     st1, _ = step(state, xl)
     whole = pm.gather_state(st1, mesh)
+    kept = tuple(t.clone() for t in st1)
     if dist.get_rank() == 0:
         save_state(path, whole)
     dist.barrier()
     _, (bits_a, counts_a) = step(st1, xl)
-    init2, step2, _ = tmc.build_ddc_bpsk31_bank(rates, 16, SPS, mesh=mesh)
+    init2, step2, meta2 = tmc.build_ddc_bpsk31_bank(rates, 16, SPS,
+                                                    mesh=mesh)
+    if captured:
+        step2 = _rehearsed(meta2["bank"])
     like = pm.gather_state(init2(x.shape[0]), mesh)
     loaded = pm.take_rows(load_state(path, like), mesh)
-    same_state = all(torch.equal(a, b) for a, b in zip(st1, loaded))
+    same_state = all(torch.equal(a, b) for a, b in zip(kept, loaded))
     _, (bits_b, counts_b) = step2(loaded, xl)
     return {"resumed": resumed, "same_state": same_state,
             "bits": [pm.gather_output(b, mesh, time_sharded=False)
@@ -172,7 +186,11 @@ def two_by_two(jax_ref, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("mesh_ckpt") / "bank.npz")
     jobs = [functools.partial(_job_checkpoint,
                               jax_state=jax_ref["d16"][1][0], path=path),
-            _job_modem_cases]
+            _job_modem_cases,
+            functools.partial(_job_checkpoint,
+                              jax_state=jax_ref["d16"][1][0],
+                              path=path.replace(".npz", "_captured.npz"),
+                              captured=True)]
     return pm.run_mesh(functools.partial(pm.run_jobs, jobs=jobs), 2, 2,
                        backend="gloo", device="cpu")
 
@@ -226,6 +244,33 @@ def test_mesh_bank_save_load_round_trip(two_by_two):
     assert r["same_state"]
     np.testing.assert_array_equal(r["counts"][0], r["counts"][1])
     np.testing.assert_array_equal(r["bits"][0], r["bits"][1])
+
+
+def test_captured_mesh_bank_resumes_from_csdr_tpu_mesh_state(two_by_two,
+                                                             jax_ref):
+    """The same resume through the captured step: bit for bit the eager
+    step's bits and counts, so within 2 errors a channel of csdr_tpu's."""
+    eager, got = two_by_two[0]["resumed"], two_by_two[2]["resumed"]
+    for (b, k), (rb, rk) in zip(got, eager):
+        np.testing.assert_array_equal(k, rk)
+        np.testing.assert_array_equal(b, rb)
+    jouts = jax_ref["d16"][0]
+    for c in range(4):
+        errs, total = _align(_bits(jouts[1:], c), _bits(got, c))
+        assert errs <= 2 and total > 100, (c, errs, total)
+
+
+def test_captured_mesh_bank_save_load_round_trip(two_by_two):
+    """The port's save and load through the captured step: the saved
+    state loads back whole, and the next chunk from it is bit for bit the
+    uninterrupted one's and the eager step's."""
+    eager, r = two_by_two[0], two_by_two[2]
+    assert r["same_state"]
+    for i in range(2):
+        np.testing.assert_array_equal(r["counts"][i], r["counts"][0])
+        np.testing.assert_array_equal(r["bits"][i], r["bits"][0])
+        np.testing.assert_array_equal(r["counts"][i], eager["counts"][i])
+        np.testing.assert_array_equal(r["bits"][i], eager["bits"][i])
 
 
 def test_mesh_bank_costas_recovers_carrier_offset(two_by_two, jax_ref):
