@@ -167,7 +167,8 @@ prints one JSON line per phase and exits non-zero at the first failure:
    build_ddc_bpsk31_bank) against the eager step, over 6 chunks from one
    state each, on WFM at shift -0.2 and at -0.123456789 (the tone's
    carrier there: the NCO phase moves every chunk), C, D, E and F at
-   CHUNK_C, G and G': every output, VarOut count and carried state leaf
+   CHUNK_C, W and W1 from raw u8 I/Q at their chunks, G and G': every
+   output, VarOut count and carried state leaf
    bit for bit (NaNs by place); at most 2 captures a path, at most 1
    after the first chunk where the phase moves; each step's launches
    equal; an output held from one call unchanged after the next; a state
@@ -244,6 +245,8 @@ prints one JSON line per phase and exits non-zero at the first failure:
    and each one's cost a chunk (Msps, device-only ms, busy share).
 
 14. the csdr-compatible CLI (python -m csdr_tpu_torch.cli):
+   Every pumped command runs its block as one CUDA graph replay a chunk
+   (cli.STEP, core/graph.CapturedStep), but the declared UNCAPTURED.
    X   the csdr-fm pipeline as a shell pipeline of seven processes over
        10 s of the WFM FM tone as u8 I/Q (48 MB), the CLI's default
        65 536-sample chunk: convert_u8_f | shift_addition_cc -0.2 |
@@ -252,25 +255,40 @@ prints one JSON line per phase and exits non-zero at the first failure:
        convert_f_s16; each stage alone first on the same bytes (its
        wall-clock Msps), every process exits 0, the pipeline's audio equal
        to the stages' bit for bit, the 1 kHz tone, the seconds to the first
-       output byte, and the same pipeline with --device cpu on the first
-       2 s: every int16 sample within 1, at most 0.1 % different;
+       output byte; the same pipeline with every step uncaptured
+       (EAGER_CLI), the same audio bit for bit, its rate and first byte
+       beside; the start-up of the first STARTUP_STAGES stages' processes
+       split by piece (STARTUP_PROBE); fractional_decimator_ff 5 in
+       process on its stage's input, no key captured twice; and the same
+       pipeline with --device cpu on the first 2 s: every int16 sample
+       within 1, at most 0.1 % different;
    X'  each kernel command in process (csdr_tpu_torch.cli.main, stdin and
-       stdout swapped for buffers), launch counts zeroed just before and
-       read just after, then with --device cpu: fir_decimate_cc (K2, and
+       stdout swapped for buffers), captured, launch counts zeroed just
+       before and read just after (a replay counts its capture's
+       launches), then with --device cpu: fir_decimate_cc (K2, and
        K2 at its shape D=10/T=79/kout=6553 against its plain version),
        bandpass_fir_fft_cc (K3 both ways), fft_cc 4096 2867 (K3 through
        fft_natural), fastddc_fwd_cc 16 then fastddc_inv_cc 0.1 16 (K4),
        the ADPCM codec both ways, agc_ff 200 0.2 0.01 0.0001 65536 5 (an
        attack wait: the exact scan's kernel once a chunk, the bytes bit
-       for bit --device cpu's); a live --fd retune of shift_addition_cc
-       and of fastddc_inv_cc, the output after it equal to a fresh run at
-       the new rate up to the NCO's phase;
+       for bit --device cpu's); each command's step on its first chunk
+       eager and captured (chunk_cost: issued and device-only ms, busy
+       share, host CUDA calls, the host clock a chunk); live --fd
+       retunes, captured: shift_addition_cc (at most one capture) and
+       fastddc_inv_cc (none: its rows rewritten in place), the output
+       after each equal to a fresh run at the new rate up to the NCO's
+       phase, and bandpass_fir_fft_cc and squelch_and_smeter_cc (none),
+       the output after each equal to a fresh run;
    X'' every command of tests/test_cli_smoke.py's CASES in process on the
-       card and with --device cpu: exit 0, the same stderr, bytes bit for
-       bit, floats at 100 dB (Costas at 32 dB over its first 256 samples,
+       card and with --device cpu, each pumped one at a chunk that gives
+       it at least 3 chunks: exit 0, the same stderr, bytes bit for bit,
+       floats at 100 dB (Costas at 32 dB over its first 256 samples,
        awgn_cc by its noise power), the pump's device check on every
-       chunk; the endless noise sources by their statistics, and
-       fft_benchmark.
+       chunk; each pumped command captured against itself uncaptured on
+       the card, bit for bit, its captures and replays, no key captured
+       twice, every uncaptured pump one of UNCAPTURED; the endless noise
+       sources by their statistics, and fft_benchmark over a captured
+       FFT.
 
 A card-vs-CPU check that fails first re-runs both sides once, then writes
 what it saw (the input, both outputs and the re-runs in the worst channel,
@@ -2825,6 +2843,17 @@ def graph_paths(torch):
           ).astype(np.complex64)
     yield pipe_path("F", "am_receiver()", receivers.am_receiver(), am,
                     CHUNK_C)
+    # the byte edge from raw u8 I/Q, a chunk W_CHUNK (W1_CHUNK) samples of
+    # two bytes
+    yield pipe_path("W", "waterfall: convert_u8_c | fft_cc_block(4096, "
+                    "2867) | logaveragepower_block(-70, 4096, 93) | "
+                    "fft_exchange_sides_ff | compress_fft_adpcm_rows",
+                    waterfall_chain(), np.concatenate(
+                        [waterfall_u8(c) for c in range(GRAPH_CHUNKS)]),
+                    2 * W_CHUNK)
+    yield pipe_path("W1", "config 1: convert_u8_c | wfm_basic() | "
+                    "convert_f_s16 | paired_encode_block()", config1_chain(),
+                    config1_u8(GRAPH_CHUNKS * W1_CHUNK), 2 * W1_CHUNK)
     rates, _, centres = bank_plan()
     for key, decim, frames in (("G", 50, FRAMES_G), ("G'", 16, FRAMES_GP)):
         init, step, meta = multichannel.build_ddc_bpsk31_bank(
@@ -2843,6 +2872,8 @@ def graph_run(torch, step, init, xs, captured=None):
     state on the host and the launches; with ``captured`` (the step
     itself), also whether each output held on the card is unchanged after
     the next call, and the captures after the first chunk."""
+    from torch.utils import _pytree as pytree
+
     from csdr_tpu_torch.core import checkpoint
 
     state, rows, held, saved = init(), [], None, None
@@ -2867,11 +2898,16 @@ def graph_run(torch, step, init, xs, captured=None):
             saved = MISMATCH_DIR / "graph_checkpoint.npz"
             saved.parent.mkdir(exist_ok=True)
             checkpoint.save_state(str(saved), state)
+            # the structure to load into: the saved state's shapes (W1's
+            # carry holds a sample the stream's start did not)
+            like = pytree.tree_map(lambda v: torch.empty_like(v)
+                                   if isinstance(v, torch.Tensor) else v,
+                                   state)
     torch.cuda.synchronize()
     out = {"rows": rows, "first_call_s": first_s}
     if captured is not None:
         out["captures_after_first"] = captured.captures - first
-        state = checkpoint.load_state(str(saved), init())
+        state = checkpoint.load_state(str(saved), like)
         resumed = []
         for x in xs[GRAPH_SAVED_AT:]:
             state, y = step(state, x)
@@ -4801,9 +4837,15 @@ NO_PUMP = {"normalized_timing_variance_u32_f", "shift_addition_cc_test",
            "--help"}       # device commands that read all stdin, no pump
 
 
-def cli_cmd(args, device="cuda"):
-    return [sys.executable, "-m", "csdr_tpu_torch.cli", *args,
-            "--device", device]
+# a CLI process whose steps run uncaptured (cli.STEP the block itself)
+EAGER_CLI = ("import sys\nfrom csdr_tpu_torch import cli\n"
+             "cli.STEP = lambda block, graphs: block\n"
+             "sys.exit(cli.main(['csdr_tpu_torch', *sys.argv[1:]]))\n")
+
+
+def cli_cmd(args, device="cuda", eager=False):
+    head = ["-c", EAGER_CLI] if eager else ["-m", "csdr_tpu_torch.cli"]
+    return [sys.executable, *head, *args, "--device", device]
 
 
 def _read_timed(stream, sink, box):
@@ -4852,6 +4894,66 @@ def run_pipeline(cmds, in_path: Path, out_path: Path, env=None) -> dict:
             "first_byte_s": box.get("first", t0 + wall) - t0}
 
 
+# a CLI process's start-up, piece by piece (startup_split): the monotonic
+# clock after the interpreter starts, after torch is imported, after the
+# card's context is up, after the kernel library is loaded (built once
+# into build/ beside the package), after the CLI module is imported, and
+# two runs of the command in process on one chunk of its input, the
+# first with its blocks' imports, set-up and its step's warm-up and
+# capture, the second warm
+STARTUP_PROBE = """
+import io, json, sys, time
+t = [time.perf_counter()]
+import torch
+t.append(time.perf_counter())
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+from csdr_tpu_torch.kernels import _build
+_build.lib()
+t.append(time.perf_counter())
+from csdr_tpu_torch import cli
+t.append(time.perf_counter())
+data = open(sys.argv[1], "rb").read()
+runs = []
+for _ in range(2):
+    saved = sys.stdin, sys.stdout
+    sys.stdin = io.TextIOWrapper(io.BytesIO(data))
+    sys.stdout = io.TextIOWrapper(io.BytesIO(), write_through=True)
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["csdr_tpu_torch", *sys.argv[2:], "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin, sys.stdout = saved
+    runs.append(time.perf_counter() - t0)
+print(json.dumps({"t": t, "runs": runs, "rc": rc}))
+"""
+STARTUP_STAGES = 2         # X's stages whose start-up is split
+
+
+def startup_split(stage, in_path: Path, chunk_bytes: int, tmp: Path) -> dict:
+    """Seconds of a CLI process of ``stage`` (startup_probe) on the first
+    ``chunk_bytes`` of its input: interpreter start, torch import, CUDA
+    context, kernel library load, CLI import, the command's first chunk
+    (block imports and set-up, warm-up and capture, output) and the same
+    again warm."""
+    (tmp / "probe").write_bytes(in_path.read_bytes()[:chunk_bytes])
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", STARTUP_PROBE,
+                        str(tmp / "probe"), *stage], capture_output=True,
+                       text=True, cwd=ROOT, timeout=X_TIMEOUT)
+    wall = time.perf_counter() - t0
+    require(p.returncode == 0, f"path X start-up {stage}: {p.stderr[-400:]}")
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    t = got["t"]
+    return {"stage": " ".join(stage), "process_s": wall,
+            "interpreter_s": t[0] - t0, "torch_import_s": t[1] - t[0],
+            "cuda_context_s": t[2] - t[1], "kernel_library_s": t[3] - t[2],
+            "cli_import_s": t[4] - t[3], "first_chunk_s": got["runs"][0],
+            "warm_chunk_s": got["runs"][1]}
+
+
 def x_input() -> np.ndarray:
     """X's input: SECONDS of WFM's FM 1 kHz tone at 2.4 Msps (carrier at
     +0.2*fs) as rtl_sdr's u8 I/Q."""
@@ -4861,12 +4963,16 @@ def x_input() -> np.ndarray:
 def phase_cli_pipeline(torch):
     """Path X: the csdr-fm pipeline as a shell pipeline of seven CLI
     processes on the card over SECONDS of u8 I/Q (48 MB), the default
-    chunk; each stage alone on the same bytes first (its wall-clock
-    rate; their outputs, chained, are also what the pipeline must give
-    bit for bit), then the pipeline (its rate and the seconds to its first
-    output byte), then the pipeline with --device cpu on the first
+    chunk, each stage's step captured; each stage alone on the same bytes
+    first (its wall-clock rate; their outputs, chained, are also what the
+    pipeline must give bit for bit), then the pipeline (its rate and the
+    seconds to its first output byte), then the same pipeline with every
+    step uncaptured (EAGER_CLI: the same audio bit for bit, its rate and
+    first byte beside), then the pipeline with --device cpu on the first
     X_CPU_SECONDS: every int16 sample within 1 of the card's, at most
-    X_CPU_FLIP_SHARE of them different; the 1 kHz tone dominates."""
+    X_CPU_FLIP_SHARE of them different; the 1 kHz tone dominates.  Last,
+    fractional_decimator_ff 5 in process on its stage's input: its
+    captures, replays and keys, no key captured twice."""
     import os
     import tempfile
 
@@ -4896,6 +5002,22 @@ def phase_cli_pipeline(torch):
         audio_b = (tmp / "pipe").read_bytes()
         require(audio_b == alone, "path X: the pipeline's audio differs from "
                                   "its stages run one after another")
+        re_ = run_pipeline([cli_cmd(st, eager=True) for st in X_STAGES],
+                           tmp / "x0", tmp / "eager")
+        require(re_["rcs"] == [0] * len(X_STAGES),
+                f"path X uncaptured: exit codes {re_['rcs']}: "
+                + " | ".join(e[-300:] for e in re_["stderr"] if e))
+        require((tmp / "eager").read_bytes() == audio_b,
+                "path X: the uncaptured pipeline's audio differs")
+        startup = [startup_split(st, tmp / f"x{i}", X_CHUNK * (
+            1 if i == 0 else 8 if i < 4 else 4), tmp)
+            for i, st in enumerate(X_STAGES[:STARTUP_STAGES])]
+        fd = X_STAGES.index(["fractional_decimator_ff", "5"])
+        with cli_setting() as made:
+            rc_fd, _, err_fd, _ = cli_run(X_STAGES[fd],
+                                          (tmp / f"x{fd}").read_bytes())
+            fd_steps = require_steps("path X", X_STAGES[fd][0], list(made))
+        require(rc_fd == 0, f"path X: {X_STAGES[fd]}: {err_fd[-400:]}")
         cut = X_CPU_SECONDS * FS * 2
         (tmp / "cpu0").write_bytes((tmp / "x0").read_bytes()[:cut])
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -4921,13 +5043,24 @@ def phase_cli_pipeline(torch):
          pipeline_wall_s=r["wall_s"], pipeline_msps=n / r["wall_s"] / 1e6,
          first_output_byte_s=r["first_byte_s"],
          pipeline_msps_after_first_byte=n / (r["wall_s"] - r[
-             "first_byte_s"]) / 1e6, stages_alone=stages,
+             "first_byte_s"]) / 1e6,
+         uncaptured={"wall_s": re_["wall_s"],
+                     "msps": n / re_["wall_s"] / 1e6,
+                     "first_output_byte_s": re_["first_byte_s"],
+                     "msps_after_first_byte": n / (re_["wall_s"] - re_[
+                         "first_byte_s"]) / 1e6, "audio_bit_for_bit": True},
+         fractional_decimator_steps=fd_steps, startup_split=startup,
+         stages_alone=stages,
          cpu_samples=len(cpu), cpu_wall_s=rc["wall_s"],
          card_vs_cpu_max_abs_diff=int(diff.max()),
          card_vs_cpu_share_differing=flips,
+         smi=nvidia_smi_line(),
          note="msps: input complex samples over wall seconds, process "
               "start-up included; msps_after_first_byte: over the time "
-              "after the stage's first output byte")
+              "after the stage's first output byte; uncaptured: the same "
+              "pipeline with every step uncaptured; fractional_decimator_"
+              "steps: its stage in process, captured; startup_split: "
+              "seconds of a stage's process by piece (STARTUP_PROBE)")
     return {"pipeline_msps": n / r["wall_s"] / 1e6}
 
 
@@ -5001,24 +5134,83 @@ def _c64(b: bytes) -> np.ndarray:
     return np.frombuffer(b, np.complex64)
 
 
+def keeping_steps():
+    """A cli.STEP that makes the default captured step and keeps it, with
+    the first input it is given: (the maker, the steps it made)."""
+    from csdr_tpu_torch.core.graph import CapturedStep
+
+    class Kept(CapturedStep):
+        first = None
+
+        def __call__(self, state, x):
+            if self.first is None:
+                self.first = x
+            return super().__call__(state, x)
+
+    kept = []
+
+    def make(block, graphs):
+        kept.append(Kept(block, graphs))
+        return kept[-1]
+
+    return make, kept
+
+
+def chunk_cost(torch, step) -> dict:
+    """A command's step on its first chunk, uncaptured (its block) and
+    captured afresh: graph_cost's issued ms, device-only ms, busy share,
+    host CUDA calls and lint, and the host clock of one chunk to a
+    synchronize (median of 7, span min and max)."""
+    from csdr_tpu_torch.core.graph import CapturedStep
+
+    blk, x = step.fn, step.first
+    out = {}
+    for mode, fn in (("eager", blk),
+                     ("graph", CapturedStep(blk, step.max_graphs))):
+        init = (lambda: blk.init(x.device))
+        cost = graph_cost(torch, fn, init, x)
+        box = {"s": init()}
+
+        def one(fn=fn, box=box):
+            box["s"], _ = fn(box["s"], x)
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            one()
+        cost["host_ms"], cost["host_ms_span"] = host_ms(one)
+        out[mode] = cost
+    require(out["graph"]["lint_syncs"] == 0
+            and out["graph"]["lint_uploads"] == 0,
+            f"path X' {blk.name}: the captured step syncs or uploads")
+    return out
+
+
 def x_prime_case(name, argv, inp: bytes, want: dict, bar,
                  kind=np.complex64) -> dict:
-    """One CLI command in process on the card with the launch counts zeroed
-    just before and read just after (``want``: kernel -> launches), then
-    with --device cpu on the same bytes: bit for bit (bar None) or card vs
-    CPU at ``bar`` dB."""
+    """One CLI command in process on the card, captured, with the launch
+    counts zeroed just before and read just after (``want``: kernel ->
+    launches), then with --device cpu on the same bytes: bit for bit (bar
+    None) or card vs CPU at ``bar`` dB; its step captured, no key twice;
+    then its step's chunk_cost on the first chunk, eager and captured."""
+    import torch
+
+    make, kept = keeping_steps()
     reset_all()
-    rc, out, err, wall = cli_run(argv, inp)
+    with cli_setting(make) as made:
+        rc, out, err, wall = cli_run(argv, inp)
+        steps = list(made)
     launches = launches_all()
     require(rc == 0 and len(out) > 0, f"path X' {name}: rc {rc}: "
                                       f"{err[-600:]}")
     require_launches(launches, want, f"path X' {name}")
+    graph = require_steps("path X'", name, steps)
     rc, cpu, err, wall_cpu = cli_run(argv, inp, device="cpu")
     require(rc == 0, f"path X' {name} on the CPU: {err[-600:]}")
     require(len(cpu) == len(out), f"path X' {name}: {len(out)} bytes on the "
                                   f"card, {len(cpu)} on the CPU")
     line = {"command": " ".join(argv), "launches": launches,
-            "card_s": wall, "cpu_s": wall_cpu, "out_bytes": len(out)}
+            "card_s": wall, "cpu_s": wall_cpu, "out_bytes": len(out),
+            **graph}
     if bar is None:
         require(out == cpu, f"path X' {name}: card and CPU bytes differ")
         line["bit_exact"] = True
@@ -5027,38 +5219,73 @@ def x_prime_case(name, argv, inp: bytes, want: dict, bar,
                             np.frombuffer(out, kind), np.frombuffer(cpu, kind),
                             bar)
         line.update(card_vs_cpu_snr_db=snr, bar_db=bar)
-    emit("path", path="X'", **line)
+    with torch.no_grad():
+        line["chunk"] = {k.fn.name: chunk_cost(torch, k) for k in kept}
+    del kept
+    emit("path", path="X'", **line, smi=nvidia_smi_line(),
+         note="chunk: the command's step on its first chunk (x as the pump "
+         "passes it), eager (the block) and graph (a CapturedStep of it): "
+         "issued_ms, device_only_ms, host_api_calls as the graph lines; "
+         "host_ms: host clock of one step to a synchronize")
     return {"launches": launches, "out": out}
 
 
-def retune_case(name, argv, inp: bytes, at: int, line: bytes,
-                fresh_argv, first: bytes | None = None, skip: int = 0):
-    """One live retune through --fd on the card: ``line`` written just
-    before the read of the chunk that starts at byte ``at`` (``first``
-    before the start); the output after it against a fresh run of
-    ``fresh_argv`` on the rest of the input, up to one constant phase,
-    at RETUNE_BAR."""
+def fd_run(argv, inp: bytes, lines: dict, first: bytes | None = None):
+    """``argv`` in process on the card, captured, with ``--fd`` a pipe:
+    ``first`` written before the start, each ``lines[byte]`` just before
+    the read of the chunk that starts at that byte.  (rc, stdout, stderr,
+    captures the chunk after each line made, the lines left unwritten,
+    the steps' rows)."""
     import os
 
+    make, kept = keeping_steps()
     r, w = os.pipe()
     if first:
         os.write(w, first)
-    todo = {at: line}
+    todo, marks = dict(lines), []
 
     def hook(pos):
+        now = sum(k.captures for k in kept)
+        if marks and len(marks[-1]) == 1:
+            marks[-1].append(now)
         if pos in todo:
+            marks.append([now])
             os.write(w, todo.pop(pos))
 
     try:
-        rc, out, err, wall = cli_run([argv[0], "--fd", str(r), *argv[1:]],
-                                     inp, hook=hook)
+        with cli_setting(make) as made:
+            rc, out, err, _ = cli_run([argv[0], "--fd", str(r), *argv[1:]],
+                                      inp, hook=hook)
+            steps = list(made)
     finally:
         os.close(r)
         os.close(w)
-    require(rc == 0 and not todo, f"path X' retune {name}: rc {rc}, "
-                                  f"lines left {list(todo)}: {err[-400:]}")
-    rc, fresh, err, _ = cli_run(fresh_argv, inp[at:])
-    require(rc == 0, f"path X' fresh {name}: {err[-400:]}")
+    return rc, out, err, [m[1] - m[0] for m in marks if len(m) == 2], \
+        todo, steps
+
+
+def retune_case(name, argv, inp: bytes, at: int, line: bytes,
+                fresh_argv, first: bytes | None = None, skip: int = 0,
+                fresh_first: bytes | None = None, captures: int = 0):
+    """One live retune through --fd on the card, the command captured:
+    ``line`` written just before the read of the chunk that starts at
+    byte ``at`` (``first`` before the start); the chunk after it makes at
+    most ``captures`` captures and no key is captured twice; the output
+    after it against a fresh run of ``fresh_argv`` on the rest of the
+    input (given ``fresh_first`` through --fd before its start), up to
+    one constant phase, at RETUNE_BAR, from sample ``skip`` on."""
+    rc, out, err, made, todo, steps = fd_run(argv, inp, {at: line}, first)
+    require(rc == 0 and not todo and len(made) == 1,
+            f"path X' retune {name}: rc {rc}, lines left {list(todo)}: "
+            f"{err[-400:]}")
+    graph = require_steps("path X' retune", name, steps)
+    require(made[0] <= captures, f"path X' retune {name}: the retune made "
+                                 f"{made[0]} captures, at most {captures}")
+    if fresh_first is None:
+        rc, fresh, err_f, _ = cli_run(fresh_argv, inp[at:])
+    else:
+        rc, fresh, err_f, *_ = fd_run(fresh_argv, inp[at:], {}, fresh_first)
+    require(rc == 0, f"path X' fresh {name}: {err_f[-400:]}")
     y, f = _c64(out), _c64(fresh)
     after = y[len(y) - len(f):]
     require(len(f) > 0 and len(after) == len(f),
@@ -5072,7 +5299,9 @@ def retune_case(name, argv, inp: bytes, at: int, line: bytes,
     emit("path", path="X'", retune=name, command=" ".join(argv),
          retune_line=line.decode().strip(), at_byte=at,
          after_vs_fresh_snr_db=snr, bar_db=RETUNE_BAR,
-         stderr=err.strip()[-200:])
+         after_bit_for_bit=bool(np.array_equal(after[skip:], f[skip:])),
+         retune_captures=made[0], retune_captures_at_most=captures,
+         **graph, stderr=err.strip()[-200:])
 
 
 RETUNE_BAR = 100.0         # the output after a retune against a fresh run
@@ -5146,16 +5375,43 @@ def phase_cli_kernels(torch):
         "agc_ff", AGC_EXACT_CLI, agc_in,
         {"agc_ff_scan": pumped_chunks(AGC_EXACT_SAMPLES, 1)}, None)
 
-    # live retunes: shift_addition_cc half way, fastddc_inv_cc at its
-    # third chunk
+    # live retunes, each command captured: shift_addition_cc half way (a
+    # new rate is a new key: one capture), fastddc_inv_cc at its third
+    # chunk (the rows rewritten in place: none), bandpass_fir_fft_cc at
+    # its fourth (the taps' spectra copied into the block's buffers: none,
+    # compared past the old band's overlap) and squelch_and_smeter_cc
+    # (a new level, a state leaf on the card: none)
     retune_case("shift_addition_cc", ["shift_addition_cc", "0.1"], cf,
                 XP_SAMPLES // X_CHUNK // 2 * X_CHUNK * 8, b"-0.2\n",
-                ["shift_addition_cc", "-0.2"])
+                ["shift_addition_cc", "-0.2"], captures=1)
     per = X_CHUNK // ddc.fft_size * ddc.fft_size * 8
     retune_case("fastddc_inv_cc", ["fastddc_inv_cc", "16"], fwd,
                 2 * per, b"-0.3\n", ["fastddc_inv_cc", "-0.3", "16"],
                 first=b"0.1\n")
+    retune_case("bandpass_fir_fft_cc", ["bandpass_fir_fft_cc", "0.05"], cf,
+                3 * (X_CHUNK // ins * ins) * 8, b"-0.4 -0.2\n",
+                ["bandpass_fir_fft_cc", "-0.4", "-0.2", "0.05"],
+                first=b"0.0 0.2\n", skip=ins)
+    retune_case("squelch_and_smeter_cc", ["squelch_and_smeter_cc", "1", "1"],
+                squelch_input().tobytes(), 4 * X_CHUNK * 8,
+                f"{SQUELCH_LEVEL}\n".encode(),
+                ["squelch_and_smeter_cc", "1", "1"],
+                fresh_first=f"{SQUELCH_LEVEL}\n".encode())
     return k2, {k: v["launches"] for k, v in got.items()}
+
+
+SQUELCH_LEVEL = 0.002      # X''s squelch retune: closes its quiet chunks
+
+
+def squelch_input() -> np.ndarray:
+    """The squelch retune's input: 8 chunks of X_CHUNK complex noise, the
+    odd ones 20 dB down (power 0.02 and 0.0002, either side of
+    SQUELCH_LEVEL)."""
+    rng = np.random.default_rng(131)
+    x = 0.1 * (rng.standard_normal(8 * X_CHUNK)
+               + 1j * rng.standard_normal(8 * X_CHUNK))
+    x.reshape(8, -1)[1::2] *= 0.1
+    return x.astype(np.complex64)
 
 
 def sweep_cases() -> dict:
@@ -5351,26 +5607,111 @@ def sweep_match(name, out, cpu, x: bytes) -> dict:
     return {"bit_exact": True}
 
 
-def phase_cli_sweep(torch):
-    """Path X'': every command of the smoke sweep (tests/test_cli_smoke.py's
-    CASES, sweep_cases()) once in process on the card and once with
-    --device cpu on the same stdin: exit 0, the same stderr, and the
-    outputs matched by sweep_match; the pump's device check held on every
-    chunk of every pumped command (a chunk output off the card fails the
-    command).  Then the endless noise sources stopped after 4 writes, by
-    their statistics, and fft_benchmark timed with CUDA events."""
+# the pumped commands of X' and X'' whose pump runs uncaptured on the card,
+# each at a site that says why (csdr_tpu pumps them unjitted: a host read
+# or a fresh generator a chunk, an outer apply around a step of its own),
+# with the captured steps each still makes
+UNCAPTURED = {"clipdetect_ff": 0, "detect_nan_ff": 0, "awgn_cc": 0,
+              "fastddc_inv_cc": 1}
+SWEEP_MIN_CHUNKS = 3       # chunks of each pumped command's stdin
+
+
+def eager_step(block, graphs):
+    """cli.STEP for an uncaptured run on the card: the block itself."""
+    return block
+
+
+@contextlib.contextmanager
+def cli_setting(step=None, bufsize=None):
+    """csdr_tpu_torch.cli's step maker and CSDR_FIXED_BUFSIZE for a run in
+    this process; each step's row of cli.STEPS is the run's."""
+    import os
+
     from csdr_tpu_torch import cli
 
-    rows, total = [], 0.0
+    saved = (cli.STEP, os.environ.get("CSDR_FIXED_BUFSIZE"))
+    cli.STEP = step or cli.CapturedStep
+    if bufsize:
+        os.environ["CSDR_FIXED_BUFSIZE"] = str(bufsize)
+    cli.STEPS.clear()
+    try:
+        yield cli.STEPS
+    finally:
+        cli.STEP = saved[0]
+        if saved[1] is None:
+            os.environ.pop("CSDR_FIXED_BUFSIZE", None)
+        else:
+            os.environ["CSDR_FIXED_BUFSIZE"] = saved[1]
+
+
+def require_steps(what: str, name: str, steps: list) -> dict:
+    """A command's steps (cli.STEPS rows): each captured, or, for a
+    command of UNCAPTURED, its pump's alone uncaptured beside the captured
+    steps it names; no capture of a key a step had dropped (none after the
+    first lap of its key cycle).  Their captures, replays and keys."""
+    captured = [r for r in steps if r["captured"]]
+    want = (1, UNCAPTURED[name]) if name in UNCAPTURED else (0, len(steps))
+    require(steps and (len(steps) - len(captured), len(captured)) == want,
+            f"{what} {name}: steps {steps}; uncaptured and captured "
+            f"steps want {want}")
+    for r in captured:
+        require(r["recaptures"] == 0,
+                f"{what} {name}: {r['recaptures']} captures of a key "
+                "dropped earlier")
+    return {"captured": [r["captured"] for r in steps],
+            "captures": sum(r.get("captures", 0) for r in steps),
+            "replays": sum(r.get("replays", 0) for r in steps),
+            "keys": sum(r.get("keys", 0) for r in steps),
+            "max_graphs": [r.get("max_graphs") for r in steps]}
+
+
+def phase_cli_sweep(torch):
+    """Path X'': every command of the smoke sweep (tests/test_cli_smoke.py's
+    CASES, sweep_cases()) in process on the card and with --device cpu on
+    the same stdin, at a CSDR_FIXED_BUFSIZE that gives each pumped command
+    at least SWEEP_MIN_CHUNKS chunks (a third of its stdin as 8-byte
+    samples, which the pump rounds down to its quantum; a command that pins
+    its chunk keeps it): exit 0, the same stderr, and the outputs matched
+    by sweep_match; the pump's device check held on every chunk of every
+    pumped command (a chunk output off the card fails the command).  Each
+    pumped command runs captured (cli.STEP the default, one CUDA graph a
+    key) and uncaptured (cli.STEP = eager_step) on the card: the same
+    bytes and stderr bit for bit; every step captured unless its command
+    is one of UNCAPTURED, and no key captured twice.  Then the endless
+    noise sources stopped after 4 writes, by their statistics, and
+    fft_benchmark timed with CUDA events over a captured FFT."""
+    from csdr_tpu_torch import cli
+
+    rows, total = [], {"graph": 0.0, "eager": 0.0}
     for name, (args, inp, expect) in sweep_cases().items():
+        pumped = name not in cli.HOST_ONLY and name not in NO_PUMP
+        bufsize = max(1, len(inp) // 8 // SWEEP_MIN_CHUNKS) if pumped \
+            else None
         before = cli.PUMP_CHECKS["chunks"]
-        rc, out, err, wall = cli_run([name, *args], inp)
+        with cli_setting(bufsize=bufsize) as made:
+            rc, out, err, wall = cli_run([name, *args], inp)
+            steps = list(made)
         checked = cli.PUMP_CHECKS["chunks"] - before
         require(rc == 0, f"path X'' {name}: rc {rc}: {err[-600:]}")
         require(len(out) > 0 or not expect, f"path X'' {name}: no output")
-        require(checked > 0 or name in cli.HOST_ONLY or name in NO_PUMP,
-                f"path X'' {name}: the pump checked no chunk on the card")
-        rc, cpu, err_cpu, wall_cpu = cli_run([name, *args], inp, "cpu")
+        require(checked >= SWEEP_MIN_CHUNKS or not pumped,
+                f"path X'' {name}: the pump checked {checked} chunks on the "
+                f"card, want {SWEEP_MIN_CHUNKS}")
+        line = {"bufsize": bufsize, "pump_chunks_checked": checked}
+        if pumped:
+            line.update(require_steps("path X''", name, steps))
+            with cli_setting(eager_step, bufsize):
+                rc, eager, err_e, wall_e = cli_run([name, *args], inp)
+            require(rc == 0 and eager == out,
+                    f"path X'' {name}: the captured run's bytes differ from "
+                    f"the uncaptured run's (rc {rc}, {len(out)} and "
+                    f"{len(eager)} bytes)")
+            require(err_e == err, f"path X'' {name}: stderr captured "
+                    f"{err[-300:]!r}, uncaptured {err_e[-300:]!r}")
+            line.update(eager_bit_for_bit=True, eager_s=wall_e)
+            total["eager"] += wall_e
+        with cli_setting(bufsize=bufsize):
+            rc, cpu, err_cpu, wall_cpu = cli_run([name, *args], inp, "cpu")
         require(rc == 0, f"path X'' {name} on the CPU: {err_cpu[-600:]}")
         if name == "shift_addition_cc_test":
             require(err.count("\n") == err_cpu.count("\n"),
@@ -5379,18 +5720,25 @@ def phase_cli_sweep(torch):
             require(err == err_cpu, f"path X'' {name}: stderr differs: "
                                     f"{err[-300:]!r} vs {err_cpu[-300:]!r}")
         got = sweep_match(name, out, cpu, inp)
-        total += wall
+        total["graph"] += wall
         rows.append(name)
         emit("sweep", command=name, args=args, card_s=wall, cpu_s=wall_cpu,
-             out_bytes=len(out), pump_chunks_checked=checked, **got)
+             out_bytes=len(out), **line, **got)
     for name in NOISE_SOURCES:
         stats = noise_source_stats(name)
         emit("sweep", command=name, **stats)
-    rc, _, err, wall = cli_run(["fft_benchmark", "4096", "200"])
+    with cli_setting() as made:
+        rc, _, err, wall = cli_run(["fft_benchmark", "4096", "200"])
+        steps = list(made)
     require(rc == 0 and "seconds each" in err, f"fft_benchmark: {err}")
+    got = require_steps("fft_benchmark", "fft_benchmark", steps)
+    require(got["captures"] == 1 and got["replays"] == 200,
+            f"fft_benchmark: {got['captures']} captures, {got['replays']} "
+            "replays")
     emit("sweep", command="fft_benchmark 4096 200", card_s=wall,
-         stderr=err.strip().splitlines())
-    emit("path", path="X''", commands=len(rows), card_s_total=total,
+         stderr=err.strip().splitlines(), **got)
+    emit("path", path="X''", commands=len(rows),
+         card_s_total=total["graph"], eager_card_s_total=total["eager"],
          pump_chunks_checked=cli.PUMP_CHECKS["chunks"])
 
 

@@ -46,6 +46,7 @@ import torch
 
 from csdr_tpu_torch.core.block import (Block, VarOut, resolve_device,
                                        stateless)
+from csdr_tpu_torch.core.graph import MAX_GRAPHS, CapturedStep, carried_value
 
 USAGE_NOTE = """csdr_tpu_torch — csdr-compatible DSP tool on CUDA (the PyTorch port of csdr_tpu).
 usage: python -m csdr_tpu_torch.cli <command> [params] [--device cuda|cpu]  (see `?<text>` to search)
@@ -64,6 +65,29 @@ syncword_search rtty_line_decoder_u8_u8 old_fractional_decimator_ff""".split())
 _RUN = {"cmd": "csdr_tpu_torch", "device": torch.device("cpu")}
 # chunks whose output the pump found on the command's device
 PUMP_CHECKS = {"chunks": 0}
+
+
+# how the pump, and a command with a step of its own, make that step from
+# a block: ``STEP(block, graphs)``, by default one CUDA graph a key,
+# captured on the key's first chunk and replayed after, at most ``graphs``
+# kept (csdr_tpu's ``jax.jit(block.apply)``; on CPU tensors the block
+# itself).  Code in this process may put another maker here (the block
+# itself, to run it uncaptured on the card; a CPU rehearsal of the
+# capture).
+STEP = CapturedStep
+# what each step made through STEP did, noted when its command is done
+# with it: the block's name, whether it was captured and, if so, its
+# captures, replays, keys captured and recaptures (core/graph)
+STEPS: list = []
+
+
+def _note(step, block) -> None:
+    row = {"block": block.name, "captured": isinstance(step, CapturedStep)}
+    if row["captured"]:
+        row.update(captures=step.captures, replays=step.replays,
+                   keys=len(step.captured_keys), recaptures=step.recaptures,
+                   max_graphs=step.max_graphs)
+    STEPS.append(row)
 
 
 def _cmd() -> str:
@@ -272,7 +296,7 @@ def _on(y: torch.Tensor, dev: torch.device, block) -> torch.Tensor:
 
 def pump(block, in_fmt: str, out_fmt: str, quantum: int = 1,
          chunk: int | None = None, on_chunk=None, drop_warmup_out: int = 0,
-         device=None):
+         device=None, jit: bool = True):
     """The fread -> block -> fwrite loop.  quantum: a chunk is a multiple
     of it (decimations, frame sizes); chunk pins the chunk size (the
     preamble is still read); on_chunk(state) -> state applies FIFO
@@ -281,6 +305,16 @@ def pump(block, in_fmt: str, out_fmt: str, quantum: int = 1,
     reach the wire and the stream aligns with the reference's valid-mode
     output (csdr_tpu's pump, cli.py:172-245).  device: the command's
     device unless a host-only command names the CPU.
+
+    jit: the block runs as ``STEP(block, graphs)``, on the card one CUDA
+    graph replay a chunk, as csdr_tpu's pump runs ``jax.jit(block.apply)``,
+    ``graphs`` MAX_GRAPHS or the block's ``key_cycle(n)`` where it has one
+    and that is more; a command whose apply has a host
+    effect a chunk (a host read, a fresh generator) passes False, as
+    csdr_tpu's does.  The state the step returns is passed to its next
+    call, which owns it (donated); an on_chunk retune that replaces a
+    leaf has it copied into the graph's buffers.  The step, and its
+    graphs with it, are dropped when the pump returns.
 
     At EOF the tail is run as one shorter chunk, truncated to the quantum,
     as the reference processes its last short fread.  A VarOut's count is
@@ -301,41 +335,50 @@ def pump(block, in_fmt: str, out_fmt: str, quantum: int = 1,
     if _dynamic_bufsize_on():
         sendbufsize(n)
     block = block.to(dev)
+    graphs = MAX_GRAPHS
+    if jit and hasattr(block, "key_cycle"):
+        # a block whose key leaves go round a cycle at a chunk length
+        # (the fractional decimator) keeps a graph for each key of it
+        graphs = max(graphs, block.key_cycle(n) or 0)
+    step = STEP(block, graphs) if jit else block
     state = block.init(dev)
     stdin = sys.stdin.buffer
     stdout = sys.stdout.buffer
     bytes_per = np.dtype(fi.dtype).itemsize * fi.per_sample
     pending = b""
     eof = False
-    with torch.no_grad():
-        while not eof:
-            data = stdin.read(n * bytes_per - len(pending))
-            pending += data or b""
-            if len(pending) < n * bytes_per:
-                eof = True
-                nlast = (len(pending) // bytes_per // quantum) * quantum
-                if nlast == 0:
-                    break
-                raw = np.frombuffer(pending[: nlast * bytes_per], fi.dtype)
-            else:
-                raw = np.frombuffer(pending[: n * bytes_per], fi.dtype)
-            pending = b""
-            x = fi.to_dev(raw, dev)
-            if on_chunk is not None:
-                state = on_chunk(state)
-            state, y = block(state, x)
-            if isinstance(y, VarOut):
-                data_d = _on(y.data, dev, block)
-                y = data_d[..., : int(y.count)]
-            out = fo.to_wire(_on(y, dev, block)).cpu().numpy()
-            if out_fmt == "u32":
-                out = out.view(np.uint32)
-            if drop_warmup_out:
-                k = min(drop_warmup_out * fo.per_sample, len(out))
-                out = out[k:]
-                drop_warmup_out -= k // fo.per_sample
-            stdout.write(out.tobytes())
-            stdout.flush()
+    try:
+        with torch.no_grad():
+            while not eof:
+                data = stdin.read(n * bytes_per - len(pending))
+                pending += data or b""
+                if len(pending) < n * bytes_per:
+                    eof = True
+                    nlast = (len(pending) // bytes_per // quantum) * quantum
+                    if nlast == 0:
+                        break
+                    raw = np.frombuffer(pending[: nlast * bytes_per], fi.dtype)
+                else:
+                    raw = np.frombuffer(pending[: n * bytes_per], fi.dtype)
+                pending = b""
+                x = fi.to_dev(raw, dev)
+                if on_chunk is not None:
+                    state = on_chunk(state)
+                state, y = step(state, x)
+                if isinstance(y, VarOut):
+                    data_d = _on(y.data, dev, block)
+                    y = data_d[..., : int(y.count)]
+                out = fo.to_wire(_on(y, dev, block)).cpu().numpy()
+                if out_fmt == "u32":
+                    out = out.view(np.uint32)
+                if drop_warmup_out:
+                    k = min(drop_warmup_out * fo.per_sample, len(out))
+                    out = out[k:]
+                    drop_warmup_out -= k // fo.per_sample
+                stdout.write(out.tobytes())
+                stdout.flush()
+    finally:
+        _note(step, block)
 
 
 def _stateless_pump(fn, in_fmt, out_fmt, quantum=1, chunk=None):
@@ -839,7 +882,9 @@ def _c_clip(args):
             sys.stderr.write(f"clipdetect_ff: {n} samples clipped\n")
         return state, x
 
-    pump(FnBlock("clipdetect", lambda dev: None, apply), "f", "f")
+    # the count is read on the host a chunk: uncaptured, as csdr_tpu pumps
+    # it unjitted (cli.py:735)
+    pump(FnBlock("clipdetect", lambda dev: None, apply), "f", "f", jit=False)
 
 
 @command("detect_nan_ff")
@@ -851,7 +896,9 @@ def _c_nan(args):
             sys.stderr.write("detect_nan_ff: NaN detected!\n")
         return state, x
 
-    pump(FnBlock("detect_nan", lambda dev: None, apply), "f", "f")
+    # the flag is read on the host a chunk: uncaptured, as csdr_tpu pumps
+    # it unjitted (cli.py:749)
+    pump(FnBlock("detect_nan", lambda dev: None, apply), "f", "f", jit=False)
 
 
 @command("dcblock_ff")
@@ -913,14 +960,18 @@ def _c_shift(args):
     # the rate lives in the state, a float32 0-dim CPU tensor: the NCO
     # takes csdr_tpu's traced-rate path on the card, and a FIFO retune
     # replaces the rate between chunks (the reference re-enters its shift
-    # loop, csdr.c:749-848)
+    # loop, csdr.c:749-848).  The rate is a key leaf of the captured step
+    # (a retune makes one capture); the phase a value leaf, advanced on
+    # the host as shift_cc advances it (core/graph.carried_value)
     def init(dev):
         return (torch.tensor(0.0), torch.tensor(rate, dtype=torch.float32))
 
     def apply(state, x):
         phase, r = state
-        y, nphase = shift.shift_cc(x, r, phase)
-        return (nphase, r), y
+        n = x.shape[0]
+        ph, nphase = carried_value(
+            phase, lambda p: shift.traced_next_phase(p, n, r))
+        return (nphase, r), shift.traced_mix(x, r, ph)
 
     def on_chunk(state):
         line = ctl.poll()
@@ -943,14 +994,19 @@ def _c_decshift(args):
     rate = _f(args, 0)
     d = _i(args, 1, 1)
 
+    ramps = {}          # the NCO's ramp by chunk length, on the card
+
     def init(dev):
         return (_scalar0(0.0, torch.float32, dev),
                 _scalar0(0, torch.int32, dev))
 
     def apply(state, x):
         phase, off = state
+        cap = -(-x.shape[0] // d)
+        if cap not in ramps:
+            ramps[cap] = shift.static_cycles(cap, rate * d, x.device)
         y, count, nphase, noff = shift.decimating_shift_cc(
-            x, rate * d, d, phase, off)
+            x, rate * d, d, phase, off, cycles=ramps[cap])
         return (nphase, noff), VarOut(y, count)
 
     pump(FnBlock("decshift", init, apply), "c", "c", quantum=d)
@@ -1015,7 +1071,13 @@ def _c_fracdec(args):
         win = _window(args, 3)
         taps = firdes.firdes_lowpass_f(firdes.firdes_filter_len(bw),
                                        0.5 / rate, win)
-    pump(resamp.fractional_decimator_block(rate, npoly, taps), "f", "f")
+    blk = resamp.fractional_decimator_block(rate, npoly, taps)
+    # occ and where are key leaves of the captured step: at an integer or
+    # a rational rate they go round a cycle (the pump keeps a graph for
+    # each key of it, the block's key_cycle); at any other rate, the
+    # generic path, they need not come back, and the block runs uncaptured
+    pump(blk, "f", "f", jit=rate.is_integer() or isinstance(
+        blk, resamp.RationalFractionalDecimatorBlock))
 
 
 @command("bandpass_fir_fft_cc")
@@ -1327,6 +1389,7 @@ def _c_fft(args):
         print(f'setenv("GNUTERM","X11 noraise");y=zeros(1,{n});'
               'semilogy(y,"ydatasource","y");')
         blk = blk.to(dev)
+        step = STEP(blk, MAX_GRAPHS)      # csdr_tpu's jax.jit(blk.apply)
         state = blk.init(dev)
         stdin = sys.stdin.buffer
         half = n // 2
@@ -1337,13 +1400,14 @@ def _c_fft(args):
                     break
                 x = _mk_fmts()["c"].to_dev(np.frombuffer(data, np.float32),
                                            dev)
-                state, y = blk(state, x)
+                state, y = step(state, x)
                 fr = torch.view_as_real(y).reshape(-1, 2).cpu().numpy()
                 swapped = np.concatenate([fr[half:n], fr[:half]])
                 print("fftdata=[" +
                       " ".join(f"({i:g})+({q:g})*i" for i, q in swapped) +
                       "];\ny=abs(fftdata);\nrefreshdata;")
                 sys.stdout.flush()
+        _note(step, blk)
         return 0
     pump(blk, "c", "c", quantum=every)
 
@@ -1432,16 +1496,21 @@ def _time_ms(fn, iters: int) -> float:
 @command("fft_benchmark")
 def _c_fftbench(args):
     """Times <fft_cycles> complex FFTs of <fft_size> (the port's core FFT)
-    with CUDA events on the card."""
+    with CUDA events on the card: replays of the FFT captured as a CUDA
+    graph, the first call its warm-up and capture (csdr_tpu times its
+    jitted FFT's compile there)."""
     from csdr_tpu_torch.core import cplx, fft as cfft
     n = _i(args, 0)
     cycles = _i(args, 1)
     rng = np.random.default_rng(0)
     x = cplx.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
                         .astype(np.complex64), _dev())
-    first = _time_ms(lambda: cfft.fft(x), 1)
+    blk = FnBlock("fft", lambda dev: None, lambda s, v: (s, cfft.fft(v)))
+    fft = STEP(blk, MAX_GRAPHS)
+    first = _time_ms(lambda: fft(None, x), 1)
     sys.stderr.write(f"fft_benchmark: first (plan) in {first / 1e3:g} s\n")
-    dt = _time_ms(lambda: cfft.fft(x), max(cycles, 1)) / 1e3
+    dt = _time_ms(lambda: fft(None, x), max(cycles, 1)) / 1e3
+    _note(fft, blk)
     sys.stderr.write(f"fft_benchmark: {cycles} transforms of {n}, "
                      f"{dt:g} seconds each.\n")
 
@@ -1472,9 +1541,12 @@ def _c_ddcinv(args):
     """The inverse of one channel from natural-order spectra.  A divisible
     post decimation (e.g. D=16) runs the factored inverse, K4, with the
     channel's rows as arguments, as the DDC server's path S; another (e.g.
-    D=50) the dynamic classed product.  A retune computes the new rows on
-    the host and uploads them (reference csdr.c:2308-2339 re-enters
-    fastddc_init); the block is not rebuilt."""
+    D=50) the dynamic classed product.  The rows and ``cyc`` are card
+    buffers allocated once, which the inverse's captured step reads
+    (csdr_tpu's ``step_inv`` takes them as arguments, cli.py:1376-1391); a
+    retune computes the new rows on the host and copies them into the
+    buffers (reference csdr.c:2308-2339 re-enters fastddc_init): no
+    storage moves, so no new capture; the block is not rebuilt."""
     import math
 
     from csdr_tpu_torch.ops import fastddc
@@ -1492,28 +1564,41 @@ def _c_ddcinv(args):
         win = _window(a, 3)
     ddc = fastddc.fastddc_init(bw, d, rate, win)
     factored = ddc.post_input_size % ddc.post_decimation == 0
+    dev = _concrete(_dev())
     inv = (fastddc.fastddc_inv_dynamic_factored_block(ddc, 1) if factored
-           else fastddc.fastddc_inv_dynamic_block(ddc, 1))
-    box = {}
+           else fastddc.fastddc_inv_dynamic_block(ddc, 1)).to(dev)
 
-    def set_rate(r, dev):
+    def host_rows(r):
+        """The channel's rows at rate r, host arrays: (tq, drow) factored,
+        (g,) classed, and cyc."""
         if factored:
             tq, drow, cyc = fastddc.dynamic_channel_rows(ddc, r)
             rows = (tq[None], drow[None])
         else:
             g, cyc = fastddc.dynamic_channel_cols(ddc, r)
             rows = (g,)
-        box["rows"] = tuple(torch.from_numpy(np.ascontiguousarray(
-            v, np.complex64)).to(dev) for v in rows)
-        box["cyc"] = torch.tensor([cyc], dtype=torch.float32, device=dev)
+        return tuple(torch.from_numpy(np.ascontiguousarray(v, np.complex64))
+                     for v in rows), torch.tensor([cyc], dtype=torch.float32)
 
-    def init(dev):
-        set_rate(rate, dev)
-        return inv.to(dev).init(dev)
+    rows, cyc = host_rows(rate)
+    rows = tuple(v.to(dev) for v in rows) + (cyc.to(dev),)
+
+    def set_rate(r):
+        new, c = host_rows(r)
+        for buf, v in zip(rows, new + (c,)):
+            buf.copy_(v)
+
+    def step_inv(state, spectra):
+        return inv(state, spectra, *rows)
+
+    # csdr_tpu jits step_inv with the rows as arguments; here it is
+    # captured over the buffers
+    inner = FnBlock("ddcinv step", inv.init, step_inv)
+    inner.rows = rows
+    step = STEP(inner, MAX_GRAPHS)
 
     def apply(state, x):
-        spectra = x.reshape(-1, ddc.fft_size)
-        state, out = inv(state, spectra, *box["rows"], box["cyc"])
+        state, out = step(state, x.reshape(-1, ddc.fft_size))
         return state, VarOut(out.data[0], out.count)
 
     def on_chunk(state):
@@ -1522,7 +1607,7 @@ def _c_ddcinv(args):
             try:
                 new_rate = float(line)
                 sys.stderr.write(f"fastddc_inv: retuned to {new_rate}\n")
-                set_rate(new_rate, box["cyc"].device)
+                set_rate(new_rate)
             except ValueError:
                 pass
         return state
@@ -1531,8 +1616,11 @@ def _c_ddcinv(args):
     # counts per chunk for streaming NCO/class continuity
     q_al = (ddc.post_decimation //
             math.gcd(ddc.post_input_size, ddc.post_decimation))
-    pump(FnBlock("ddcinv", init, apply), "c", "c",
-         quantum=ddc.fft_size * q_al, on_chunk=on_chunk)
+    # the outer apply is not captured, as csdr_tpu pumps it unjitted
+    # (cli.py:1413): its step is
+    pump(FnBlock("ddcinv", inv.init, apply), "c", "c",
+         quantum=ddc.fft_size * q_al, on_chunk=on_chunk, jit=False)
+    _note(step, inner)
 
 
 # --- digital / modem ---------------------------------------------------------
@@ -1739,9 +1827,10 @@ def _c_timing(args):
             # <prefix>_<n>.png via print -dpng)
             save_prefix = args[args.index("--octave_save") + 1]
         plot_n = [0]
+        step = STEP(inner, MAX_GRAPHS)    # csdr_tpu's jax.jit(blk.apply)
 
         def apply(state, x):
-            state, out = inner(state, x)
+            state, out = step(state, x)
             m = int(out.count)
             idx = out.data[:m].cpu().numpy()
             sig = x.real.cpu().numpy()
@@ -1754,8 +1843,11 @@ def _c_timing(args):
             sys.stdout.flush()
             return state, VarOut(out.data[:0], 0)
 
+        # the plot is printed from the host a chunk: the outer apply is not
+        # captured, as csdr_tpu pumps it unjitted (cli.py:1658); its step is
         pump(FnBlock("timing_octave", lambda dev: inner.to(dev).init(dev),
-                     apply), "c", "u32", quantum=decim)
+                     apply), "c", "u32", quantum=decim, jit=False)
+        _note(step, inner)
         return
     blk = sync.timing_recovery_block(alg, decim, gain, max_err, use_q, output,
                                      segments=segs)
@@ -1887,7 +1979,9 @@ def _c_awgn(args):
             sys.stderr.write(f"awgn_cc: SNR = {ps - pn:f} dB\n")
         return state, torch.complex(sig.real + nza.real, sig.imag + nza.imag)
 
-    pump(FnBlock("awgn", lambda dev: None, apply), "c", "c")
+    # a fresh generator (or the next file block) a chunk: uncaptured, as
+    # csdr_tpu pumps it unjitted (cli.py:1787)
+    pump(FnBlock("awgn", lambda dev: None, apply), "c", "c", jit=False)
 
 
 @command("uniform_noise_f")
@@ -2028,13 +2122,15 @@ def _c_tee(args):
 def _c_shift_fc(args):
     """Real -> complex modulator shift (reference libcsdr_gpl.c:54-79)."""
     from csdr_tpu_torch.ops import shift
-    rate = _f(args, 0)
+    # ShiftBlock: shift_fc's NCO with its ramp on the card and its phase a
+    # value leaf of the captured step
+    blk = shift.shift_block(_f(args, 0), "shift_fc")
 
     def apply(phase, x):
-        y, nphase = shift.shift_fc(x, rate, phase)
-        return nphase, y
+        x = x.float()
+        return blk(phase, torch.complex(x, torch.zeros_like(x)))
 
-    pump(FnBlock("shift_fc", lambda dev: torch.tensor(0.0), apply), "f", "c")
+    pump(FnBlock("shift_fc", blk.init, apply), "f", "c")
 
 
 @command("shift_addition_cc_test")

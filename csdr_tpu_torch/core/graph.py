@@ -36,14 +36,25 @@ Each call on the card: the key; on its first call, the step runs eagerly
 on the capture stream (kernels build, tables upload, caches fill: the
 warm-up, whose result is the call's) and is then captured; on every later
 call the state goes into the graph's buffers (by copy, unless it is the
-state the last call returned: csdr_tpu's ``StreamRunner`` donates it), the
+state the last call returned: csdr_tpu's ``StreamRunner`` donates it; a
+state rebuilt from that one with some leaves replaced, as a FIFO retune
+replaces a level or a rate, has only those copied in), the
 input is copied into the graph's input, the value leaves are filled, the
 graph replays, and each output on the card is copied once out of the
 graph's pool, so an output never changes under a later call.
 
-At most ``MAX_GRAPHS`` graphs are kept (the least recently used one is
-dropped past that); ``captures`` counts captures.  A capture records the
-launches every kernel wrapper counted while it ran; each replay adds them
+The key also holds the shapes of the state's leaves on the card.  A leaf
+whose shape the step changes (W1's paired encoder holds back 0 or 1
+samples) is not donated: the graph's value of it is copied out after each
+replay, as an output is, and the next call copies it in.
+
+A step keeps at most ``max_graphs`` graphs (``MAX_GRAPHS`` unless its
+maker sizes it to the cycle of its keys: the least recently used one is
+dropped past that); ``captures`` counts captures, ``captured_keys`` holds
+the keys captured and ``recaptures`` the captures of a key dropped
+earlier, which a stream whose keys fit the bound never makes after the
+first lap of its key cycle.  A capture records the launches every kernel
+wrapper counted while it ran; each replay adds them
 to the kernels' ``LAUNCHES``, so the counts go on counting launches the
 card ran.  A step that cannot be captured raises, naming its block, the
 op and the exception; it is never run eagerly instead.
@@ -64,30 +75,32 @@ import gc
 import importlib
 import pkgutil
 import traceback
+import warnings
 from collections import OrderedDict
 from typing import Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
-MAX_GRAPHS = 4             # graphs a step keeps: start-up and steady keys
+MAX_GRAPHS = 4             # graphs a step keeps by default: start-up and
+                           # steady keys
 
 _RECORDER: contextvars.ContextVar = contextvars.ContextVar(
     "csdr_graph_recorder", default=None)
 
 
-def carried_value(leaf, advance: Callable, device):
+def carried_value(leaf, advance: Callable):
     """A value leaf of a block's state: ``(read, next)``, ``read`` what the
     block's launch takes, ``next = advance(leaf)`` the leaf's next value
     (a new host tensor).  Eagerly ``read`` is ``leaf``; while a
-    :class:`CapturedStep` captures, a 0-dim tensor on ``device`` that each
-    replay fills with the then current leaf, whose next value the host
-    computes with ``advance``."""
+    :class:`CapturedStep` captures, a 0-dim tensor on the step's card that
+    each replay fills with the then current leaf, whose next value the
+    host computes with ``advance``."""
     nxt = advance(leaf)
     rec = _RECORDER.get()
     if rec is None:
         return leaf, nxt
-    return rec.value(leaf, nxt, advance, device), nxt
+    return rec.value(leaf, nxt, advance), nxt
 
 
 def capturing() -> bool:
@@ -119,22 +132,28 @@ class _Value:
 class _Recorder:
     """What a capture learns of the step's value leaves: ``leaves`` are
     the input state's leaves as the capture passes them in, ``host_pos``
-    the positions of its host leaves."""
+    the positions of its host leaves.
 
-    def __init__(self, host_pos: list[int], leaves: list):
+    Each host leaf gets its 0-dim tensor on ``device`` here, before the
+    capture: one allocated inside it comes from the graph's pool, where
+    it can take the memory of a temporary the body freed, which the graph
+    then writes after the scalar's fill (seen on the card: the CLI's
+    shift_addition_fc, a ``torch.complex`` before its NCO)."""
+
+    def __init__(self, host_pos: list[int], leaves: list, device):
         self.host = [(i, leaves[i]) for i in host_pos]
+        self.scalars = {i: torch.empty((), device=device, dtype=(
+            leaves[i].dtype if isinstance(leaves[i], torch.Tensor)
+            else torch.float32)) for i in host_pos}
         self.values: dict[int, _Value] = {}
 
-    def value(self, leaf, nxt, advance, device):
+    def value(self, leaf, nxt, advance):
         pos = next((i for i, h in self.host if h is leaf), None)
         if pos is None:
             raise RuntimeError("carried_value: the leaf is not a host leaf "
                                "of the captured step's state")
         if pos not in self.values:        # a second run of the body reuses it
-            dtype = (leaf.dtype if isinstance(leaf, torch.Tensor)
-                     else torch.float32)
-            self.values[pos] = _Value(pos, torch.empty(
-                (), dtype=dtype, device=device), advance, nxt)
+            self.values[pos] = _Value(pos, self.scalars[pos], advance, nxt)
         return self.values[pos].scalar
 
 
@@ -156,9 +175,13 @@ class _Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                self.out = body()
+            # a step that only views its input (the CLI's realpart_cf)
+            # captures no work: its graph replays nothing, as it should
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                with torch.cuda.graph(self.graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.out = body()
         finally:
             if collecting:
                 gc.enable()
@@ -171,14 +194,16 @@ class _Graph:
 
 class _Entry:
     """One key's graph: its static input, state buffers (by leaf
-    position), value leaves, recorded host results and launches (counter,
-    name, count)."""
+    position), value leaves, recorded host results, launches (counter,
+    name, count) and the positions of the state leaves whose shape the
+    step changes."""
 
     def __init__(self, graph, x, bufs, values, host_out, out_values, y_spec,
-                 y_const, launches):
+                 y_const, launches, reshaped):
         self.graph, self.x, self.bufs, self.values = graph, x, bufs, values
         self.host_out, self.out_values = host_out, out_values
         self.y_spec, self.y_const, self.launches = y_spec, y_const, launches
+        self.reshaped = reshaped
 
 
 def _inputs(x) -> tuple:
@@ -219,13 +244,17 @@ def _where(e: BaseException) -> str:
 class CapturedStep:
     """``fn(state, x) -> (state', y)`` captured as one CUDA graph a key and
     replayed (module docstring).  ``captures`` counts captures,
-    ``replays`` replays."""
+    ``replays`` replays, ``recaptures`` captures of a key whose graph the
+    bound ``max_graphs`` had dropped; ``captured_keys`` is the set of keys
+    captured."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, max_graphs: int = MAX_GRAPHS):
         self.fn = fn
         self.name = getattr(fn, "name", None) or getattr(
             fn, "__qualname__", repr(fn))
-        self.captures = self.replays = 0
+        self.max_graphs = max_graphs
+        self.captures = self.replays = self.recaptures = 0
+        self.captured_keys: set = set()
         self._graphs: OrderedDict = OrderedDict()
         self._value_pos: frozenset | None = None
         self._static: dict[int, _Entry] = {}   # id of a state buffer
@@ -288,7 +317,7 @@ class CapturedStep:
                 leaves, host_pos = self._last_leaves, self._host
             else:
                 leaves, spec = pytree.tree_flatten(state)
-                if any(id(v) in self._static for v in leaves):
+                if not self._rebuilt(leaves, dev):
                     raise ValueError(
                         f"{self.name}: a state donated to an earlier call; "
                         "pass the state the last call returned")
@@ -309,6 +338,25 @@ class CapturedStep:
             self._graphs.move_to_end(key)
             return self._replay(entry, x, leaves)
 
+    def _rebuilt(self, leaves: list, dev) -> bool:
+        """Whether ``leaves`` may go into the buffers: a state that holds
+        none of the graphs' buffers (a fresh or a checkpoint state), or the
+        last state with some of its leaves on the card replaced (a FIFO
+        retune's new level), every other leaf, host ones included, the
+        last state's own at its place.  A state an earlier call returned
+        holds the buffers with that call's host leaves, which the last
+        call replaced (where a state has no host leaf the two are one: its
+        buffers hold the last call's values either way)."""
+        if not any(id(v) in self._static for v in leaves):
+            return True
+        last = self._last_leaves
+        if last is None or len(last) != len(leaves):
+            return False
+        host = set(self._host_positions(leaves, dev))
+        return all(v is last[i] or (i not in host and id(v) not in
+                                    self._static)
+                   for i, v in enumerate(leaves))
+
     def _remember(self, state, dev) -> None:
         """``state`` as the last call's: the next call that passes it back
         skips its flattening and its checks."""
@@ -317,9 +365,11 @@ class CapturedStep:
         self._host = self._host_positions(self._last_leaves, dev)
 
     def _key(self, x, leaves, host_pos) -> tuple:
+        host = set(host_pos)
         return _signature(x) + (tuple(
             _host_key(leaves[i]) for i in host_pos
-            if i not in self._value_pos),)
+            if i not in self._value_pos), tuple(
+            tuple(v.shape) for i, v in enumerate(leaves) if i not in host))
 
     def _capture(self, x, dev, leaves, host_pos) -> None:
         bufs = {i: leaves[i].clone() for i in range(len(leaves))
@@ -330,7 +380,7 @@ class CapturedStep:
         for i, b in bufs.items():
             static[i] = b
         static_state = pytree.tree_unflatten(static, self._spec)
-        rec = _Recorder(host_pos, static)
+        rec = _Recorder(host_pos, static, dev)
 
         def body():
             token = _RECORDER.set(rec)
@@ -354,7 +404,7 @@ class CapturedStep:
                             and not (seq is new and v is bufs.get(j))):
                         seq[j] = v.clone()
             for i, b in bufs.items():
-                if new[i] is not b:
+                if new[i] is not b and new[i].shape == b.shape:
                     b.copy_(new[i])
             return new, (y_leaves, y_spec)
 
@@ -382,6 +432,9 @@ class CapturedStep:
                                f"had {sorted(self._value_pos)}")
         out_values = {j: rec.values[p] for j, v in enumerate(new)
                       for p in rec.values if v is rec.values[p].nxt}
+        # a leaf whose shape the step changes (a carry of 0 or 1 samples)
+        # is not donated: it goes out as an output does
+        reshaped = {i for i, b in bufs.items() if new[i].shape != b.shape}
         host_out = [None if (j in bufs or j in out_values) else v
                     for j, v in enumerate(new)]
         # outputs on the card are copied out after each replay; the rest
@@ -389,12 +442,15 @@ class CapturedStep:
         y_const = [(isinstance(v, torch.Tensor) and v.device == dev, v)
                    for v in y_leaves]
         entry = _Entry(graph, xs, bufs, list(rec.values.values()), host_out,
-                       out_values, y_spec, y_const, launched)
-        self._graphs[self._key(x, leaves, host_pos)] = entry
+                       out_values, y_spec, y_const, launched, reshaped)
+        key = self._key(x, leaves, host_pos)
+        self._graphs[key] = entry
         for b in bufs.values():
             self._static[id(b)] = entry
         self.captures += 1
-        while len(self._graphs) > MAX_GRAPHS:
+        self.recaptures += key in self.captured_keys
+        self.captured_keys.add(key)
+        while len(self._graphs) > self.max_graphs:
             _, old = self._graphs.popitem(last=False)
             for b in old.bufs.values():
                 self._static.pop(id(b), None)
@@ -409,13 +465,13 @@ class CapturedStep:
         for val in e.values:
             v = leaves[val.pos]
             val.scalar.fill_(v.item() if isinstance(v, torch.Tensor) else v)
-        _, (y_static, _) = e.graph.replay()
+        new_static, (y_static, _) = e.graph.replay()
         self.replays += 1
         for counter, k, n in e.launches:
             counter[k] += n
         new = list(e.host_out)
         for i, b in e.bufs.items():
-            new[i] = b
+            new[i] = new_static[i].clone() if i in e.reshaped else b
         for j, val in e.out_values.items():
             new[j] = val.advance(leaves[val.pos])
         y = [v.clone() if on_card else c

@@ -13,6 +13,8 @@ decoder and ``rtty_baudot2ascii_u8_u8`` take one stream, as csdr_tpu's.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -78,8 +80,8 @@ def psk31_varicode_decoder_u8_u8(bits: torch.Tensor, max_out: int | None = None,
     hit = torch.zeros(n, dtype=torch.bool, device=bits.device)
     for length, codes in _VC_GROUPS.items():
         # rolling window value ending at each bit, MSB = oldest
-        pw = torch.tensor([1 << (length - 1 - k) for k in range(length)],
-                          dtype=torch.int32, device=bits.device)
+        pw = 2 ** torch.arange(length - 1, -1, -1, dtype=torch.int32,
+                               device=bits.device)
         padded = torch.cat([bits.new_ones(length - 1), bits])
         win = (padded.unfold(0, length, 1) * pw).sum(1, dtype=torch.int32)
         for value, ascii_val in codes:
@@ -119,6 +121,15 @@ for _code, (_l, _f) in _BAUDOT_PAIRS.items():
     _BAUDOT_LETTERS[_code] = ord(_l) if isinstance(_l, str) else _l
     _BAUDOT_FIGURES[_code] = ord(_f) if isinstance(_f, str) else _f
 
+
+@functools.cache
+def _baudot_tables(device) -> tuple:
+    """The letters and figures tables on ``device``, uploaded once, so a
+    captured step reads them from the card."""
+    return (torch.from_numpy(_BAUDOT_LETTERS).to(device),
+            torch.from_numpy(_BAUDOT_FIGURES).to(device))
+
+
 # decoder states (reference libcsdr.h:243-248)
 _WAIT_STOP, _WAIT_START, _RECV = 0, 1, 2
 
@@ -136,8 +147,7 @@ def rtty_baudot_decoder(symbols: torch.Tensor, max_out: int | None = None,
     n = sym_all.shape[-1]
     dev = sym_all.device
     cap = max_out or n // 7 + 4
-    letters = torch.from_numpy(_BAUDOT_LETTERS).to(dev)
-    figures = torch.from_numpy(_BAUDOT_FIGURES).to(dev)
+    letters, figures = _baudot_tables(dev)
     if state is None:
         z = torch.zeros(sym_all.shape[:-1], dtype=torch.int32, device=dev)
         state = (z + _WAIT_STOP, z, z, z, z)
@@ -210,8 +220,7 @@ def rtty_baudot2ascii_u8_u8(codes: torch.Tensor, fig_mode=0):
     mode = torch.where(last_sel >= 0,
                        is_fig.to(torch.int32)[torch.clamp(last_sel, min=0)],
                        fig_mode)
-    letters = torch.from_numpy(_BAUDOT_LETTERS).to(dev)
-    figures = torch.from_numpy(_BAUDOT_FIGURES).to(dev)
+    letters, figures = _baudot_tables(dev)
     ch = torch.where(mode != 0, figures[c], letters[c])
     emit = ~sel & (ch != 0)
     data, count = _compact(emit, ch, n)
@@ -247,6 +256,16 @@ def duplicate_samples_ntimes_u8_u8(x: torch.Tensor, sample_size_bytes: int,
     return torch.repeat_interleave(g, ntimes, dim=0).reshape(-1)
 
 
+@functools.cache
+def _interp_rates(interpolation: int, device) -> torch.Tensor:
+    """rate_j of :func:`psk31_interpolate_sine_cc` on ``device``, uploaded
+    once, so a captured step reads them from the card."""
+    j = np.arange(interpolation, dtype=np.float64)
+    return torch.from_numpy(((1 + np.sin(-np.pi / 2 + np.pi * (j + 1)
+                                         / interpolation)) / 2
+                             ).astype(np.float32)).to(device)
+
+
 def psk31_interpolate_sine_cc(x: torch.Tensor, interpolation: int,
                               last_input: torch.Tensor | None = None):
     """Cosine-envelope symbol interpolation (reference libcsdr.c:1793-1808):
@@ -255,10 +274,7 @@ def psk31_interpolate_sine_cc(x: torch.Tensor, interpolation: int,
     returns (y (..., n*I), new_last)."""
     if last_input is None:
         last_input = x.new_zeros(x.shape[:-1])
-    j = np.arange(interpolation, dtype=np.float64)
-    rate = torch.from_numpy(((1 + np.sin(-np.pi / 2 + np.pi * (j + 1)
-                                          / interpolation)) / 2
-                             ).astype(np.float32)).to(x.device)
+    rate = _interp_rates(interpolation, x.device)
     prev = torch.cat([last_input[..., None], x[..., :-1]], -1)
     parts = []
     for cur, old in ((x.real, prev.real), (x.imag, prev.imag)):
@@ -276,8 +292,7 @@ def pack_bits_1to8_u8_u8(x: torch.Tensor) -> torch.Tensor:
 def pack_bits_8to1_u8_u8(bits: torch.Tensor) -> torch.Tensor:
     """8 bit-bytes -> 1 byte, first bit = MSB (reference libcsdr.c:1818-1827)."""
     g = (bits != 0).to(torch.int32).reshape(-1, 8)
-    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                     device=bits.device)
+    w = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
     return (g * w).sum(1).to(torch.uint8)
 
 

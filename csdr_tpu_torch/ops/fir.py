@@ -159,8 +159,7 @@ class ShiftedFirDecimateBlock(FirDecimateBlock):
         if n % self.decimation:
             raise ValueError(f"chunk size {n} must be a multiple of "
                              f"decimation {self.decimation}")
-        th, th_next = carried_value(theta, lambda t: self._th(t, n),
-                                    x.device)
+        th, th_next = carried_value(theta, lambda t: self._th(t, n))
         y = fir_cuda.shift_fir_decimate(
             tail, x.contiguous(), self.taps, self.decimation,
             n // self.decimation, self.rate, th, self.precision)
@@ -437,7 +436,7 @@ class RationalResamplerBlock(Block):
         self.pmat = _resampler_phase_matrix(taps_np, i_)
         self.tail_len = int(max(self.s + 1, -self._start(
             np.arange(1) - self.shift_out).min() + 1))
-        self._plans: dict[int, tuple] = {}
+        self._plans: dict[tuple, tuple] = {}   # (n, device) -> plan
 
     def _start(self, m):
         return (m * self.d_ + self.i_ - 1) // self.i_
@@ -467,14 +466,15 @@ class RationalResamplerBlock(Block):
 
     def forward(self, tail, x):
         n = x.shape[0]
-        if n not in self._plans:
-            self._plans[n] = self._plan(n)
-        starts, taps_sel, kmax, lw, pad, nout = self._plans[n]
+        if (n, x.device) not in self._plans:
+            starts, taps_sel, *rest = self._plan(n)
+            self._plans[n, x.device] = (starts, taps_sel.to(x.device), *rest)
+        starts, taps_sel, kmax, lw, pad, nout = self._plans[n, x.device]
         xcat = torch.cat([tail, x.float(), tail.new_zeros(pad)])
         segs = torch.stack([xcat[st: st + lw] for st in starts])   # (I, lw)
         frames = segs.unfold(1, self.s, self.d_)              # (I, kmax, S)
         with full_f32_matmul():
-            out = torch.matmul(frames, taps_sel.to(x.device)[:, :, None])
+            out = torch.matmul(frames, taps_sel[:, :, None])
         y = out[:, :, 0].T.reshape(-1)[:nout] * self.i_
         return xcat[n: n + self.tail_len].clone(), y
 

@@ -73,10 +73,28 @@ class _FracDecimatorBase(Block):
                                                                self.taps)
         return xcat, pre
 
-    def _carry(self, xcat, n, size, input_processed, new_where):
+    def _carry(self, xcat, n, occ, where):
         return (xcat[n: n + self.margin].clone(),
-                torch.tensor(size - input_processed, dtype=torch.int32),
-                torch.tensor(new_where, dtype=torch.float32))
+                torch.tensor(occ, dtype=torch.int32),
+                torch.tensor(where, dtype=torch.float32))
+
+    def host_step(self, occ: int, where, n: int):
+        """(count, occ', where') of an n-sample chunk from the host leaves
+        (occ, where): csdr_tpu's float32 bookkeeping, the samples unread."""
+        raise NotImplementedError
+
+    def key_cycle(self, n: int, most: int = 256) -> int | None:
+        """How many (occ, where) a stream of n-sample chunks reaches after
+        its first chunk before one comes again: the keys its captured step
+        goes round (core/graph); None if none comes again within ``most``
+        chunks."""
+        occ, where, seen = 0, np.float32(-self.xifirst), set()
+        for _ in range(most):
+            _, occ, where = self.host_step(occ, where, n)
+            if (occ, where) in seen:
+                return len(seen)
+            seen.add((occ, where))
+        return None
 
 
 class FractionalDecimatorBlock(_FracDecimatorBase):
@@ -90,6 +108,21 @@ class FractionalDecimatorBlock(_FracDecimatorBase):
         self.register_buffer("den",
                              torch.from_numpy(_lagrange_denominators(p)))
 
+    def host_step(self, occ: int, where, n: int):
+        rate32 = np.float32(self.rate)
+        cap = int(n / self.rate) + 2
+        # output count, host-side float32 as csdr_tpu computes it
+        wh = where + np.arange(cap, dtype=np.float32) * rate32
+        count = int(np.sum(np.ceil(wh).astype(np.int32) + self.p + self.t_len
+                           < occ + n))
+        # loop-exit carry (reference libcsdr.c:789-792), clamped >= 0
+        adv = np.float32(np.float32(count) * rate32)
+        ih_exit = int(np.ceil(np.float32(where + adv)))
+        input_processed = max((ih_exit - 1) + self.xifirst, 0)
+        new_where = np.float32(np.float32(where + adv)
+                               - np.float32(input_processed))
+        return count, occ + n - input_processed, new_where
+
     def forward(self, state, x):
         n = x.shape[0]
         rate32 = np.float32(self.rate)
@@ -98,15 +131,12 @@ class FractionalDecimatorBlock(_FracDecimatorBase):
         tail, occ, where = state
         occ, where = int(occ), np.float32(where)
         base = self.margin - occ
-        size = occ + n
         # the same static pad as csdr_tpu, so every read below is in range
         r_ceil = int(np.ceil(self.rate))
         cap_read = -(-cap // 128) * 128
         pad_extra = max(16, cap_read * r_ceil - n + p + t_len + r_ceil + 16)
         xcat, pre = self._xcat(tail, x, pad_extra)
-        # output count, host-side float32 as csdr_tpu computes it
-        wh = where + np.arange(cap, dtype=np.float32) * rate32
-        count = int(np.sum(np.ceil(wh).astype(np.int32) + p + t_len < size))
+        count, occ2, where2 = self.host_step(occ, where, n)
         dev = x.device
         if self.rate.is_integer():
             # integer rate: wh stays integral, the Lagrange weights are
@@ -131,14 +161,7 @@ class FractionalDecimatorBlock(_FracDecimatorBase):
             gidx = gidx.clamp(0, pre.shape[0] - 1)
             y = torch.sum(coeffs * pre[gidx], dim=1)
         y[count:] = 0.0
-        # loop-exit carry (reference libcsdr.c:789-792), clamped >= 0
-        adv = np.float32(np.float32(count) * rate32)
-        ih_exit = int(np.ceil(np.float32(where + adv)))
-        input_processed = max((ih_exit - 1) + xifirst, 0)
-        new_where = np.float32(np.float32(where + adv)
-                               - np.float32(input_processed))
-        return (self._carry(xcat, n, size, input_processed, new_where),
-                VarOut(y, count))
+        return self._carry(xcat, n, occ2, where2), VarOut(y, count)
 
 
 class RationalFractionalDecimatorBlock(_FracDecimatorBase):
@@ -173,18 +196,34 @@ class RationalFractionalDecimatorBlock(_FracDecimatorBase):
         self.g_grp = max(1, -(-128 // q_den))
         self.slab_len = (self.g_grp - 1) * num + max(offs) + p
 
-    def forward(self, state, x):
-        n = x.shape[0]
-        rate32 = np.float32(self.rate)
-        p, t_len, q, num = self.p, self.t_len, self.q_den, self.num
+    def _cap(self, n: int) -> int:
         # +q headroom: emission floors to whole den-classes, leaving up to
         # q-1 outputs buffered, which the next chunk must be able to drain
-        cap = int(n / self.rate) + q + 2
+        return int(n / self.rate) + self.q_den + 2
+
+    def host_step(self, occ: int, where, n: int):
+        q, cap = self.q_den, self._cap(n)
+        # validity: index_high + p + t_len < size, in whole den-classes
+        wh = where + np.arange(cap, dtype=np.float32) * np.float32(self.rate)
+        count_all = int(np.sum(np.ceil(wh).astype(np.int32) + self.p
+                               + self.t_len < occ + n))
+        count = (count_all // q) * q
+        # carry: count*rate = (count/den)*num is an exact integer
+        cnum = (count // q) * self.num
+        input_processed = max((int(np.round(where)) + cnum - 1)
+                              + self.xifirst, 0)
+        new_where = np.float32(np.float32(where + np.float32(cnum))
+                               - np.float32(input_processed))
+        return count, occ + n - input_processed, new_where
+
+    def forward(self, state, x):
+        n = x.shape[0]
+        p, t_len, q, num = self.p, self.t_len, self.q_den, self.num
+        cap = self._cap(n)
         rows = -(-cap // (self.g_grp * q))
         tail, occ, where = state
         occ, where = int(occ), np.float32(where)
         base = self.margin - occ
-        size = occ + n
         rd = self.g_grp * num
         n_slices = -(-self.slab_len // rd)
         ps_len = (n_slices - 1 + rows) * rd
@@ -200,19 +239,9 @@ class RationalFractionalDecimatorBlock(_FracDecimatorBase):
             frames = pre[s: s + (jn - 1) * num + p].unfold(0, p, num)
             ys.append(torch.sum(frames * coefs[qc], dim=1))
         y = torch.stack(ys, dim=1).reshape(-1)[:cap].clone()
-        # validity: index_high + p + t_len < size, in whole den-classes
-        wh = where + np.arange(cap, dtype=np.float32) * rate32
-        count_all = int(np.sum(np.ceil(wh).astype(np.int32) + p + t_len
-                               < size))
-        count = (count_all // q) * q
+        count, occ2, where2 = self.host_step(occ, where, n)
         y[count:] = 0.0
-        # carry: count*rate = (count/den)*num is an exact integer
-        cnum = (count // q) * num
-        input_processed = max((w_int + cnum - 1) + self.xifirst, 0)
-        new_where = np.float32(np.float32(where + np.float32(cnum))
-                               - np.float32(input_processed))
-        return (self._carry(xcat, n, size, input_processed, new_where),
-                VarOut(y, count))
+        return self._carry(xcat, n, occ2, where2), VarOut(y, count)
 
 
 def fractional_decimator_block(rate: float, num_poly_points: int = 12,

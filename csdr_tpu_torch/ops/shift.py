@@ -103,6 +103,25 @@ def _next_phase(phase, n: int, rate: float) -> torch.Tensor:
     return torch.tensor(np.float32(np.mod(p + pi, two_pi) - pi))
 
 
+def static_cycles(n: int, rate: float, device) -> torch.Tensor:
+    """frac(arange(n)*rate) from the host's float64 ramp, on ``device``."""
+    return torch.from_numpy(_frac_cycles_static(n, rate)).to(device)
+
+
+def traced_mix(x: torch.Tensor, rate: torch.Tensor, phase) -> torch.Tensor:
+    """``x`` mixed by a float32 tensor ``rate`` from ``phase``: the
+    traced-rate path's samples (:func:`shift_cc`)."""
+    return x * expj(phase + TWO_PI * _frac_cycles_dynamic(
+        x.shape[-1], rate, x.device))
+
+
+def traced_next_phase(phase: torch.Tensor, n: int,
+                      rate: torch.Tensor) -> torch.Tensor:
+    """The traced-rate path's phase after n samples, on the phase's and
+    the rate's device (the host for 0-dim CPU tensors)."""
+    return _advance_phase(phase, _frac_mul(n, rate, n + 1))
+
+
 def shift_cc(x: torch.Tensor, rate, phase=0.0):
     """Mix complex64 ``x`` by ``rate`` cycles/sample starting at ``phase``
     (radians); returns (y, next_phase).
@@ -116,10 +135,9 @@ def shift_cc(x: torch.Tensor, rate, phase=0.0):
     if not isinstance(rate, (int, float)):
         rate = torch.as_tensor(rate, dtype=torch.float32)
         phase = torch.as_tensor(phase, dtype=torch.float32)
-        y = x * expj(phase + TWO_PI * _frac_cycles_dynamic(n, rate,
-                                                           x.device))
-        return y, _advance_phase(phase, _frac_mul(n, rate, n + 1))
-    cycles = torch.from_numpy(_frac_cycles_static(n, rate)).to(x.device)
+        return (traced_mix(x, rate, phase),
+                traced_next_phase(phase, n, rate))
+    cycles = static_cycles(n, rate, x.device)
     # a 0-dim CPU phase enters a CUDA op as a scalar: no copy, no sync
     y = x * expj(torch.as_tensor(phase, dtype=torch.float32)
                  + TWO_PI * cycles)
@@ -155,7 +173,7 @@ class ShiftBlock(Block):
             self._cycles[key] = torch.from_numpy(
                 _frac_cycles_static(n, self.rate)).to(x.device)
         ph, ph_next = carried_value(
-            phase, lambda p: _next_phase(p, n, self.rate), x.device)
+            phase, lambda p: _next_phase(p, n, self.rate))
         y = x * expj(ph + TWO_PI * self._cycles[key])
         return ph_next, y
 
@@ -165,7 +183,7 @@ def shift_block(rate: float, name: str = "shift_cc") -> Block:
 
 
 def decimating_shift_cc(x: torch.Tensor, rate, decimation: int, phase=0.0,
-                        start_offset=0):
+                        start_offset=0, cycles=None):
     """Fused shift and decimate (reference libcsdr_gpl.c:126-160
     decimating_shift_addition_cc; csdr_tpu/ops/shift.py:119-157): every
     ``decimation``-th sample from ``start_offset`` on, rotated by an NCO
@@ -177,7 +195,9 @@ def decimating_shift_cc(x: torch.Tensor, rate, decimation: int, phase=0.0,
     0-dim tensor on x's device, next_offset ``start_offset +
     decimation*count - n`` likewise, and next_phase a float32 tensor
     there.  ``start_offset`` may be an int or such a tensor, so a stream
-    of calls never waits on the device."""
+    of calls never waits on the device.  ``cycles``: a Python rate's ramp
+    of ceil(n/decimation) on x's device (:func:`static_cycles`), uploaded
+    once by a streaming caller whose step is captured."""
     n_in, d = x.shape[0], int(decimation)
     cap = (n_in + d - 1) // d
     dev = x.device
@@ -187,7 +207,8 @@ def decimating_shift_cc(x: torch.Tensor, rate, decimation: int, phase=0.0,
     taken = torch.where(valid, x[idx.clamp(max=max(n_in - 1, 0)).long()],
                         0) if n_in else x.new_zeros(cap)
     if isinstance(rate, (int, float)):
-        cycles = torch.from_numpy(_frac_cycles_static(cap, rate)).to(dev)
+        if cycles is None:
+            cycles = static_cycles(cap, rate, dev)
     else:
         cycles = _frac_mul(torch.arange(cap, dtype=torch.int32, device=dev),
                            rate, cap)

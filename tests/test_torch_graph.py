@@ -81,12 +81,12 @@ def _same(a, b, what):
             assert u == v, f"{what}: leaf {i}: {u} != {v}"
 
 
-def _rehearse(block, xs, like=None):
-    """The block eagerly and through its rehearsed capture over the
-    chunks ``xs`` from one state: every output and state bit for bit.
-    Returns the rehearsal."""
+def _rehearse(block, xs, like=None, graphs=MAX_GRAPHS):
+    """The block eagerly and through its rehearsed capture (bounded at
+    ``graphs``) over the chunks ``xs`` from one state: every output and
+    state bit for bit.  Returns the rehearsal."""
     like = block.init("meta") if like is None else like
-    step = Rehearsal(block, like)
+    step = Rehearsal(block, like, graphs)
     se, sg = block.init("cpu"), block.init("cpu")
     with torch.no_grad():
         for c, x in enumerate(xs):
@@ -232,19 +232,45 @@ def test_shift_block_rehearsed():
     (4.8, {}),                                   # rational 24/5
     (5.3, {"rational": False}),                  # the generic path
     (3.7, {"taps": np.hanning(9).astype(np.float32)}),
+    (5.0, {"chunk": 1 << 16}),                   # the CLI's chunk
 ])
 def test_fractional_decimator_rehearsed(rate, kw):
     """occ and where are key leaves: each capture's count and next leaves
     are handed back on the replays of its key.  An integer or rational
     rate settles on a key; a generic rate's ``where`` never repeats, so
-    each chunk is a key of its own (captured, within MAX_GRAPHS)."""
+    each chunk is a key of its own (captured, within MAX_GRAPHS).  At the
+    CLI's 65 536-sample chunk rate 5 goes round 5 keys after its first
+    chunk's, one more than MAX_GRAPHS: a step bounded at its key cycle
+    (as the CLI's pump bounds it) captures each once, none after the
+    first lap."""
+    kw = dict(kw)
+    n = kw.pop("chunk", 1200)
     blk = resamp.fractional_decimator_block(rate, **kw)
-    xs = _chunks(_noise(10 * 1200, 3, real=True), 1200)
-    step = _rehearse(blk, xs)
+    xs = _chunks(_noise(10 * n, 3, real=True), n)
+    cycle = blk.key_cycle(n) if n != 1200 else None
+    step = _rehearse(blk, xs, graphs=max(MAX_GRAPHS, cycle or 0))
     assert step.captures + step.replays == 10
-    assert len(step._graphs) <= MAX_GRAPHS
-    if rate in (5.0, 4.8):
+    assert len(step._graphs) <= step.max_graphs
+    if cycle is not None:
+        assert cycle == 5 > MAX_GRAPHS
+        assert step.captures == 1 + cycle and step.recaptures == 0
+    elif rate in (5.0, 4.8):
         assert step.captures <= 2
+
+
+def test_paired_encoder_rehearsed():
+    """The paired ADPCM encoder (W1's last block) over chunks of odd
+    length: its carry, a state leaf on the card, is 0 or 1 samples by
+    turns.  The carry's shape is part of the key, and a leaf whose shape
+    the step changes goes out as an output, not into a buffer: two keys,
+    bytes and state bit for bit."""
+    from csdr_tpu_torch.ops import adpcm
+
+    rng = np.random.default_rng(11)
+    x = rng.integers(-3000, 3000, 8 * 333).astype(np.int16)
+    step = _rehearse(adpcm.paired_encode_block(), _chunks(x, 333))
+    assert step.captures == 2 and step.replays == 6
+    assert all(e.reshaped == {0} for e in step._graphs.values())
 
 
 @pytest.mark.parametrize("method", ["chunked", "scan"])

@@ -2302,3 +2302,46 @@ def test_cuda_capture_survives_a_graph_freed_in_another_thread(cuda):
         assert torch.equal(y, x * 3) and s.item() == k + 1
     assert step.captures == 1 and step.replays == 2
     assert seen == [False] and not held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [["fir_decimate_cc", "10", "0.05",
+                                   "HAMMING"],
+                                  ["shift_addition_cc", "-0.123456789"]])
+def test_cuda_cli_command_captured_against_uncaptured(cuda, argv,
+                                                     monkeypatch):
+    """A CLI command in process on the card, its pump's step captured (one
+    CUDA graph a key, replayed; cli.STEP's default) and uncaptured (the
+    block itself): the same bytes bit for bit over 6 chunks and a tail;
+    one capture for the chunk's key and one for the tail's, replays on
+    the rest.  The shift's phase moves every chunk, a value leaf."""
+    import io
+    import sys
+
+    from csdr_tpu_torch import cli
+
+    rng = np.random.default_rng(40)
+    x = (rng.standard_normal(6 * 8192 + 99)
+         + 1j * rng.standard_normal(6 * 8192 + 99)).astype(np.complex64)
+    monkeypatch.setenv("CSDR_FIXED_BUFSIZE", "8192")
+
+    def run(step):
+        monkeypatch.setattr(cli, "STEP", step)
+        out = io.BytesIO()
+        saved = sys.stdin, sys.stdout
+        sys.stdin = io.TextIOWrapper(io.BytesIO(x.tobytes()))
+        sys.stdout = io.TextIOWrapper(out, write_through=True)
+        try:
+            rc = cli.main(["csdr_tpu_torch", *argv, "--device", "cuda"])
+            sys.stdout.flush()
+            data = out.getvalue()
+        finally:
+            sys.stdin, sys.stdout = saved
+        assert rc in (0, None)
+        return data, cli.STEPS[-1]
+
+    graph, row = run(cli.CapturedStep)
+    eager, row_e = run(lambda block, graphs: block)
+    assert len(graph) > 0 and graph == eager
+    assert row["captured"] and not row_e["captured"]
+    assert (row["captures"], row["replays"], row["recaptures"]) == (2, 5, 0)

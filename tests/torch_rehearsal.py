@@ -8,7 +8,7 @@ scalars each call fills, as a CUDA graph replays its capture."""
 import torch
 from torch.utils import _pytree as pytree
 
-from csdr_tpu_torch.core.graph import CapturedStep
+from csdr_tpu_torch.core.graph import MAX_GRAPHS, CapturedStep
 
 
 class _Replayed:
@@ -26,10 +26,11 @@ class _Replayed:
 class Rehearsal(CapturedStep):
     """CapturedStep on CPU tensors with the stand-in graph.  ``like`` is
     the step's state from ``init("meta")``: its leaves on the meta device
-    are the ones on the card, the rest the host leaves."""
+    are the ones on the card, the rest the host leaves; ``max_graphs`` the
+    step's bound, as a CapturedStep's."""
 
-    def __init__(self, fn, like):
-        super().__init__(fn)
+    def __init__(self, fn, like, max_graphs=MAX_GRAPHS):
+        super().__init__(fn, max_graphs)
         self.mask = [not (isinstance(v, torch.Tensor)
                           and v.device.type == "meta")
                      for v in pytree.tree_leaves(like)]
