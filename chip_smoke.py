@@ -41,7 +41,17 @@ prints one JSON line per phase and exits non-zero at the first failure:
    ring's, and early-late at loop gain 1 (corrections up to a symbol, the
    left pick stepping back) through the ring, each bit for bit against
    scan_plain; the probe chain that bounds it (a slot's picks from shared
-   memory and its arithmetic) in SM cycles.
+   memory and its arithmetic) in SM cycles.  Then csdr_tpu's last scans
+   (csrc/carrier.cu, csrc/baudot.cu, one warp a row, one thread on the
+   recurrence): the PLL, P and PI, on 3 rows of 4096 samples of a tone and
+   the RTTY Baudot decoder on 6 rows of 4096 framed symbols (2 rows from
+   carried states the stream never makes, a cap that drops characters)
+   against their plain versions on the card, bit for bit (the PLL: or the
+   first differing sample and the SNR at SWEEP_BAR); each chain's probe
+   (the step on one thread from shared memory, its last state the
+   kernel's) in SM cycles; and each at the CLI's 65 536-sample chunk
+   against the plain version on the CPU host (the PLL at SWEEP_BAR, the
+   decoder bit for bit), its time beside its chain bound.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -117,9 +127,23 @@ prints one JSON line per phase and exits non-zero at the first failure:
    >= 100 dB against the bank's mean channel power); the card's modem on
    the CPU's channel streams gives the CPU's bits, counts and TED symbols
    bit for bit; the card's bits equal the CPU's within 2 errors a
-   channel after alignment.  Then the Costas loop (use_costas=True) on
-   4096 samples of G's BPSK31 streams, card against CPU at csdr_tpu's
-   bars (32 dB over the first 256 samples, 28 dB over all).
+   channel after alignment.  Then the Costas kernel against costas_plain
+   on the card on 4096 samples of G's 8 BPSK31 streams, in both error
+   modes and with the clamp's reset form, bit for bit or the first
+   differing sample and the SNR at csdr_tpu's bars (COSTAS_BARS: 32 dB
+   over the first 256 samples, 28 dB over all), with its chain probe;
+   G_c BASELINE config 5 as BASELINE.md names it, "Costas/Gardner":
+      build_ddc_bpsk31_bank(64 rates, 50, 256, use_costas=True) on G's
+      input, 3 chunks of 3200 frames (64 rows x 57 344 channel samples),
+      captured and eager bit for bit, K3 forward, the TED and the Costas
+      kernel once a chunk, BER < 0.02 on each BPSK31 channel, its bits
+      within 2 errors of the CPU bank's over the first 2 chunks on each
+      BPSK31 channel, the Costas kernel on the first chunk's CPU streams
+      against costas_plain on the CPU at COSTAS_BARS on the BPSK31
+      channels and |y| = |x| on every channel (the loop does not lock to
+      noise: off the transmissions card and CPU part, reported), its lint,
+      and its step's cost eager and captured (ms as issued and device-only,
+      busy share, Msps).
    Each bank's first chunk of channel streams, card and CPU, is also held
    against a float64 numpy channelizer on the same matrices and NCO
    phases, per channel ("quiet_channels": the channels without a carrier).
@@ -271,7 +295,11 @@ prints one JSON line per phase and exits non-zero at the first failure:
        fft_natural), fastddc_fwd_cc 16 then fastddc_inv_cc 0.1 16 (K4),
        the ADPCM codec both ways, agc_ff 200 0.2 0.01 0.0001 65536 5 (an
        attack wait: the exact scan's kernel once a chunk, the bytes bit
-       for bit --device cpu's); each command's step on its first chunk
+       for bit --device cpu's), bpsk_costas_loop_cc 0.01, pll_cc 2 0.01
+       and rtty_line_decoder_u8_u8 over a chunk and a tail (each its
+       kernel once a chunk; the RTTY bytes bit for bit, the PLL at
+       SWEEP_BAR, the Costas loop at its first-256 bar with |y| = |x|);
+       each command's step on its first chunk
        eager and captured (chunk_cost: issued and device-only ms, busy
        share, host CUDA calls, the host clock a chunk); live --fd
        retunes, captured: shift_addition_cc (at most one capture) and
@@ -353,7 +381,7 @@ PROBE_SOURCE = "csdr_tpu_torch/csrc/roofline_probe.cu"
 # the same pipelines on the CPU)
 LINT_ALLOW = {"WFM": ("per-tap-fir",), "A": (), "B": (), "C": (),
               "D": ("per-tap-fir",), "E": (), "F": (),
-              "G": (), "G'": (), "S": (), "W": (),
+              "G": (), "G'": (), "G_c": (), "S": (), "W": (),
               "W1": ("per-tap-fir",)}
 # the measure phase's state: its seconds (summed over its parts, which
 # run where their inputs are), the published and measured peaks, and the
@@ -1214,19 +1242,21 @@ def phase_throughput(torch, x, wall, chunks):
 # the fastddc channelizer (paths A, A', B) and the SSB receiver (path C)
 # ---------------------------------------------------------------------------
 
+def _counted_modules() -> tuple:
+    from csdr_tpu_torch.kernels import (adpcm_cuda, agc_cuda, baudot_cuda,
+                                        carrier_cuda, fastddc_cuda, fft_cuda,
+                                        fir_cuda, ted_cuda)
+    return (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda, ted_cuda, agc_cuda,
+            carrier_cuda, baudot_cuda)
+
+
 def reset_all() -> None:
-    from csdr_tpu_torch.kernels import (adpcm_cuda, agc_cuda, fastddc_cuda,
-                                        fft_cuda, fir_cuda, ted_cuda)
-    for mod in (fir_cuda, fft_cuda, fastddc_cuda, adpcm_cuda, ted_cuda,
-                agc_cuda):
+    for mod in _counted_modules():
         mod.reset_launches()
 
 
 def launches_all() -> dict:
-    from csdr_tpu_torch.kernels import (adpcm_cuda, agc_cuda, fastddc_cuda,
-                                        fft_cuda, fir_cuda, ted_cuda)
-    return {**fir_cuda.LAUNCHES, **fft_cuda.LAUNCHES, **fastddc_cuda.LAUNCHES,
-            **adpcm_cuda.LAUNCHES, **ted_cuda.LAUNCHES, **agc_cuda.LAUNCHES}
+    return {k: v for mod in _counted_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
@@ -2126,8 +2156,9 @@ def agc_exact_case(torch, name: str, x: np.ndarray, kw: dict,
     n = len(x)
     nbytes = 8 * n + 2 * 16
     flops = AGC_EXACT_FLOPS * n
-    t_bytes = least_ms(torch, nbytes, flops)[0]
-    t_chain = n * cycles / SM_CLOCK_HZ * 1e3
+    bound = scan_bound(torch, n, 1, cycles, nbytes, flops,
+                       "a sample of agc_ff's shortest chain from shared "
+                       "memory on one thread, probed")
     row = {
         "name": "agc_ff_scan", "route": "cuda", "source": AGC_EXACT_SOURCE,
         "replaces": "csdr_tpu/ops/agc.py:171 (lax.scan; no Pallas kernel)",
@@ -2136,21 +2167,15 @@ def agc_exact_case(torch, name: str, x: np.ndarray, kw: dict,
                   "attack_wait_time": kw.get("attack_wait_time", 0)},
         "bit_exact": True, "max_abs_err": 0.0,
         "nan_outputs": int(torch.isnan(got[0]).sum()),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_chain),
-        "bound_by": "bytes" if t_bytes >= t_chain else "operations",
-        "bound_note": (f"dependent chain: {n} samples x {cycles:.2f} SM "
-                       f"cycles (a sample of agc_ff's shortest chain from "
-                       f"shared memory on one thread, probed) at "
-                       f"{SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "ms": ms, "plain_ms": plain_ms, **bound,
         "cycles_a_sample": ms * 1e-3 * SM_CLOCK_HZ / n,
-        "library_ms": None, "bytes": nbytes, "flops": flops,
+        "library_ms": None,
     }
     if name == "cli_chunk":
         row.update(path="X' agc_ff", **roofline_row(
             torch, "agc_ff_scan",
             lambda v, st: agc_cuda.scan(v, *st, **params)[0], a, dstate,
-            nbytes, flops, ms, ops_s=t_chain / 1e3))
+            nbytes, flops, ms, ops_s=bound["chain_ms"] / 1e3))
     return row
 
 
@@ -2336,9 +2361,9 @@ def ted_case(torch, name: str, rows: int, n: int, nsb: int, segs: int,
     nbytes = lanes * (slots * 3 * 8 + cap * (24 + 4 + 4 + 1) + 4 * (
         4 if segs > 1 else 2) + 8)
     flops = lanes * slots * TED_FLOPS
-    t_bytes = least_ms(torch, nbytes, flops)[0]
-    t_chain = slots * chains["slot_cycles"] / SM_CLOCK_HZ * 1e3
-    bound = max(t_bytes, t_chain)
+    bound = scan_bound(torch, slots, 1, chains["slot_cycles"], nbytes, flops,
+                       "an alive slot's dependent shared-memory load and "
+                       "arithmetic, probed; the lanes side by side")
     row = {
         "name": key, "route": "cuda", "source": TED_SOURCE,
         "replaces": "csdr_tpu/ops/sync.py:374, 397 (lax.scan; no Pallas "
@@ -2353,19 +2378,13 @@ def ted_case(torch, name: str, rows: int, n: int, nsb: int, segs: int,
         "bit_exact": True, "max_abs_err": 0.0,
         "emitted": int(got[5].sum()),
         "ms": ms, "plain_ms": plain_ms,
-        "share_of_bound": bound / ms,
-        "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= t_chain else "operations",
-        "bound_note": (f"serial chain: {slots} alive slots x "
-                       f"{chains['slot_cycles']:.1f} SM cycles (a slot's "
-                       f"dependent shared-memory load and arithmetic, "
-                       f"probed) at {SM_CLOCK_HZ / 1e6:.0f} MHz"),
+        "share_of_bound": bound["bound_ms"] / ms, **bound,
         "cycles_a_slot": ms * 1e-3 * SM_CLOCK_HZ / slots,
-        "library_ms": None, "bytes": nbytes,
+        "library_ms": None,
     }
     if key == "ted_scan" and not early_late:
         row.update(roofline_row(torch, "ted_scan", kern, planes, aux, nbytes,
-                                flops, ms, ops_s=t_chain / 1e3))
+                                flops, ms, ops_s=bound["chain_ms"] / 1e3))
     return row
 
 
@@ -2409,6 +2428,312 @@ def phase_ted_kernels(torch) -> list:
          "corrections up to a symbol, the left pick below the slot "
          "before's (not on a gated path)", **el)
     return [serial]
+
+
+# ---------------------------------------------------------------------------
+# the carrier loops (csrc/carrier.cu) and the RTTY Baudot decoder
+# (csrc/baudot.cu): csdr_tpu's last three scans
+# ---------------------------------------------------------------------------
+
+CARRIER_SOURCE = "csdr_tpu_torch/csrc/carrier.cu"
+BAUDOT_SOURCE = "csdr_tpu_torch/csrc/baudot.cu"
+# float operations a sample (the transcendentals aside): the Costas
+# loop's rotation, error, filter, clamp and phase wrap; the PLL's wraps,
+# filter and negation; the Baudot machine runs integer operations only
+COSTAS_FLOPS = 16
+PLL_FLOPS = 12
+
+
+def scan_tone(n: int, seed: int) -> np.ndarray:
+    """The PLL's input: a unit tone 0.002 cycles a sample off the carrier
+    (tests/test_torch_sync.py's) in complex noise of 0.01 a part."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    return (np.exp(1j * (2 * np.pi * 0.002 * k + 1.0)) + 0.01 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def scan_bpsk(n: int, seed: int) -> np.ndarray:
+    """The Costas loop's CLI input: BPSK at 32 samples a symbol 0.001
+    cycles a sample off the carrier (csdr_tpu's test_digital.py input), in
+    complex noise of 0.01 a part: the loop locks."""
+    rng = np.random.default_rng(seed)
+    bb = np.repeat(rng.integers(0, 2, n // 32 + 1) * 2.0 - 1.0, 32)[:n]
+    k = np.arange(n)
+    return (bb * np.exp(1j * (2 * np.pi * 0.001 * k + 0.3)) + 0.01 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+def rtty_symbols(n: int, seed: int) -> np.ndarray:
+    """RTTY bit symbols: characters (a start bit 0, five data bits, two
+    stop bits 1) with idle gaps of 1 to 3 ones, mode selects among them,
+    n bytes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        out += [1] * int(rng.integers(1, 4))
+        out += [0] + list(rng.integers(0, 2, 5)) + [1, 1]
+    return np.asarray(out[:n], np.uint8)
+
+
+def scan_compare(got, want) -> dict:
+    """Two (rows, n) outputs (complex64, float32 or integer): bit for bit
+    (a NaN compared by its place), or the first differing sample (the
+    least sample index over the rows, and its row) and the least SNR over
+    the rows."""
+    g, w = np.asarray(got), np.asarray(want)
+    g2, w2 = np.atleast_2d(g), np.atleast_2d(w)
+    if g2.dtype.kind in "fc":
+        gf = g2.view(np.float32).reshape(len(g2), -1, 1 + (g2.dtype.kind
+                                                            == "c"))
+        wf = w2.view(np.float32).reshape(gf.shape)
+        nan = np.isnan(gf) & np.isnan(wf)
+        diff = ((gf.view(np.uint32) != wf.view(np.uint32)) & ~nan).any(-1)
+    else:
+        diff = g2 != w2
+    if not diff.any():
+        return {"bit_for_bit": True, "first_diff": None,
+                "snr_db_min": float("inf")}
+    firsts = [int(np.argmax(d)) if d.any() else None for d in diff]
+    row = min((k for k, f in enumerate(firsts) if f is not None),
+              key=lambda k: firsts[k])
+    return {"bit_for_bit": False,
+            "first_diff": {"row": row, "sample": firsts[row],
+                           "rows_differing": int(diff.any(1).sum())},
+            "snr_db_min": float(np.min(channel_snrs(w2, g2)))}
+
+
+def scan_bound(torch, n: int, rows: int, cycles: float, nbytes: float,
+               flops: float, what: str = "a step of the function's shortest "
+               "chain on one thread from shared memory, probed") -> dict:
+    """A scan kernel's bound: a row's n steps x the probe's SM cycles a
+    step at the top SM clock (rows up to the card's SMs run side by side),
+    or the bytes if longer; ``what`` says what the probe timed."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = least_ms(torch, nbytes, flops)[0]
+    t_chain = -(-rows // sms) * n * cycles / SM_CLOCK_HZ * 1e3
+    side = f"; {rows} rows side by side" if rows > 1 else ""
+    return {"bound_ms": max(t_bytes, t_chain),
+            "bound_by": "bytes" if t_bytes >= t_chain else "operations",
+            "bound_note": (f"dependent chain: {n} steps x {cycles:.2f} SM "
+                           f"cycles ({what}) at {SM_CLOCK_HZ / 1e6:.0f} MHz"
+                           f"{side}"),
+            "chain_ms": t_chain, "bytes": nbytes, "flops": flops}
+
+
+def host_once(fn) -> tuple:
+    """(fn(), its host-clock ms): one call of a plain version on the CPU."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def card_vs_plain(torch, name: str, kern, plain, outs, bar: float,
+                  first_bar: float | None = None) -> dict:
+    """``kern()`` (one launch) against ``plain()`` on the card, output by
+    output (``outs`` names them): bit for bit, or each output's first
+    differing sample and least SNR over its rows at ``bar`` dB (and at
+    ``first_bar`` over the first 256 samples).  Returns the comparison
+    and the plain version's ms (one call, CUDA events)."""
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    got = kern()
+    box = {}
+    plain_ms = time_cuda(lambda: box.setdefault("p", plain()), iters=1,
+                         warmup=0, repeats=1)
+    torch.cuda.synchronize()
+    cmp = {}
+    for k, a, b in zip(outs, got, box["p"]):
+        c = scan_compare(a.cpu().numpy(), b.cpu().numpy())
+        if not c["bit_for_bit"] and first_bar is not None:
+            c["snr_db_min_first_256"] = scan_compare(
+                a[..., :256].cpu().numpy(),
+                b[..., :256].cpu().numpy())["snr_db_min"]
+        require(c["bit_for_bit"] or (c["snr_db_min"] >= bar and (
+            first_bar is None or c["snr_db_min_first_256"] >= first_bar)),
+            f"{name}: the kernel's {k} against the plain version on the "
+            f"card: {c} (bars {first_bar}, {bar} dB)")
+        cmp[k] = c
+    return {"card_vs_plain": cmp,
+            "bit_for_bit": all(c["bit_for_bit"] for c in cmp.values()),
+            "plain_ms": plain_ms, "plain_on": "card"}
+
+
+def scan_case_line(torch, name: str, source: str, replaces: str, ms: float,
+                   bound: dict, launches: int, **fields) -> None:
+    """A kernel-against-plain case's line: its time beside its bound."""
+    emit("kernels", name=name, route="cuda", source=source,
+         replaces=replaces, ms=ms, **bound,
+         share_of_bound=bound["bound_ms"] / ms, launches=launches, **fields)
+
+
+def phase_scan_kernels(torch) -> list:
+    """The PLL's and the Baudot decoder's kernels against their plain
+    versions: on the card on 4096 samples (the PLL P and PI, 3 rows of the
+    tone; the Baudot decoder on 6 rows of framed symbols, 2 of them from
+    carried states the stream never makes, and at a cap that drops
+    characters), bit for bit or (the PLL) the first differing sample and
+    the least SNR at SWEEP_BAR; each chain's probe; then each at the
+    CLI's shape (a 65 536-sample chunk, X''s) against the plain version on
+    the CPU host (the PLL at SWEEP_BAR, the Baudot decoder bit for bit),
+    its time beside its chain bound.  Returns those two rows."""
+    from csdr_tpu_torch.kernels import baudot_cuda, carrier_cuda
+    from csdr_tpu_torch.ops import digital, sync
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev = torch.device("cuda")
+    tables = digital._baudot_tables(dev)
+    replaces_pll = "csdr_tpu/ops/sync.py:67 (lax.scan; no Pallas kernel)"
+    replaces_baudot = ("csdr_tpu/ops/digital.py:182 (lax.scan; no Pallas "
+                       "kernel)")
+    tone = scan_tone(XP_SCANS, 150)
+    cycles = {}
+    for mode, (alpha, beta) in (("PI", sync.pll_loop_params(0.01)),
+                                ("P", (0.01, None))):
+        probe_in = torch.from_numpy(tone[:carrier_cuda.PROBE_MAX]).to(dev)
+        cycles[mode] = min(carrier_cuda.pll_cycles(probe_in, alpha, beta)
+                           for _ in range(3))
+        require(cycles[mode] > 8.0, f"pll chain probe: {cycles[mode]} cycles")
+        emit("kernels", name="pll_chain_probe", mode=mode, check="SM cycles "
+             "a sample of the PLL's shortest chain (its wraps as an add and "
+             "a select of the step's picks, and the loop filter) on one "
+             "thread from shared memory, its last state the kernel's "
+             "(csrc/carrier.cu), the PLL's bound",
+             cycles_a_sample=cycles[mode], samples=carrier_cuda.PROBE_MAX)
+        rows = torch.from_numpy(np.stack([scan_tone(COSTAS_SAMPLES, s)
+                                          for s in (151, 152, 153)])).to(dev)
+        n0 = carrier_cuda.LAUNCHES["pll_scan"]
+        got = card_vs_plain(
+            torch, f"pll {mode}",
+            lambda: carrier_cuda.pll(rows, alpha, beta)[:2],
+            lambda: carrier_cuda.pll_plain(rows, alpha, beta)[:2],
+            ("dphase", "nco"), SWEEP_BAR)
+        require(carrier_cuda.LAUNCHES["pll_scan"] == n0 + 1,
+                f"pll {mode}: not one launch")
+        ms = time_cuda(lambda: carrier_cuda.pll(rows, alpha, beta),
+                       iters=10, queue_ahead_ms=20.0)
+        scan_case_line(torch, "pll_scan", CARRIER_SOURCE, replaces_pll, ms,
+                       scan_bound(torch, COSTAS_SAMPLES, 3, cycles[mode],
+                                  3 * COSTAS_SAMPLES * 20 + 72,
+                                  3 * COSTAS_SAMPLES * PLL_FLOPS),
+                       1, check=f"the PLL ({mode}) against pll_plain on "
+                       "the card (not on a gated path)",
+                       shape={"rows": 3, "samples": COSTAS_SAMPLES},
+                       **got)
+    sym = rtty_symbols(XP_SCANS, 154)
+    probe_sym = torch.from_numpy(sym[:baudot_cuda.PROBE_MAX]).to(dev)
+    cycles["baudot"] = min(baudot_cuda.chain_cycles(probe_sym, *tables)
+                           for _ in range(3))
+    require(cycles["baudot"] > 2.0, f"baudot chain probe: "
+                                    f"{cycles['baudot']} cycles")
+    emit("kernels", name="baudot_chain_probe", check="SM cycles a symbol of "
+         "the Baudot machine's shortest chain (the transition, branch-free; "
+         "the table read and the emit off it) on one thread from shared "
+         "memory, its last state and characters the kernel's "
+         "(csrc/baudot.cu), the "
+         "decoder's bound", cycles_a_symbol=cycles["baudot"],
+         symbols=baudot_cuda.PROBE_MAX)
+    rows = np.stack([rtty_symbols(COSTAS_SAMPLES, s) for s in range(155,
+                                                                      161)])
+    rows[5] = np.random.default_rng(161).integers(0, 3, COSTAS_SAMPLES) * 5
+    rb = torch.from_numpy(rows).to(dev)
+    carried = tuple(torch.tensor(v, dtype=torch.int32, device=dev) for v in (
+        [0, 1, 2, 0, -1, 7], [0, 0, 1, 0, 5, 0], [0, 3, 27, 31, -9, 1 << 20],
+        [0, 0, 4, 0, -1, (1 << 31) - 1], [0, 1, 0, 1, -3, 0]))
+    for cap in (COSTAS_SAMPLES // 7 + 4, 40):
+        n0 = baudot_cuda.LAUNCHES["baudot_scan"]
+        got = card_vs_plain(
+            torch, f"baudot cap {cap}",
+            lambda: baudot_cuda.decode(rb, cap, carried, *tables)[:2],
+            lambda: baudot_cuda.decode_plain(rb, cap, carried, *tables)[:2],
+            ("chars", "count"), 0.0)
+        require(got["bit_for_bit"], f"baudot cap {cap}: not bit for bit")
+        require(baudot_cuda.LAUNCHES["baudot_scan"] == n0 + 1,
+                f"baudot cap {cap}: not one launch")
+        ms = time_cuda(lambda: baudot_cuda.decode(rb, cap, carried, *tables),
+                       iters=10, queue_ahead_ms=20.0)
+        scan_case_line(torch, "baudot_scan", BAUDOT_SOURCE, replaces_baudot,
+                       ms, scan_bound(torch, COSTAS_SAMPLES, 6,
+                                      cycles["baudot"],
+                                      6 * (COSTAS_SAMPLES + cap + 44), 0),
+                       1, check=f"the Baudot decoder against decode_plain "
+                       f"on the card, cap {cap} (not on a gated path)",
+                       shape={"rows": 6, "symbols": COSTAS_SAMPLES,
+                              "cap": cap}, **got)
+
+    # the CLI's shape: one 65 536-sample chunk, kernel on the card against
+    # the plain version on the CPU host (the table's rows)
+    out_rows = []
+    alpha, beta = sync.pll_loop_params(0.01)
+    x = torch.from_numpy(tone[:X_CHUNK])
+    xd = x.to(dev)
+    st = tuple(torch.zeros((), device=dev) for _ in range(3))
+    got = carrier_cuda.pll(xd, alpha, beta, st)
+    want, plain_ms = host_once(lambda: carrier_cuda.pll(x, alpha, beta))
+    torch.cuda.synchronize()
+    dph = scan_compare(got[0].cpu().numpy(), want[0].numpy())
+    nco = scan_compare(got[1].cpu().numpy(), want[1].numpy())
+    require(min(dph["snr_db_min"], nco["snr_db_min"]) >= SWEEP_BAR,
+            f"pll at the CLI's chunk: card against the CPU {dph}, {nco}")
+    ms = time_cuda(lambda: carrier_cuda.pll(xd, alpha, beta, st), iters=10,
+                   queue_ahead_ms=20.0)
+    nbytes, flops = X_CHUNK * 20 + 24, X_CHUNK * PLL_FLOPS
+    bound = scan_bound(torch, X_CHUNK, 1, cycles["PI"], nbytes, flops)
+    row = {"name": "pll_scan", "route": "cuda", "source": CARRIER_SOURCE,
+           "replaces": replaces_pll, "path": "X' pll_cc",
+           "shape": {"rows": 1, "samples": X_CHUNK, "controller": "PI",
+                     "command": " ".join(PLL_CLI)},
+           "max_abs_err": float(max(
+               np.max(np.abs(got[0].cpu().numpy() - want[0].numpy())),
+               np.max(np.abs(got[1].cpu().numpy() - want[1].numpy())))),
+           "card_vs_cpu": {"dphase": dph, "nco": nco, "bar_db": SWEEP_BAR},
+           "ms": ms, "plain_ms": plain_ms, "plain_on": "cpu",
+           "library_ms": None, "cycles_a_sample": ms * 1e-3 * SM_CLOCK_HZ
+           / X_CHUNK, **bound}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row.update(roofline_row(torch, "pll_scan",
+                            lambda v, s: carrier_cuda.pll(v, alpha, beta,
+                                                          s)[0],
+                            xd, st, nbytes, flops, ms,
+                            ops_s=bound["chain_ms"] / 1e3))
+    emit("kernels", **row)
+    out_rows.append(row)
+
+    s = torch.from_numpy(sym[:X_CHUNK])
+    sd = s.to(dev)
+    cap = X_CHUNK // 7 + 4
+    zero = baudot_cuda.zero_state((), dev)
+    got = baudot_cuda.decode(sd, cap, zero, *tables)
+    want, plain_ms = host_once(lambda: baudot_cuda.decode(
+        s, cap, baudot_cuda.zero_state((), "cpu"),
+        *digital._baudot_tables(torch.device("cpu"))))
+    torch.cuda.synchronize()
+    same = [torch.equal(a.cpu(), b) for a, b in zip(got[:2] + got[2],
+                                                    want[:2] + want[2])]
+    require(all(same), f"baudot at the CLI's chunk: card against the CPU "
+                       f"(chars, count, state): {same}")
+    ms = time_cuda(lambda: baudot_cuda.decode(sd, cap, zero, *tables),
+                   iters=10, queue_ahead_ms=20.0)
+    nbytes = X_CHUNK + cap + 44
+    bound = scan_bound(torch, X_CHUNK, 1, cycles["baudot"], nbytes, 0)
+    row = {"name": "baudot_scan", "route": "cuda", "source": BAUDOT_SOURCE,
+           "replaces": replaces_baudot, "path": "X' rtty",
+           "shape": {"rows": 1, "symbols": X_CHUNK, "cap": cap,
+                     "chars": int(got[1]), "command": RTTY_CLI[0]},
+           "bit_exact": True, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "plain_on": "cpu", "library_ms": None,
+           "cycles_a_symbol": ms * 1e-3 * SM_CLOCK_HZ / X_CHUNK, **bound}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row.update(roofline_row(torch, "baudot_scan",
+                            lambda v, z: baudot_cuda.decode(v, cap, z,
+                                                            *tables)[0],
+                            sd, zero, nbytes, 0, ms,
+                            ops_s=bound["chain_ms"] / 1e3))
+    emit("kernels", **row)
+    out_rows.append(row)
+    return out_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2683,51 +3008,263 @@ def bank_path(torch, key, decim, frames, chunks, kernel):
             "bpsk": bpsk, "wall": wall, "chunk": chunk, "mesh_ref": mesh_ref}
 
 
-def costas_case(torch, g):
-    """use_costas=True on COSTAS_SAMPLES samples of G's BPSK31 channel
-    streams: the Costas loop card vs CPU at csdr_tpu's bars, and the
-    Costas bank's modem on the card."""
+def costas_case(torch, g) -> float:
+    """The Costas kernel against costas_plain on the card on COSTAS_SAMPLES
+    samples of G's 8 BPSK31 channel streams, in both error modes (and the
+    reset-to-zero form of the clamp): bit for bit, or each output's first
+    differing sample and least SNR at csdr_tpu's bars (COSTAS_BARS); each
+    with its time beside its chain bound.  Returns the probe's SM cycles
+    a sample of the chain in the mode G_c runs (not decision-directed)."""
+    from csdr_tpu_torch.kernels import carrier_cuda
     from csdr_tpu_torch.models import multichannel
-    from csdr_tpu_torch.ops import sync
+    from csdr_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda")
+    _, bpsk, _ = bank_plan()
+    params = multichannel.build_ddc_bpsk31_bank(
+        bank_plan()[0][bpsk], 50, SPS, use_costas=True,
+        device=dev)[2]["bank"].costas
+    y = g["y_cpu"][0][bpsk, :COSTAS_SAMPLES].contiguous().to(dev)
+    cycles = {}
+    for dd, reset in ((False, False), (True, False), (False, True)):
+        mode = ("decision_directed" if dd else "pi_yre_yim") + (
+            ", reset" if reset else "")
+        probe_in = y[0, :carrier_cuda.PROBE_MAX]
+        c = min(carrier_cuda.costas_cycles(probe_in, *params, dd, reset)
+                for _ in range(3))
+        cycles[(dd, reset)] = c
+        require(c > 20.0, f"costas chain probe ({mode}): {c} cycles")
+        emit("kernels", name="costas_chain_probe", mode=mode,
+             check="SM cycles a sample of the Costas loop's shortest chain "
+             "(one sin/cos range reduction, the rotation, the error, the "
+             "loop filter, the clamp and the wraps as an add and a select "
+             "of the step's picks) on one thread from shared memory, its "
+             "last state "
+             "the kernel's (csrc/carrier.cu), the loop's bound",
+             cycles_a_sample=c, samples=carrier_cuda.PROBE_MAX)
+        n0 = carrier_cuda.LAUNCHES["costas_scan"]
+        got = card_vs_plain(
+            torch, f"costas {mode}",
+            lambda: carrier_cuda.costas(y, *params, dd, reset)[:3],
+            lambda: carrier_cuda.costas_plain(y, *params, dd, reset)[:3],
+            ("y", "error", "dphase"), COSTAS_BARS[1], COSTAS_BARS[0])
+        require(carrier_cuda.LAUNCHES["costas_scan"] == n0 + 1,
+                f"costas {mode}: not one launch")
+        ms = time_cuda(lambda: carrier_cuda.costas(y, *params, dd, reset),
+                       iters=10, queue_ahead_ms=20.0)
+        rows = len(bpsk)
+        scan_case_line(
+            torch, "costas_scan", CARRIER_SOURCE,
+            "csdr_tpu/ops/sync.py:142 (lax.scan; no Pallas kernel)", ms,
+            scan_bound(torch, COSTAS_SAMPLES, rows, c,
+                       rows * COSTAS_SAMPLES * 24 + rows * 24,
+                       rows * COSTAS_SAMPLES * COSTAS_FLOPS), 1,
+            check=f"the Costas loop ({mode}) against costas_plain on the "
+            f"card, on G's 8 BPSK31 channel streams (not on a gated path)",
+            shape={"rows": rows, "samples": COSTAS_SAMPLES}, **got)
+    return cycles[(False, False)]
+
+
+def bank_costas_path(torch, g, cycles: float) -> dict:
+    """Path G_c: BASELINE config 5 as BASELINE.md names it ("Costas/
+    Gardner"), build_ddc_bpsk31_bank(64 rates, 50, sps=256,
+    use_costas=True) at full width on G's input, 3 chunks of 3200 frames
+    (64 rows x 57 344 channel samples a chunk), captured (the step it
+    returns) and eager (``meta["bank"].step``) from one state: every output,
+    count and state leaf bit for bit; one Costas launch (and K3 forward
+    and the TED's) a chunk; BER < BER_BAR on every BPSK31 channel; the
+    card's bits within BANK_SLIP_BAR errors a BPSK31 channel of the CPU
+    bank's over the first 2 chunks (the Costas loop locks to a
+    transmission, not to noise: on the other channels card and CPU part,
+    reported); the Costas kernel against costas_plain on the card on the
+    first COSTAS_SAMPLES of the first chunk's card channel streams, all 64
+    rows, bit for bit; the kernel on the first chunk's CPU channel streams
+    against costas_plain on the CPU host at COSTAS_BARS on the BPSK31
+    channels and |y| = |x| on every channel (a rotation), with its time,
+    the plain version's and its chain bound (the table's row); the eager
+    step's lint; each step's cost.  Returns the row."""
+    from csdr_tpu_torch.kernels import carrier_cuda
+    from csdr_tpu_torch.models import bpsk31, multichannel
+    from csdr_tpu_torch.utils.timing import time_cuda
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
     rates, bpsk, _ = bank_plan()
-    y = g["y_cpu"][0][bpsk, :COSTAS_SAMPLES].contiguous()
     init, step, meta = multichannel.build_ddc_bpsk31_bank(
-        rates[bpsk], 50, SPS, use_costas=True, device=dev)
-    params = meta["bank"].costas
+        rates, 50, SPS, use_costas=True, device=dev)
+    bank = meta["bank"]
+    xs, chunk = g["xs"], g["chunk"]
+    tx_bits = g["mesh_ref"]["tx_bits"]
     with torch.no_grad():
-        card = sync.bpsk_costas_loop_cc(y.to(dev), *params)[0].cpu().numpy()
-        cpu = sync.bpsk_costas_loop_cc(y, *params)[0].numpy()
-        state, (bits, counts) = meta["bank"].modem(
-            init(FRAMES_G * meta["input_size"]), y.to(dev))
+        reset_all()
+        t0 = time.perf_counter()
+        state, outs = init(chunk), []
+        for x in xs:
+            state, out = step(state, x)
+            outs.append(out)
         torch.cuda.synchronize()
-    early = require_match("path_G_costas: first 256", card[:, :256],
-                          cpu[:, :256], COSTAS_BARS[0])
-    whole = require_match("path_G_costas: whole", card, cpu, COSTAS_BARS[1])
-    require(len(state) == 7 and bool((counts > 0).all()),
-            "path G: the Costas bank's modem gave no symbols")
-    emit("path", path="G costas", pipeline="bpsk_costas_loop_cc("
-         "costas_loop_params(2*pi/100)) on 8 BPSK31 channel streams of G, "
-         f"and build_ddc_bpsk31_bank(use_costas=True).modem",
-         samples=COSTAS_SAMPLES, card_vs_cpu_first_256_min_snr_db=early,
-         card_vs_cpu_whole_min_snr_db=whole, bars_db=list(COSTAS_BARS),
-         modem_symbols=[int(v) for v in counts.cpu()])
+        wall = time.perf_counter() - t0
+        launches = launches_all()
+        final = [t.clone() for t in state]
+        state_e, outs_e = init(chunk), []
+        for x in xs:
+            state_e, out = bank.step(state_e, x)
+            outs_e.append(out)
+        torch.cuda.synchronize()
+    require_launches(launches, {"fft_ko": CHUNKS_G, "ted_scan": CHUNKS_G,
+                                "costas_scan": CHUNKS_G}, "path G_c")
+    require(all(same_tree(torch, a, b) for a, b in zip(outs, outs_e))
+            and same_tree(torch, final, list(state_e)),
+            "path G_c: the captured step differs from the eager step")
+    require(len(final) == 7, f"path G_c: {len(final)} state leaves")
+    with torch.no_grad():
+        lint_step(torch, "G_c", bank.step, init(chunk), xs[0])
+
+    bers = {}
+    for i, c in enumerate(bpsk):
+        errs, total = bpsk31.align_errors(tx_bits[i][8:],
+                                          bank_bits(outs, c)[8:],
+                                          range(-6, 6))
+        bers[int(c)] = errs / total
+        require(total > 200 and errs / total < BER_BAR,
+                f"path G_c: channel {c} BER {errs}/{total}")
+
+    # the CPU bank over the first 2 chunks: bits
+    cinit, _, cmeta = multichannel.build_ddc_bpsk31_bank(
+        rates, 50, SPS, use_costas=True, device=cpu)
+    cbank = cmeta["bank"]
+    y_cpu = g["y_cpu"][:2]
+    with torch.no_grad():
+        outs_cpu = drive_bank(torch, cbank.modem, cinit(chunk), y_cpu)
+    slips = [bpsk31.align_errors(bank_bits(outs_cpu, c),
+                                 bank_bits(outs[:2], c), range(-6, 6))[0]
+             for c in range(CHANNELS)]
+    worst = max(slips[c] for c in bpsk)
+    require(worst <= BANK_SLIP_BAR, f"path G_c: card vs CPU bits {worst} "
+                                    f"errors on a BPSK31 channel")
+
+    # the Costas kernel against costas_plain on the card on the first
+    # COSTAS_SAMPLES of the first chunk's card channel streams, every row
+    # (the ones the loop locks to and the noise rows), bit for bit
+    params = bank.costas
+    st = tuple(torch.zeros(CHANNELS, device=dev) for _ in range(3))
+    head = torch.from_numpy(np.ascontiguousarray(
+        g["y_card0"][:, :COSTAS_SAMPLES])).to(dev)
+    with torch.no_grad():
+        every_row = card_vs_plain(
+            torch, "path_G_c costas, every row",
+            lambda: carrier_cuda.costas(head, *params, state=st)[:3],
+            lambda: carrier_cuda.costas_plain(head, *params, state=st)[:3],
+            ("y", "error", "dphase"), COSTAS_BARS[1], COSTAS_BARS[0])
+    require(every_row["bit_for_bit"], f"path G_c: the Costas kernel differs "
+            f"from costas_plain on the card: {every_row['card_vs_plain']}")
+    # ... and on the first chunk's CPU channel streams against costas_plain
+    # on the CPU host
+    y0 = y_cpu[0]
+    y0d = y0.to(dev)
+    with torch.no_grad():
+        card = carrier_cuda.costas(y0d, *params, state=st)[0].cpu().numpy()
+        want, plain_ms = host_once(lambda: carrier_cuda.costas(y0, *params))
+    cpu_y = want[0].numpy()
+    early = channel_snrs(cpu_y[bpsk, :256], card[bpsk, :256])
+    whole = channel_snrs(cpu_y[bpsk], card[bpsk])
+    if min(early) < COSTAS_BARS[0] or min(whole) < COSTAS_BARS[1]:
+        require_match("path_G_c_costas: BPSK31 channels, first 256",
+                      card[bpsk, :256], cpu_y[bpsk, :256], COSTAS_BARS[0])
+        require_match("path_G_c_costas: BPSK31 channels, whole", card[bpsk],
+                      cpu_y[bpsk], COSTAS_BARS[1])
+    x0 = y0.numpy()
+    rotation = bool(np.allclose(np.abs(card), np.abs(x0), rtol=1e-5,
+                                atol=1e-7))
+    require(rotation, "path G_c: the Costas kernel's |y| differs from |x|")
+    every = channel_snrs(cpu_y, card)
+    with torch.no_grad():
+        ms = time_cuda(lambda: carrier_cuda.costas(y0d, *params, state=st),
+                       iters=5, queue_ahead_ms=20.0)
+    m = y0.shape[-1]
+    nbytes = CHANNELS * m * 24 + CHANNELS * 24
+    flops = CHANNELS * m * COSTAS_FLOPS
+    bound = scan_bound(torch, m, CHANNELS, cycles, nbytes, flops)
+    row = {"name": "costas_scan", "route": "cuda", "source": CARRIER_SOURCE,
+           "replaces": "csdr_tpu/ops/sync.py:142 (lax.scan; no Pallas "
+                       "kernel)", "path": "G_c",
+           "shape": {"rows": CHANNELS, "samples": m,
+                     "mode": "pi_yre_yim", "costas_bw": 2 * np.pi / 100},
+           "max_abs_err": 0.0,         # every row bit for bit (required)
+           "max_abs_err_vs_cpu_bpsk": float(np.max(np.abs(
+               card[bpsk] - cpu_y[bpsk]))),
+           "card_vs_plain_every_row": {
+               "rows": CHANNELS, "samples": COSTAS_SAMPLES,
+               "stream": "the first chunk's card channel streams",
+               "plain_ms": every_row["plain_ms"],
+               **every_row["card_vs_plain"]},
+           "card_vs_cpu": {
+               "bpsk_first_256_min_snr_db": float(min(early)),
+               "bpsk_whole_min_snr_db": float(min(whole)),
+               "bars_db": list(COSTAS_BARS),
+               "every_channel_abs_y_equals_abs_x": rotation,
+               "other_channels_min_snr_db": float(np.min(np.delete(
+                   every, bpsk))),
+               "other_channels_below_bar": int(np.sum(np.delete(
+                   every, bpsk) < COSTAS_BARS[1])),
+               "note": "max_abs_err_vs_cpu_bpsk over the BPSK31 channels; "
+                       "the loop does not lock to noise, so off them card "
+                       "and CPU "
+                       "part (their SNRs here, not gated; on the card "
+                       "the kernel is costas_plain bit for bit on every "
+                       "row, card_vs_plain_every_row)"},
+           "ms": ms, "plain_ms": plain_ms, "plain_on": "cpu",
+           "library_ms": None,
+           "cycles_a_sample": ms * 1e-3 * SM_CLOCK_HZ / m, **bound}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row.update(roofline_row(
+        torch, "costas_scan",
+        lambda v, s: carrier_cuda.costas(v, *params, state=s)[0], y0d, st,
+        nbytes, flops, ms, ops_s=bound["chain_ms"] / 1e3))
+    emit("kernels", **row)
+    emit("path", path="G_c", pipeline="build_ddc_bpsk31_bank(64 rates, "
+         f"decimation=50, sps={SPS}, use_costas=True) (BASELINE config 5, "
+         "Costas/Gardner)", chunks=len(xs), chunk=chunk,
+         channel_samples_per_chunk=m, launches=launches, ber=bers,
+         ber_bar=BER_BAR, bits_per_bpsk_channel=int(min(
+             len(bank_bits(outs, c)) for c in bpsk)),
+         captured_vs_eager="outputs, counts and state bit for bit",
+         card_vs_cpu_bit_errors_bpsk_channels_max=int(worst),
+         card_vs_cpu_bit_errors_other_channels_max=int(max(
+             slips[c] for c in range(CHANNELS) if c not in set(bpsk))),
+         cpu_chunks=len(y_cpu), stream_s=wall,
+         estimate_uncaptured_python_loop_s="13-25 a chunk (~1.15 M launches "
+         "at 11.5-22 us, not run)")
+    for key, fn in (("G_c eager", bank.step), ("G_c", step)):
+        cost = bank_cost(torch, bank, fn, init(chunk), xs[0])
+        emit("throughput", path=key, pipeline="build_ddc_bpsk31_bank(64 "
+             f"rates, decimation=50, sps={SPS}, use_costas=True)"
+             + (" eager (meta['bank'].step)" if "eager" in key else
+                " captured (the step it returns)"),
+             **cost, smi=nvidia_smi_line(),
+             note="step_ms: CUDA events around back-to-back steps as "
+                  "issued; queued_device_ms: 10 steps queued behind a spin "
+                  "kernel, median of 5; channelizer_ms, modem_ms: eager "
+                  "halves split by an event; launches and host syncs from "
+                  "torch.profiler")
+    return dict(row, launches_path=launches)
 
 
 def phase_bank_paths(torch):
     """Paths G (D=50, K3 forward) and G' (D=16, K4): BASELINE config 5
-    whole, then the Costas case, and each bank's first chunk of channel
-    streams, card and CPU, against float64 (the quiet channels)."""
+    whole, then the Costas kernel against its plain version on G's BPSK31
+    streams and G_c (config 5 with its Costas loop), and each bank's first
+    chunk of channel streams, card and CPU, against float64 (the quiet
+    channels).  Returns ({"G": ..., "G'": ...}, G_c's table row)."""
     require_no_tf32(torch)
     g = bank_path(torch, "G", 50, FRAMES_G, CHUNKS_G, "fft_ko")
-    costas_case(torch, g)
+    cycles = costas_case(torch, g)
+    gc_row = bank_costas_path(torch, g, cycles)
     quiet_bank(torch, "G", g)
     del g["y_cpu"], g["y_card0"]
     gp = bank_path(torch, "G'", 16, FRAMES_GP, CHUNKS_GP, "fastddc_inv")
     quiet_bank(torch, "G'", gp)
     del gp["y_cpu"], gp["y_card0"]
-    return {"G": g, "G'": gp}
+    return {"G": g, "G'": gp}, gc_row
 
 
 def phase_bank_throughput(torch, banks):
@@ -4832,6 +5369,10 @@ X_CPU_FLIP_SHARE = 1e-3    # int16 samples card vs CPU that may differ by 1
 X_CHUNK = 1 << 16          # the CLI's default chunk (CSDR_FIXED_BUFSIZE)
 XP_SAMPLES = 16 * X_CHUNK + 97   # X' input: 16 chunks and an odd tail
 XP_CODEC = X_CHUNK // 4 + 97    # X' codec input (its plain loop on the CPU)
+XP_SCANS = X_CHUNK + 1001  # X''s Costas, PLL and RTTY stdin: a chunk, a tail
+PLL_CLI = ["pll_cc", "2", "0.01"]
+COSTAS_CLI = ["bpsk_costas_loop_cc", "0.01"]
+RTTY_CLI = ["rtty_line_decoder_u8_u8"]
 X_TIMEOUT = 300.0          # seconds any CLI process of X may take
 NO_PUMP = {"normalized_timing_variance_u32_f", "shift_addition_cc_test",
            "--help"}       # device commands that read all stdin, no pump
@@ -5186,12 +5727,14 @@ def chunk_cost(torch, step) -> dict:
 
 
 def x_prime_case(name, argv, inp: bytes, want: dict, bar,
-                 kind=np.complex64) -> dict:
+                 kind=np.complex64, match=None) -> dict:
     """One CLI command in process on the card, captured, with the launch
     counts zeroed just before and read just after (``want``: kernel ->
     launches), then with --device cpu on the same bytes: bit for bit (bar
-    None) or card vs CPU at ``bar`` dB; its step captured, no key twice;
-    then its step's chunk_cost on the first chunk, eager and captured."""
+    None), card vs CPU at ``bar`` dB, or by ``match(card, cpu)`` (a dict
+    for the line; it raises on a mismatch); its step captured, no key
+    twice; then its step's chunk_cost on the first chunk, eager and
+    captured."""
     import torch
 
     make, kept = keeping_steps()
@@ -5211,7 +5754,9 @@ def x_prime_case(name, argv, inp: bytes, want: dict, bar,
     line = {"command": " ".join(argv), "launches": launches,
             "card_s": wall, "cpu_s": wall_cpu, "out_bytes": len(out),
             **graph}
-    if bar is None:
+    if match is not None:
+        line.update(match(out, cpu))
+    elif bar is None:
         require(out == cpu, f"path X' {name}: card and CPU bytes differ")
         line["bit_exact"] = True
     else:
@@ -5329,7 +5874,11 @@ def phase_cli_kernels(torch):
     CHANNEL_BAR), encode_ima_adpcm_i16_u8 and decode_ima_adpcm_u8_i16
     (the codec on XP_CODEC samples; bit for bit), agc_ff 200 0.2 0.01
     0.0001 65536 5 (an attack wait: the exact scan's kernel once a chunk;
-    bit for bit).  K2 at the CLI's
+    bit for bit), bpsk_costas_loop_cc 0.01 (a BPSK stream the loop locks
+    to; the first 256 samples at COSTAS_BARS[0] and |y| = |x|, as X''
+    holds it), pll_cc 2 0.01 (a tone; SWEEP_BAR) and rtty_line_decoder_u8_u8
+    (framed symbols; bit for bit), each over XP_SCANS samples, its kernel
+    once a chunk.  K2 at the CLI's
     shape (D=10, T=79, kout=6553) against its plain version as the
     kernels phase runs it.  Then one live retune each through --fd:
     shift_addition_cc and fastddc_inv_cc."""
@@ -5374,6 +5923,20 @@ def phase_cli_kernels(torch):
     got["agc_ff"] = x_prime_case(
         "agc_ff", AGC_EXACT_CLI, agc_in,
         {"agc_ff_scan": pumped_chunks(AGC_EXACT_SAMPLES, 1)}, None)
+    # the carrier loops and the RTTY decoder: one kernel a chunk, bytes
+    # against --device cpu's (the plain loops) as X'' holds them
+    scans = pumped_chunks(XP_SCANS, 1)
+    bpsk_in = scan_bpsk(XP_SCANS, 144).tobytes()
+    got["bpsk_costas_loop_cc"] = x_prime_case(
+        "bpsk_costas_loop_cc", COSTAS_CLI, bpsk_in, {"costas_scan": scans},
+        None, match=lambda out, cpu: sweep_match("bpsk_costas_loop_cc", out,
+                                                 cpu, bpsk_in))
+    got["pll_cc"] = x_prime_case(
+        "pll_cc", PLL_CLI, scan_tone(XP_SCANS, 145).tobytes(),
+        {"pll_scan": scans}, SWEEP_BAR, kind=np.float32)
+    got["rtty_line_decoder_u8_u8"] = x_prime_case(
+        "rtty_line_decoder_u8_u8", RTTY_CLI,
+        rtty_symbols(XP_SCANS, 146).tobytes(), {"baudot_scan": scans}, None)
 
     # live retunes, each command captured: shift_addition_cc half way (a
     # new rate is a new key: one capture), fastddc_inv_cc at its third
@@ -5835,7 +6398,8 @@ def run(torch) -> int:
     agc_rows = phase_agc_kernels(torch, receivers)
     agc_exact_rows = phase_agc_exact(torch)
     ted_cases = phase_ted_kernels(torch)
-    banks = phase_bank_paths(torch)
+    scan_rows = phase_scan_kernels(torch)
+    banks, gc_row = phase_bank_paths(torch)
     phase_bank_throughput(torch, banks)
     mesh = phase_mesh_paths(torch, banks)
     g_launches = {k: b["launches"] for k, b in banks.items()}
@@ -5853,7 +6417,9 @@ def run(torch) -> int:
     # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
     # K2 at D=16/T=79 from the td server, K3 forward at N=4096 and the
     # codec's encoder on 9 rows from W, the codec both ways on one audio
-    # stream from W1, the TED from G (and G', M, M'), the AGC from E (and F)
+    # stream from W1, the TED from G (and G', M, M'), the AGC from E (and F),
+    # the Costas loop from G_c (and X'), the PLL and the Baudot decoder
+    # from X' at the CLI's chunk
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
@@ -5883,6 +6449,14 @@ def run(torch) -> int:
         "X' agc_ff": ("X': python -m csdr_tpu_torch.cli " + " ".join(
             AGC_EXACT_CLI) + ", in process, 65 536-sample chunks",
             cli_launches["agc_ff"]),
+        "G_c": ("G_c: build_ddc_bpsk31_bank(64 rates, decimation=50, "
+                "sps=256, use_costas=True)", gc_row["launches_path"]),
+        "X' pll_cc": ("X': python -m csdr_tpu_torch.cli " + " ".join(
+            PLL_CLI) + ", in process, 65 536-sample chunks",
+            cli_launches["pll_cc"]),
+        "X' rtty": ("X': python -m csdr_tpu_torch.cli " + " ".join(
+            RTTY_CLI) + ", in process, 65 536-symbol chunks",
+            cli_launches["rtty_line_decoder_u8_u8"]),
         "measure": ("measure: utils/roofline.measure_fp32_flops (the FP32 "
                     "ceiling; launches captured in its CUDA graphs)",
                     probe_launches)}
@@ -5910,11 +6484,12 @@ def run(torch) -> int:
             ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"],
             ("ted_scan", "G"): {"G'": g_launches["G'"], "M": mesh["M"],
                                 "M'": mesh["M'"]},
-            ("agc_relax", "E"): {"F": receivers["F"][0]}}
+            ("agc_relax", "E"): {"F": receivers["F"][0]},
+            ("costas_scan", "G_c"): xp["bpsk_costas_loop_cc"]}
     table = []
     for c in ([probe_row] + cases + new_cases + poly_cases + agc_rows
-              + agc_exact_rows + ted_cases + server_cases + edge_cases
-              + [k2_cli]):
+              + agc_exact_rows + ted_cases + scan_rows + [gc_row]
+              + server_cases + edge_cases + [k2_cli]):
         path, counts = paths_of[c["path"]]
         key, extra = c["path"], also.get((c["name"], c["path"]), {})
         c = dict(c, launches=counts[c["name"]], path=path)
@@ -5927,7 +6502,7 @@ def run(torch) -> int:
                 c["launches_by_path"][other] = got[c["name"]]
         table.append({k: c[k] for k in keys + (
             "cluster", "bound_tc_ms", "launches_by_path", "bound_note",
-            "tk_ms",
+            "tk_ms", "plain_on", "share_of_bound",
             "share_published", "share_measured") if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -27,9 +27,8 @@ on the host: ``tee``, ``fifo``, ``flowcontrol``, ``through``, ``clone``,
 ``add_n_zero_samples_at_beginning_f``, ``convert_f_samplerf``, the
 ``firdes_*`` tap dumps, ``octave_complex_c``, ``_fft2octave``,
 ``psk31_varicode_encoder_u8_u8``, ``serial_line_decoder_f_u8``,
-``pattern_search_u8_u8``, ``syncword_search``, the RTTY line decoder
-(``rtty_line_decoder_u8_u8``, a serial state machine over bit symbols,
-pumped on the CPU) and ``old_fractional_decimator_ff``.
+``pattern_search_u8_u8``, ``syncword_search`` and
+``old_fractional_decimator_ff``.
 
 Usage:  python -m csdr_tpu_torch.cli <command> [params...] [--device cuda|cpu]
 """
@@ -59,7 +58,7 @@ floatdump_f dump_u8 yes_f repeat_u8 none add_n_zero_samples_at_beginning_f
 convert_f_samplerf firdes_lowpass_f firdes_bandpass_c
 firdes_pulse_shaping_filter_f firdes_peak_c octave_complex_c _fft2octave
 psk31_varicode_encoder_u8_u8 serial_line_decoder_f_u8 pattern_search_u8_u8
-syncword_search rtty_line_decoder_u8_u8 old_fractional_decimator_ff""".split())
+syncword_search old_fractional_decimator_ff""".split())
 
 # the running command: its name (csdr_tpu reads sys.argv[1]) and device
 _RUN = {"cmd": "csdr_tpu_torch", "device": torch.device("cpu")}
@@ -2225,15 +2224,17 @@ def _c_firdes_peak(args):
 @command("rtty_line_decoder_u8_u8")
 def _c_rtty_line(args):
     """Framed bit symbols -> ASCII via the baudot start/stop state machine
-    (reference csdr.c:2446-2459 over rtty_baudot_decoder_push).  Host-only:
-    a serial step a symbol, pumped on the CPU."""
+    (reference csdr.c:2446-2459 over rtty_baudot_decoder_push): one launch
+    of the Baudot kernel a chunk on the command's device."""
+    from csdr_tpu_torch.kernels import baudot_cuda
     from csdr_tpu_torch.ops import digital
 
     def apply(state, x):
         out, state = digital.rtty_baudot_decoder(x, state=state)
         return state, out
 
-    pump(FnBlock("rtty", lambda dev: None, apply), "u8", "u8", device="cpu")
+    pump(FnBlock("rtty", lambda dev: baudot_cuda.zero_state((), dev), apply),
+         "u8", "u8")
 
 
 @command("rtty_baudot2ascii_u8_u8")

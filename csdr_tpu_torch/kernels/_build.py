@@ -61,6 +61,15 @@ _SIGNATURES = {
     "csdr_agc_ff_scan": [_VP, _LL, _I] + [_F] * 5 + [_I] * 2 + [_VP] * 10,
     "csdr_agc_ff_chain_probe": [_VP, _VP, _I] + [_F] * 5
                                + [_I, _I, _F, _I, _F, _I, _VP, _VP],
+    "csdr_costas_scan": [_VP, _I, _I, _F, _F, _F, _I, _I] + [_VP] * 10,
+    "csdr_pll_scan": [_VP, _I, _I, _F, _F, _I] + [_VP] * 9,
+    "csdr_costas_chain_probe": [_VP, _VP, _I, _F, _F, _F, _I, _I, _F, _F,
+                                _F, _VP, _VP],
+    "csdr_pll_chain_probe": [_VP, _VP, _I, _F, _F, _I, _F, _F, _F, _VP,
+                             _VP],
+    "csdr_baudot_scan": [_VP, _I, _I, _I] + [_VP] * 15,
+    "csdr_baudot_chain_probe": [_VP, _VP, _I, _VP, _VP] + [_I] * 5
+                               + [_VP, _VP],
 }
 # name -> argtypes of the int-returning queries (shared memory, tiles)
 _QUERIES = {

@@ -2,19 +2,22 @@
 early-late timing recovery (counterpart of csdr_tpu.ops.sync).
 
 These are serial per-sample (or per-symbol) nonlinear feedback loops.
-csdr_tpu runs each as a ``lax.scan`` and ``vmap``s it over channels.  The
-timing recovery's symbol loop is one launch of a hand-written kernel a
-call (``kernels/ted_cuda``, ``csrc/ted.cu``: a thread a row or segment);
-the PLL and the Costas loop are Python loops of torch ops over a leading
-batch axis (one row per channel).  No step reads a value back to the
-host: masks run every step of a fixed count, and data-dependent counts
-stay on the device.
+csdr_tpu runs each as a ``lax.scan`` and ``vmap``s it over channels.  Here
+each is one launch of a hand-written kernel a call over a leading batch
+axis (one row per channel): the timing recovery's symbol loop
+(``kernels/ted_cuda``, ``csrc/ted.cu``: a thread a row or segment), the
+Costas loop and the PLL (``kernels/carrier_cuda``, ``csrc/carrier.cu``: a
+warp a row, one thread carrying the recurrence).  On CPU tensors the
+wrappers run the plain versions, the same loops as Python loops of torch
+ops.  No step reads a value back to the host: masks run every step of a
+fixed count, and data-dependent counts stay on the device.
 
 The timing recovery loop has no transcendental and gives csdr_tpu's
 symbols, errors, indexes and carried state bit for bit.  The PLL and the
 Costas loop evaluate sin/cos/atan2 every sample inside their feedback, and
 torch's and XLA's transcendentals differ in the last bits, so they follow
-csdr_tpu to a stated SNR, not bit for bit.  csdr_tpu's ``rowslice`` pick
+csdr_tpu to a stated SNR, not bit for bit (on the card the kernels give
+their plain versions' bits).  csdr_tpu's ``rowslice`` pick
 (``CSDR_TED_ROWSLICE``) is a TPU gather-domain layout with outputs equal
 to the gather's; the port has the gather only.
 """
@@ -25,21 +28,10 @@ import numpy as np
 import torch
 
 from csdr_tpu_torch.core.block import Block, VarOut, resolve_device
-from csdr_tpu_torch.kernels import ted_cuda
+from csdr_tpu_torch.kernels import carrier_cuda, ted_cuda
 
 TWO_PI = 2.0 * np.pi
 _INT32_MAX = int(np.iinfo(np.int32).max)
-
-
-def _wrap_pi(p: torch.Tensor) -> torch.Tensor:
-    """while(p>pi) p-=2pi; while(p<-pi) p+=2pi;"""
-    return torch.remainder(p + np.pi, TWO_PI) - np.pi
-
-
-def _loop_state(state, shape, device) -> tuple:
-    """Three float32 loop scalars per row, from numbers or tensors."""
-    return tuple(torch.as_tensor(v, dtype=torch.float32, device=device
-                                 ).expand(shape).clone() for v in state)
 
 
 # --------------------------------------------------------------------------
@@ -62,24 +54,10 @@ def pll_cc(x: torch.Tensor, alpha: float, beta: float | None = None,
     libcsdr.c:1870-1915), over complex64 ``x`` (..., n).  beta=None is the
     P controller.  Returns (dphase_out, nco complex64, state'), state =
     (output_phase, dphase, iir) per row.  The reference NCO is sin + j*cos
-    and its detector atan2(i, q), mirrored exactly."""
-    output_phase, dphase, iir = _loop_state(state, x.shape[:-1], x.device)
-    re, im = x.real, x.imag
-    dph, nr, ni = [], [], []
-    for i in range(x.shape[-1]):
-        output_phase = _wrap_pi(output_phase + dphase)
-        nr.append(torch.sin(output_phase))
-        ni.append(torch.cos(output_phase))
-        input_phase = torch.atan2(re[..., i], im[..., i])
-        new_dphase = _wrap_pi(input_phase - output_phase)
-        if beta is None:
-            dphase = new_dphase * alpha
-        else:
-            dphase = _wrap_pi(new_dphase * alpha + iir)
-            iir = iir + new_dphase * beta
-        dph.append(-dphase)
-    nco = torch.complex(torch.stack(nr, -1), torch.stack(ni, -1))
-    return torch.stack(dph, -1), nco, (output_phase, dphase, iir)
+    and its detector atan2(i, q), mirrored exactly.  One launch of the PLL
+    kernel on the card (``carrier_cuda.pll``), its plain loop on the
+    CPU."""
+    return carrier_cuda.pll(x, alpha, beta, state)
 
 
 class PllBlock(Block):
@@ -92,7 +70,7 @@ class PllBlock(Block):
 
     def init(self, device="cuda", shape=()):
         dev = resolve_device(device)
-        return _loop_state((0.0, 0.0, 0.0), shape, dev)
+        return carrier_cuda.loop_state((0.0, 0.0, 0.0), shape, dev)
 
     def forward(self, state, x):
         dph, nco, state = pll_cc(x, self.alpha, self.beta, state)
@@ -128,38 +106,11 @@ def bpsk_costas_loop_cc(x: torch.Tensor, alpha, beta, dphase_max,
                         state=(0.0, 0.0, 0.0)):
     """Costas loop (reference bpsk_costas_loop_cc, libcsdr.c:2108-2142) over
     complex64 ``x`` (..., n); state = (nco_phase, current_freq, dphase) per
-    row.  Returns (y complex64, error, dphase_out, state')."""
-    nco_phase, freq, dphase = _loop_state(state, x.shape[:-1], x.device)
-    re, im = x.real, x.imag
-    yr, yi, errs, dphs = [], [], [], []
-    for i in range(x.shape[-1]):
-        nco_re = torch.cos(nco_phase)
-        nco_im = torch.sin(nco_phase)
-        xr, xi = re[..., i], im[..., i]
-        y_re = xr * nco_re - xi * nco_im
-        y_im = xr * nco_im + xi * nco_re
-        if decision_directed:
-            op = torch.atan2(y_im, y_re)
-            error = torch.where(torch.abs(op) < np.pi / 2, -op,
-                                _wrap_pi(np.pi - op))
-        else:
-            error = np.pi * y_re * y_im
-        freq = freq + error * beta
-        dphase = error * alpha + freq
-        if dphase_max_reset_to_zero:
-            dphase = torch.where(torch.abs(dphase) > dphase_max, 0.0, dphase)
-        else:
-            dphase = torch.clamp(dphase, -dphase_max, dphase_max)
-        # while(nco_phase > 2pi) -= 2pi; while(nco_phase <= 0) += 2pi
-        nco_phase = torch.remainder(nco_phase + dphase, TWO_PI)
-        nco_phase = torch.where(nco_phase <= 0, nco_phase + TWO_PI, nco_phase)
-        yr.append(y_re)
-        yi.append(y_im)
-        errs.append(error)
-        dphs.append(dphase)
-    y = torch.complex(torch.stack(yr, -1), torch.stack(yi, -1))
-    return (y, torch.stack(errs, -1), torch.stack(dphs, -1),
-            (nco_phase, freq, dphase))
+    row.  Returns (y complex64, error, dphase_out, state').  One launch of
+    the Costas kernel on the card (``carrier_cuda.costas``), its plain loop
+    on the CPU."""
+    return carrier_cuda.costas(x, alpha, beta, dphase_max, decision_directed,
+                               dphase_max_reset_to_zero, state)
 
 
 class CostasBlock(Block):
@@ -173,7 +124,7 @@ class CostasBlock(Block):
 
     def init(self, device="cuda", shape=()):
         dev = resolve_device(device)
-        return _loop_state((0.0, 0.0, 0.0), shape, dev)
+        return carrier_cuda.loop_state((0.0, 0.0, 0.0), shape, dev)
 
     def forward(self, state, x):
         y, _e, _d, state = bpsk_costas_loop_cc(

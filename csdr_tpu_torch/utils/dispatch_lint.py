@@ -14,8 +14,8 @@ ctypes, which bypass it.  The card's cliffs are in that sequence (PERF.md
 - ``python-loop``: a ``lax.scan`` that became a Python loop of small
   launches.  :func:`lint_lengths` lints one step at two chunk lengths and
   flags it when the launching ops grow with the length by more than
-  ``LOOP_GROWTH_OPS`` (the Costas loop, ``ops/sync.bpsk_costas_loop_cc``:
-  ~20 launches a sample).
+  ``LOOP_GROWTH_OPS`` (the Costas loop's plain version,
+  ``kernels/carrier_cuda.costas_plain``: ~20 launches a sample).
 - ``launch-bound``: more than ``LAUNCH_BOUND_OPS`` launching ops in one
   call, each one ~11.5-22 us of host issue time on the card (PERF.md
   §5), so the step waits on the host (one launch a tap:
@@ -192,6 +192,8 @@ PLAIN_VERSIONS = {
     "probe_cuda": {"fma_chain_plain": "fma_chain"},
     "ted_cuda": {"scan_plain": "ted_scan"},
     "agc_cuda": {"relax_plain": "agc_relax", "scan_plain": "agc_ff_scan"},
+    "carrier_cuda": {"costas_plain": "costas_scan", "pll_plain": "pll_scan"},
+    "baudot_cuda": {"decode_plain": "baudot_scan"},
 }
 
 

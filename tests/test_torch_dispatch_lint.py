@@ -12,12 +12,14 @@ its reason and the ROADMAP item that queues its repair:
   the fractional decimator's prefilter; ROADMAP §1 item 2c).
 
 An entry is also required to show, so a repaired cliff leaves its list.
-The lint has teeth: the Costas loop is flagged ``python-loop`` and a
-planted ``.item()`` ``host-sync``; the modem's timing recovery, once a
-Python loop of ~43 ops a symbol, is one TED kernel launch a call, and the
-chunked AGC, once ~2 900 ops and two host syncs a chunk of the SSB and AM
-receivers' audio, one AGC kernel launch a call.  On the CPU a kernel
-wrapper's plain version counts as the one launch the card makes
+The lint has teeth: a per-sample loop planted in a test is flagged
+``python-loop`` and a planted ``.item()`` ``host-sync``.  Every scan of
+csdr_tpu is one kernel launch a call: the modem's timing recovery (once a
+Python loop of ~43 ops a symbol), the chunked AGC (once ~2 900 ops and two
+host syncs a chunk of the SSB and AM receivers' audio), agc_ff's exact
+scan, the Costas loop and the PLL (once ~20 ops a sample) and the RTTY
+Baudot decoder (once ~60 ops a symbol).  On the CPU a kernel wrapper's
+plain version counts as the one launch the card makes
 (``_plain_as_launches``).
 """
 
@@ -29,9 +31,10 @@ import pytest
 import torch
 
 from csdr_tpu_torch import Pipeline, firdes
-from csdr_tpu_torch.kernels import agc_cuda, fir_cuda, ted_cuda
+from csdr_tpu_torch.kernels import (agc_cuda, baudot_cuda, carrier_cuda,
+                                    fir_cuda, ted_cuda)
 from csdr_tpu_torch.models import multichannel, receivers, wfm
-from csdr_tpu_torch.ops import (adpcm, agc, fastddc as fd, fftfilt,
+from csdr_tpu_torch.ops import (adpcm, agc, digital, fastddc as fd, fftfilt,
                                 spectrum, sync)
 from csdr_tpu_torch.utils import dispatch_lint as dl
 
@@ -64,9 +67,9 @@ def _block(make, data):
     return blk, lambda n: (blk.init("cpu"), data(n))
 
 
-def _bank():
+def _bank(use_costas=False):
     init, step, meta = multichannel.build_ddc_bpsk31_bank(
-        RATES[:4], 16, sps=16, device="cpu")
+        RATES[:4], 16, sps=16, use_costas=use_costas, device="cpu")
     return step, lambda n: (init(n * meta["input_size"]),
                             _noise(n * meta["input_size"]))
 
@@ -136,6 +139,8 @@ PIPELINES = {
                                                            np.int16)),
                             (127, 254), (), None),
     "ddc_bpsk31_bank": (_bank, (24, 48), (), "G"),
+    "ddc_bpsk31_bank_costas": (lambda: _bank(use_costas=True), (24, 48), (),
+                               "G_c"),
     "ddcd_server": (_server, (8, 8), (), "S"),
 }
 
@@ -174,14 +179,66 @@ def test_known_cliffs_name_their_roadmap_items():
 def test_timing_recovery_is_flagged_python_loop():
     """Teeth, named for the loop it first caught (the timing recovery, now
     one kernel launch: test_ted_step_is_one_kernel_launch): a Python loop
-    the port still has, the Costas loop's over the samples (ROADMAP §1
-    item 2f), grows with the chunk."""
-    params = sync.costas_loop_params(0.01)
-    found, counts = dl.lint_lengths(
-        lambda x: sync.bpsk_costas_loop_cc(x, *params)[0],
-        lambda n: (_noise(n),), (64, 128))
+    over the samples planted here, a first-order recursive filter a sample
+    a step, grows with the chunk (every loop of the port's own is a kernel
+    now: the tests below)."""
+    def planted(x):
+        acc, ys = torch.zeros(()), []
+        for i in range(x.shape[-1]):
+            acc = 0.9 * acc + x[i]
+            ys.append(acc)
+        return torch.stack(ys)
+
+    found, counts = dl.lint_lengths(planted, lambda n: (torch.ones(n),),
+                                    (64, 128))
     assert any(f.kind == "python-loop" for f in found), counts
     assert counts[128]["launching"] > counts[64]["launching"] + 32
+
+
+def _one_launch(fn, make_args, lengths, kernel):
+    """``fn`` at two chunk lengths: no finding, one launch of ``kernel``
+    (its plain version standing in for it on the CPU), no host sync, no
+    upload, and as many launching ops at either length."""
+    found, counts = dl.lint_lengths(fn, make_args, lengths)
+    assert found == [], counts
+    for c in counts.values():
+        assert c["kernel_launches"] == {kernel: 1}, counts
+        assert c["syncs"] == 0 and c["uploads"] == 0, counts
+        assert c["launching"] < 8, counts
+    assert counts[lengths[0]]["launching"] == counts[lengths[1]]["launching"]
+
+
+@pytest.mark.parametrize("dd", [False, True])
+def test_costas_step_is_one_kernel_launch(dd):
+    """A Costas block step over 3 rows, decision-directed or not, is one
+    launch of the Costas kernel (ROADMAP §1 item 2f): no loop over the
+    samples."""
+    blk = sync.costas_block(0.01, decision_directed=dd)
+    _one_launch(blk, lambda n: (blk.init("cpu", shape=(3,)), torch.stack(
+        [_noise(n, s) for s in range(3)])), (64, 128), "costas_scan")
+    assert carrier_cuda.costas_plain.__module__ == carrier_cuda.__name__
+
+
+@pytest.mark.parametrize("pi_controller", [True, False])
+def test_pll_step_is_one_kernel_launch(pi_controller):
+    """A PLL block step (P or PI) is one launch of the PLL kernel."""
+    blk = sync.pll_block(0.01, pi_controller, output="nco")
+    _one_launch(blk, lambda n: (blk.init("cpu"), _noise(n)), (64, 128),
+                "pll_scan")
+    assert carrier_cuda.pll_plain.__module__ == carrier_cuda.__name__
+
+
+def test_baudot_decoder_is_one_kernel_launch():
+    """The RTTY Baudot decoder over 2 rows of u8 symbols, from its state,
+    is one launch of the Baudot kernel; its count stays a tensor."""
+    def step(state, x):
+        out, state = digital.rtty_baudot_decoder(x, state=state)
+        return state, out.data, out.count
+
+    _one_launch(step, lambda n: (baudot_cuda.zero_state((2,), "cpu"),
+                                 _ints((2, n), 0, 2, np.uint8)),
+                (140, 280), "baudot_scan")
+    assert baudot_cuda.decode_plain.__module__ == baudot_cuda.__name__
 
 
 @pytest.mark.parametrize("segments", [1, 4])

@@ -1,7 +1,8 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
 kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec, the
 timing recovery's symbol loop, the chunked AGC's relaxation, agc_ff's
-exact scan and the FP32 ceiling's fma-chain probe) against
+exact scan, the Costas loop, the PLL, the RTTY Baudot decoder and the FP32
+ceiling's fma-chain probe) against
 float64 numpy (the codec against the standard's integer steps in Python),
 and on the card against their plain versions.
 
@@ -19,8 +20,8 @@ import torch
 
 from csdr_tpu_torch import firdes
 from csdr_tpu_torch.kernels import (_build, adpcm_cuda, agc_cuda,
-                                    fastddc_cuda, fft_cuda, fir_cuda,
-                                    probe_cuda, ted_cuda)
+                                    baudot_cuda, carrier_cuda, fastddc_cuda,
+                                    fft_cuda, fir_cuda, probe_cuda, ted_cuda)
 
 torch.set_num_threads(2)
 
@@ -2100,6 +2101,163 @@ def test_cuda_agc_ff_chain_probe_times_its_chain(cuda):
             for n in (agc_cuda.PROBE_MAX // 2, agc_cuda.PROBE_MAX))
     assert a > 8.0 and abs(a - b) < 0.05 * b
     assert agc_cuda.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# the carrier loops (csrc/carrier.cu) and the Baudot decoder (csrc/baudot.cu)
+# ---------------------------------------------------------------------------
+
+def _carrier_rows(rows=3, n=1500, seed=10):
+    """BPSK rows at 32 samples a symbol on carriers 0.001-0.003 cycles a
+    sample off, in noise."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    out = []
+    for r in range(rows):
+        bb = np.repeat(rng.integers(0, 2, n // 32 + 1) * 2.0 - 1.0, 32)[:n]
+        out.append(bb * np.exp(1j * (2 * np.pi * 0.001 * (r + 1) * k + r))
+                   + 0.05 * (rng.standard_normal(n)
+                             + 1j * rng.standard_normal(n)))
+    return np.stack(out).astype(np.complex64)
+
+
+def test_costas_plain_matches_float64():
+    """costas_plain against a float64 model of the recurrence (reference
+    libcsdr.c:2108-2142): 39 dB over the first 128 samples, 30 over all
+    (csdr_tpu's bars against its float64 model)."""
+    x = _carrier_rows(1, 2048)[0]
+    alpha, beta, dmax = (0.0628 * 0.707 * 4 / 1.093, 0.0158 / 1.093, 0.0628)
+    y = carrier_cuda.costas_plain(torch.from_numpy(x), alpha, beta,
+                                  dmax)[0].numpy()
+    ph = fr = 0.0
+    model = np.zeros(len(x), np.complex128)
+    for i, xi in enumerate(x.astype(np.complex128)):
+        v = xi * (np.cos(ph) + 1j * np.sin(ph))
+        model[i] = v
+        e = np.pi * v.real * v.imag
+        fr += e * beta
+        ph = (ph + np.clip(e * alpha + fr, -dmax, dmax)) % (2 * np.pi)
+        ph += 2 * np.pi if ph <= 0 else 0.0
+    assert _snr_db(model[:128], y[:128]) >= 39
+    assert _snr_db(model, y) >= 30
+
+
+def test_pll_plain_matches_float64():
+    """pll_plain (PI) against a float64 model of the recurrence (reference
+    libcsdr.c:1870-1915), NCO sin + j*cos: 30 dB."""
+    k = np.arange(3000)
+    x = np.exp(1j * (2 * np.pi * 0.002 * k + 1.0)).astype(np.complex64)
+    alpha, beta = 0.0888, 0.0039
+    _, nco, _ = carrier_cuda.pll_plain(torch.from_numpy(x), alpha, beta)
+    wrap = lambda p: (p + np.pi) % (2 * np.pi) - np.pi   # noqa: E731
+    op = dp = iir = 0.0
+    model = np.zeros(len(x), np.complex128)
+    for i, xi in enumerate(x.astype(np.complex128)):
+        op = wrap(op + dp)
+        model[i] = np.sin(op) + 1j * np.cos(op)
+        nd = wrap(np.arctan2(xi.real, xi.imag) - op)
+        dp = wrap(nd * alpha + iir)
+        iir += nd * beta
+    assert _snr_db(model, nco.numpy()) >= 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dd,reset", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+def test_cuda_costas_matches_plain(cuda, dd, reset):
+    """carrier_cuda.costas (one launch) against costas_plain on the card,
+    bit for bit: y, error, dphase and the state, which stays on the card;
+    streamed in two calls the same bits."""
+    x = torch.from_numpy(_carrier_rows()).to(cuda)
+    params = (0.0628 * 0.707 * 4 / 1.093, 0.0158 / 1.093,
+              0.02 if reset else 0.0628, dd, reset)
+    n0 = carrier_cuda.LAUNCHES["costas_scan"]
+    got = carrier_cuda.costas(x, *params)
+    assert carrier_cuda.LAUNCHES["costas_scan"] == n0 + 1
+    want = carrier_cuda.costas_plain(x, *params)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert a.is_cuda and _same_bits_or_nan(torch.view_as_real(a)
+                                               if a.is_complex() else a,
+                                               torch.view_as_real(b)
+                                               if b.is_complex() else b)
+    first = carrier_cuda.costas(x[:, :700], *params)
+    rest = carrier_cuda.costas(x[:, 700:], *params, state=first[3])
+    assert _same_bits(torch.view_as_real(torch.cat([first[0], rest[0]], 1)),
+                      torch.view_as_real(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pi_controller", [True, False])
+def test_cuda_pll_matches_plain(cuda, pi_controller):
+    """carrier_cuda.pll (one launch) against pll_plain on the card, bit for
+    bit: -dphase, the NCO and the state."""
+    x = torch.from_numpy(_carrier_rows(seed=11)).to(cuda)
+    alpha, beta = (0.0888, 0.0039) if pi_controller else (0.01, None)
+    n0 = carrier_cuda.LAUNCHES["pll_scan"]
+    got = carrier_cuda.pll(x, alpha, beta)
+    assert carrier_cuda.LAUNCHES["pll_scan"] == n0 + 1
+    want = carrier_cuda.pll_plain(x, alpha, beta)
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], want[0])
+    assert _same_bits(torch.view_as_real(got[1]), torch.view_as_real(want[1]))
+    for a, b in zip(got[2], want[2]):
+        assert a.is_cuda and _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_chain_probes(cuda):
+    """Each loop's probe (the Costas loop, the PLL, the Baudot machine):
+    its last state the kernel's (the wrappers raise otherwise), more
+    cycles a step than an add's latency, the same within 5 % at two
+    lengths; no launch counted."""
+    from csdr_tpu_torch.ops import digital
+    x = torch.from_numpy(_carrier_rows(1, carrier_cuda.PROBE_MAX)[0]).to(
+        cuda)
+    n0 = dict(carrier_cuda.LAUNCHES), dict(baudot_cuda.LAUNCHES)
+    a, b = (carrier_cuda.costas_cycles(x[:n], 0.1, 0.01, 0.0628)
+            for n in (carrier_cuda.PROBE_MAX // 2, carrier_cuda.PROBE_MAX))
+    assert a > 20.0 and abs(a - b) < 0.05 * b
+    a, b = (carrier_cuda.pll_cycles(x[:n], 0.0888, 0.0039)
+            for n in (carrier_cuda.PROBE_MAX // 2, carrier_cuda.PROBE_MAX))
+    assert a > 8.0 and abs(a - b) < 0.05 * b
+    sym = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 2, baudot_cuda.PROBE_MAX).astype(np.uint8)).to(cuda)
+    a, b = (baudot_cuda.chain_cycles(sym[:n], *digital._baudot_tables(cuda))
+            for n in (baudot_cuda.PROBE_MAX // 2, baudot_cuda.PROBE_MAX))
+    assert a > 2.0 and abs(a - b) < 0.05 * b
+    assert (carrier_cuda.LAUNCHES, baudot_cuda.LAUNCHES) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [3, None])
+def test_cuda_baudot_matches_plain(cuda, cap):
+    """baudot_cuda.decode (one launch) against decode_plain on the card,
+    bit for bit: characters, count and state, from carried states the
+    stream never makes too, a cap small enough to drop characters."""
+    from csdr_tpu_torch.ops import digital
+    rng = np.random.default_rng(12)
+    rows, n = 6, 9000
+    sym = rng.integers(0, 2, (rows, n)).astype(np.uint8)
+    sym[::2] = 1
+    for r in range(0, rows, 2):             # framed characters
+        for i in range(0, n - 9, 10):
+            sym[r, i + 1:i + 7] = np.r_[0, rng.integers(0, 2, 5)]
+    state = tuple(torch.tensor(v, dtype=torch.int32, device=cuda) for v in (
+        [0, 1, 2, 3, -1, 0], [0, 1, 0, 1, 5, 0], [0, -7, 31, 27, 1 << 20, 3],
+        [0, 4, 3, (1 << 31) - 1, -1, 0], [0, 1, 0, 1, -3, 1]))
+    cap = cap or n // 7 + 4
+    tables = digital._baudot_tables(cuda)
+    x = torch.from_numpy(sym).to(cuda)
+    n0 = baudot_cuda.LAUNCHES["baudot_scan"]
+    got = baudot_cuda.decode(x, cap, state, *tables)
+    assert baudot_cuda.LAUNCHES["baudot_scan"] == n0 + 1
+    want = baudot_cuda.decode_plain(x, cap, state, *tables)
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert a.is_cuda and _same_bits(a, b)
+    assert int(got[1].max()) > 0
 
 
 # ---------------------------------------------------------------------------
