@@ -42,16 +42,20 @@ prints one JSON line per phase and exits non-zero at the first failure:
    left pick stepping back) through the ring, each bit for bit against
    scan_plain; the probe chain that bounds it (a slot's picks from shared
    memory and its arithmetic) in SM cycles.  Then csdr_tpu's last scans
-   (csrc/carrier.cu, csrc/baudot.cu, one warp a row, one thread on the
-   recurrence): the PLL, P and PI, on 3 rows of 4096 samples of a tone and
-   the RTTY Baudot decoder on 6 rows of 4096 framed symbols (2 rows from
-   carried states the stream never makes, a cap that drops characters)
-   against their plain versions on the card, bit for bit (the PLL: or the
-   first differing sample and the SNR at SWEEP_BAR); each chain's probe
-   (the step on one thread from shared memory, its last state the
-   kernel's) in SM cycles; and each at the CLI's 65 536-sample chunk
-   against the plain version on the CPU host (the PLL at SWEEP_BAR, the
-   decoder bit for bit), its time beside its chain bound.
+   (csrc/carrier.cu, one warp a row, one thread on the recurrence; and
+   csrc/baudot.cu, a row split into segments composed in block scans):
+   the PLL, P and PI, on 3 rows of 4096 samples of a tone and the RTTY
+   Baudot decoder on 12 rows of 4096 symbols (baudot_cases: framed
+   characters, carried states a stream never makes, all ones, all zeros,
+   a periodic word that never frames, noise, tiles on the serial route;
+   a cap that drops characters) and at n of 1, 33 and 1001, against
+   their plain versions on the card, bit for bit (the PLL: or the first
+   differing sample and the SNR at SWEEP_BAR; the decoder's serial route
+   too); each chain's probe (the step on one thread from shared memory,
+   its last state the kernel's) in SM cycles; and each at the CLI's
+   65 536-sample chunk against the plain version on the CPU host (the PLL
+   at SWEEP_BAR, the decoder bit for bit, its two routes bit for bit
+   there and at 134 x 65 536), its time beside its bound.
 3. path: wfm_advanced over 10 s of an FM-modulated 1 kHz tone at 2.4 Msps
    in 2.4 M-sample chunks, through run_offline on the card: the tone comes
    back, each chunk launched the fused kernel once, and the first 2 chunks
@@ -2466,6 +2470,66 @@ def scan_bpsk(n: int, seed: int) -> np.ndarray:
             ).astype(np.complex64)
 
 
+# the Baudot decoder's bound: its serial step's transition, as
+# csrc/baudot.cu's baudot_next writes it, is 31 integer operations a symbol
+# (8 compares, 4 logic, 13 selects, a shift, an or, a mask, an add and the
+# code's mask); the card's INT32 rate is 64 lanes a SM (NVIDIA's Hopper
+# architecture white paper) at the top SM clock
+BAUDOT_INT_OPS = 31
+INT32_LANES = 64
+
+
+def baudot_bound(torch, rows: int, n: int, cap: int, cycles: float) -> dict:
+    """The Baudot decoder's bound by the rule of the kernel table: the
+    bytes it must move (the symbols in, the characters, counts and states
+    out) at the measured memory ceiling (the published rate outside run()),
+    or its integer operations at the card's INT32 rate, whichever is
+    longer; beside it the serial machine's chain (rows x n x the probe's
+    SM cycles a symbol, rows side by side), the floor of a design that
+    runs a row on one thread."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peaks = MEASURE["peaks"] or published(torch)
+    nbytes = rows * (n + cap + 44)
+    t_bytes = nbytes / (peaks["hbm_bw_GBps"] * 1e9) * 1e3
+    ops = rows * n * BAUDOT_INT_OPS
+    t_ops = ops / (sms * INT32_LANES * SM_CLOCK_HZ) * 1e3
+    chain = -(-rows // sms) * n * cycles / SM_CLOCK_HZ * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_note": (f"{nbytes} bytes at "
+                           f"{'measured' if MEASURE['peaks'] else 'published'}"
+                           f" {peaks['hbm_bw_GBps']:.0f} GB/s, or {ops} "
+                           f"integer operations ({BAUDOT_INT_OPS} a symbol) "
+                           f"at {sms} SMs x {INT32_LANES} INT32 lanes x "
+                           f"{SM_CLOCK_HZ / 1e6:.0f} MHz"),
+            "serial_chain_ms": chain, "bytes": nbytes, "int_ops": ops}
+
+
+def baudot_cases(n: int) -> tuple:
+    """The Baudot kernel's adversarial rows of n symbols and their carried
+    states: 6 rows of framed characters (2 from carried states a stream
+    never makes), then all ones, all zeros, a periodic word whose framing
+    never converges (from the seven states its period's map keeps two
+    apart: tests/test_torch_baudot.py's _nonconverging word), noise as
+    bytes 0, 5 and 10, and framed rows from a bit counter of -60 (state 2
+    for 64 symbols, so the first segment, run exactly, ends outside the
+    seven states: the tile takes the serial route) and of 5 (never out of
+    state 2 in the row): rows (12, n) uint8 and the state as five int32
+    lists."""
+    rows = np.stack([rtty_symbols(n, s) for s in range(155, 161)] + [
+        np.ones(n, np.uint8), np.zeros(n, np.uint8),
+        np.resize(np.asarray([0, 1, 1, 1, 1, 0, 0, 1, 1, 1, 1], np.uint8),
+                  n), np.random.default_rng(162).integers(0, 3, n) * 5,
+        rtty_symbols(n, 163), rtty_symbols(n, 164)]).astype(np.uint8)
+    rows[5] = np.random.default_rng(161).integers(0, 3, n) * 5
+    state = ([0, 1, 2, 0, -1, 7, 0, 1, 2, 0, 2, 2],
+             [0, 0, 1, 0, 5, 0, 1, 0, 5, 0, 0, 1],
+             [0, 3, 27, 31, -9, 1 << 20, 27, 0, -4, 31, 5, 3],
+             [0, 0, 4, 0, -1, (1 << 31) - 1, 0, 5, 2, 0, -60, 5],
+             [0, 1, 0, 1, -3, 0, 1, 0, -3, 1, 1, 0])
+    return rows, state
+
+
 def rtty_symbols(n: int, seed: int) -> np.ndarray:
     """RTTY bit symbols: characters (a start bit 0, five data bits, two
     stop bits 1) with idle gaps of 1 to 3 ones, mode selects among them,
@@ -2572,13 +2636,19 @@ def scan_case_line(torch, name: str, source: str, replaces: str, ms: float,
 def phase_scan_kernels(torch) -> list:
     """The PLL's and the Baudot decoder's kernels against their plain
     versions: on the card on 4096 samples (the PLL P and PI, 3 rows of the
-    tone; the Baudot decoder on 6 rows of framed symbols, 2 of them from
-    carried states the stream never makes, and at a cap that drops
-    characters), bit for bit or (the PLL) the first differing sample and
-    the least SNR at SWEEP_BAR; each chain's probe; then each at the
-    CLI's shape (a 65 536-sample chunk, X''s) against the plain version on
-    the CPU host (the PLL at SWEEP_BAR, the Baudot decoder bit for bit),
-    its time beside its chain bound.  Returns those two rows."""
+    tone; the Baudot decoder on baudot_cases' 12 rows, carried states the
+    stream never makes, all ones, all zeros, a periodic word that never
+    frames, noise, tiles on the serial route, at a cap that drops
+    characters), bit for bit (the decoder: characters, count and state,
+    and its serial route the same) or (the PLL) the first differing sample
+    and the least SNR at SWEEP_BAR; the decoder at n of 1, 33 and 1001;
+    each chain's probe; then each at the CLI's shape (a 65 536-sample
+    chunk, X''s) against the plain version on the CPU host (the PLL at
+    SWEEP_BAR, the Baudot decoder bit for bit and its two routes bit for
+    bit), its time beside its bound (the decoder: beside the serial
+    chain, its serial route, an empty launch and its phases' SM cycles,
+    and at 134 x 65 536 the two routes bit for bit).  Returns those two
+    rows."""
     from csdr_tpu_torch.kernels import baudot_cuda, carrier_cuda
     from csdr_tpu_torch.ops import digital, sync
     from csdr_tpu_torch.utils.timing import time_cuda
@@ -2629,39 +2699,64 @@ def phase_scan_kernels(torch) -> list:
     require(cycles["baudot"] > 2.0, f"baudot chain probe: "
                                     f"{cycles['baudot']} cycles")
     emit("kernels", name="baudot_chain_probe", check="SM cycles a symbol of "
-         "the Baudot machine's shortest chain (the transition, branch-free; "
-         "the table read and the emit off it) on one thread from shared "
-         "memory, its last state and characters the kernel's "
-         "(csrc/baudot.cu), the "
-         "decoder's bound", cycles_a_symbol=cycles["baudot"],
+         "the serial Baudot machine's shortest chain (the transition, "
+         "branch-free; the table read and the emit off it) on one thread "
+         "from shared memory, its last state and characters the kernel's "
+         "(csrc/baudot.cu): the floor of a design that runs a row on one "
+         "thread", cycles_a_symbol=cycles["baudot"],
          symbols=baudot_cuda.PROBE_MAX)
-    rows = np.stack([rtty_symbols(COSTAS_SAMPLES, s) for s in range(155,
-                                                                      161)])
-    rows[5] = np.random.default_rng(161).integers(0, 3, COSTAS_SAMPLES) * 5
+    rows, state = baudot_cases(COSTAS_SAMPLES)
+    nrows = len(rows)
     rb = torch.from_numpy(rows).to(dev)
-    carried = tuple(torch.tensor(v, dtype=torch.int32, device=dev) for v in (
-        [0, 1, 2, 0, -1, 7], [0, 0, 1, 0, 5, 0], [0, 3, 27, 31, -9, 1 << 20],
-        [0, 0, 4, 0, -1, (1 << 31) - 1], [0, 1, 0, 1, -3, 0]))
+    carried = tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in state)
+    outs = ("chars", "count", "st", "fig", "shr", "cnt", "rcvd")
+
+    def flat(r):
+        return (r[0], r[1], *r[2])
+
     for cap in (COSTAS_SAMPLES // 7 + 4, 40):
         n0 = baudot_cuda.LAUNCHES["baudot_scan"]
         got = card_vs_plain(
             torch, f"baudot cap {cap}",
-            lambda: baudot_cuda.decode(rb, cap, carried, *tables)[:2],
-            lambda: baudot_cuda.decode_plain(rb, cap, carried, *tables)[:2],
-            ("chars", "count"), 0.0)
+            lambda: flat(baudot_cuda.decode(rb, cap, carried, *tables)),
+            lambda: flat(baudot_cuda.decode_plain(rb, cap, carried,
+                                                  *tables)), outs, 0.0)
         require(got["bit_for_bit"], f"baudot cap {cap}: not bit for bit")
         require(baudot_cuda.LAUNCHES["baudot_scan"] == n0 + 1,
                 f"baudot cap {cap}: not one launch")
+        ser = baudot_cuda.decode_serial(rb, cap, carried, *tables)
+        seg = baudot_cuda.decode(rb, cap, carried, *tables)
+        require(all(torch.equal(a, b) for a, b in zip(flat(seg), flat(ser))),
+                f"baudot cap {cap}: the segmented route is not the serial "
+                "route's")
         ms = time_cuda(lambda: baudot_cuda.decode(rb, cap, carried, *tables),
                        iters=10, queue_ahead_ms=20.0)
+        bound = baudot_bound(torch, nrows, COSTAS_SAMPLES, cap,
+                             cycles["baudot"])
         scan_case_line(torch, "baudot_scan", BAUDOT_SOURCE, replaces_baudot,
-                       ms, scan_bound(torch, COSTAS_SAMPLES, 6,
-                                      cycles["baudot"],
-                                      6 * (COSTAS_SAMPLES + cap + 44), 0),
-                       1, check=f"the Baudot decoder against decode_plain "
-                       f"on the card, cap {cap} (not on a gated path)",
-                       shape={"rows": 6, "symbols": COSTAS_SAMPLES,
-                              "cap": cap}, **got)
+                       ms, bound, 1, check=f"the Baudot decoder against "
+                       f"decode_plain on the card (chars, count, state) and "
+                       f"the serial route, cap {cap}; rows: baudot_cases "
+                       f"(not on a gated path)",
+                       shape={"rows": nrows, "symbols": COSTAS_SAMPLES,
+                              "cap": cap},
+                       beats_chain_by=bound["serial_chain_ms"] / ms, **got)
+    # n of 1 and a ragged tail; rows of 1001 (the CLI's tail) start off
+    # 16-byte alignment, so the threads load them (no bulk copy)
+    for n in (1, 33, 1001):
+        r = torch.from_numpy(np.ascontiguousarray(rows[:, :n])).to(dev)
+        for cap in (n // 7 + 4, 2):
+            got = baudot_cuda.decode(r, cap, carried, *tables)
+            want = baudot_cuda.decode_plain(r, cap, carried, *tables)
+            ser = baudot_cuda.decode_serial(r, cap, carried, *tables)
+            require(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c
+                        in zip(flat(got), flat(want), flat(ser))),
+                    f"baudot n {n} cap {cap}: not decode_plain's bits")
+    emit("kernels", name="baudot_scan", check="n of 1, 33 and 1001 (rows "
+         "off 16-byte alignment, loaded by the threads) x 12 rows of "
+         "baudot_cases at two caps: kernel, serial route and decode_plain "
+         "on the card, bit for bit")
 
     # the CLI's shape: one 65 536-sample chunk, kernel on the card against
     # the plain version on the CPU host (the table's rows)
@@ -2705,32 +2800,69 @@ def phase_scan_kernels(torch) -> list:
     sd = s.to(dev)
     cap = X_CHUNK // 7 + 4
     zero = baudot_cuda.zero_state((), dev)
+    n0 = baudot_cuda.LAUNCHES["baudot_scan"]
     got = baudot_cuda.decode(sd, cap, zero, *tables)
+    require(baudot_cuda.LAUNCHES["baudot_scan"] == n0 + 1,
+            "baudot at the CLI's chunk: not one launch")
     want, plain_ms = host_once(lambda: baudot_cuda.decode(
         s, cap, baudot_cuda.zero_state((), "cpu"),
         *digital._baudot_tables(torch.device("cpu"))))
+    ser = baudot_cuda.decode_serial(sd, cap, zero, *tables)
     torch.cuda.synchronize()
     same = [torch.equal(a.cpu(), b) for a, b in zip(got[:2] + got[2],
                                                     want[:2] + want[2])]
     require(all(same), f"baudot at the CLI's chunk: card against the CPU "
                        f"(chars, count, state): {same}")
+    require(all(torch.equal(a, b) for a, b in zip(got[:2] + got[2],
+                                                  ser[:2] + ser[2])),
+            "baudot at the CLI's chunk: the segmented route is not the "
+            "serial route's")
     ms = time_cuda(lambda: baudot_cuda.decode(sd, cap, zero, *tables),
                    iters=10, queue_ahead_ms=20.0)
-    nbytes = X_CHUNK + cap + 44
-    bound = scan_bound(torch, X_CHUNK, 1, cycles["baudot"], nbytes, 0)
+    serial_ms = time_cuda(lambda: baudot_cuda.decode_serial(sd, cap, zero,
+                                                            *tables),
+                          iters=3, queue_ahead_ms=20.0)
+    empty_ms = time_cuda(baudot_cuda.empty_launch, iters=10,
+                         queue_ahead_ms=20.0)
+    z1 = tuple(t.reshape(1) for t in zero)
+    phases = baudot_cuda.phase_cycles(sd[None], cap, z1, *tables)
+    # 134 rows of the chunk (past the 132 SMs: rows in turns), segmented
+    # against serial, bit for bit
+    big = torch.from_numpy(np.stack([rtty_symbols(X_CHUNK, 300 + r)
+                                     for r in range(134)])).to(dev)
+    zb = baudot_cuda.zero_state((134,), dev)
+    seg = baudot_cuda.decode(big, cap, zb, *tables)
+    ser = baudot_cuda.decode_serial(big, cap, zb, *tables)
+    require(all(torch.equal(a, b) for a, b in zip(seg[:2] + seg[2],
+                                                  ser[:2] + ser[2])),
+            "baudot at 134 x 65 536: the segmented route is not the serial "
+            "route's")
+    big_ms = time_cuda(lambda: baudot_cuda.decode(big, cap, zb, *tables),
+                       iters=10, queue_ahead_ms=20.0)
+    emit("kernels", name="baudot_scan", check="134 rows x 65 536 symbols "
+         "(rows in turns past the SMs): the segmented route bit for bit the "
+         "serial route's", ms=big_ms, chars=int(seg[1].sum()),
+         **baudot_bound(torch, 134, X_CHUNK, cap, cycles["baudot"]))
+    bound = baudot_bound(torch, 1, X_CHUNK, cap, cycles["baudot"])
+    nbytes = bound["bytes"]
     row = {"name": "baudot_scan", "route": "cuda", "source": BAUDOT_SOURCE,
            "replaces": replaces_baudot, "path": "X' rtty",
            "shape": {"rows": 1, "symbols": X_CHUNK, "cap": cap,
-                     "chars": int(got[1]), "command": RTTY_CLI[0]},
+                     "chars": int(got[1]), "command": RTTY_CLI[0],
+                     "threads": baudot_cuda.plan(X_CHUNK),
+                     "segment": baudot_cuda.SEGMENT},
            "bit_exact": True, "max_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms, "plain_on": "cpu", "library_ms": None,
+           "serial_route_ms": serial_ms, "empty_ms": empty_ms,
+           "beats_chain_by": bound["serial_chain_ms"] / ms,
+           "phase_cycles": phases,
            "cycles_a_symbol": ms * 1e-3 * SM_CLOCK_HZ / X_CHUNK, **bound}
     row["share_of_bound"] = row["bound_ms"] / ms
     row.update(roofline_row(torch, "baudot_scan",
                             lambda v, z: baudot_cuda.decode(v, cap, z,
                                                             *tables)[0],
                             sd, zero, nbytes, 0, ms,
-                            ops_s=bound["chain_ms"] / 1e3))
+                            ops_s=bound["bound_ms"] / 1e3))
     emit("kernels", **row)
     out_rows.append(row)
     return out_rows
@@ -6502,6 +6634,7 @@ def run(torch) -> int:
                 c["launches_by_path"][other] = got[c["name"]]
         table.append({k: c[k] for k in keys + (
             "cluster", "bound_tc_ms", "launches_by_path", "bound_note",
+            "serial_chain_ms", "beats_chain_by", "empty_ms",
             "tk_ms", "plain_on", "share_of_bound",
             "share_published", "share_measured") if k in c})
     print(json.dumps({"kernels": table}), flush=True)

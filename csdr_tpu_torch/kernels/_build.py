@@ -67,7 +67,9 @@ _SIGNATURES = {
                                 _F, _VP, _VP],
     "csdr_pll_chain_probe": [_VP, _VP, _I, _F, _F, _I, _F, _F, _F, _VP,
                              _VP],
-    "csdr_baudot_scan": [_VP, _I, _I, _I] + [_VP] * 15,
+    "csdr_baudot_scan": [_VP, _I, _I, _I, _I, _I] + [_VP] * 15,
+    "csdr_baudot_empty": [_VP],
+    "csdr_baudot_phase_probe": [_VP, _I, _I, _I, _I, _I] + [_VP] * 16,
     "csdr_baudot_chain_probe": [_VP, _VP, _I, _VP, _VP] + [_I] * 5
                                + [_VP, _VP],
 }

@@ -2234,7 +2234,11 @@ def test_cuda_scan_chain_probes(cuda):
 def test_cuda_baudot_matches_plain(cuda, cap):
     """baudot_cuda.decode (one launch) against decode_plain on the card,
     bit for bit: characters, count and state, from carried states the
-    stream never makes too, a cap small enough to drop characters."""
+    stream never makes too, a cap small enough to drop characters; on
+    rows of framed characters, noise, all ones, all zeros and a periodic
+    word whose framing never converges, from a bit counter of -60 and of 5
+    (tiles on the serial route); decode_serial (every tile on the serial
+    route) the same bits."""
     from csdr_tpu_torch.ops import digital
     rng = np.random.default_rng(12)
     rows, n = 6, 9000
@@ -2243,9 +2247,16 @@ def test_cuda_baudot_matches_plain(cuda, cap):
     for r in range(0, rows, 2):             # framed characters
         for i in range(0, n - 9, 10):
             sym[r, i + 1:i + 7] = np.r_[0, rng.integers(0, 2, 5)]
+    sym = np.concatenate([sym, np.stack([
+        np.ones(n, np.uint8), np.zeros(n, np.uint8),
+        np.resize(np.asarray([0, 1, 1, 1, 1, 0, 0, 1, 1, 1, 1], np.uint8), n),
+        sym[0], sym[2]])])
     state = tuple(torch.tensor(v, dtype=torch.int32, device=cuda) for v in (
-        [0, 1, 2, 3, -1, 0], [0, 1, 0, 1, 5, 0], [0, -7, 31, 27, 1 << 20, 3],
-        [0, 4, 3, (1 << 31) - 1, -1, 0], [0, 1, 0, 1, -3, 1]))
+        [0, 1, 2, 3, -1, 0, 0, 1, 2, 2, 2],
+        [0, 1, 0, 1, 5, 0, 1, 0, 5, 0, 1],
+        [0, -7, 31, 27, 1 << 20, 3, 27, 0, -4, 5, 3],
+        [0, 4, 3, (1 << 31) - 1, -1, 0, 0, 5, 2, -60, 5],
+        [0, 1, 0, 1, -3, 1, 1, 0, -3, 1, 0]))
     cap = cap or n // 7 + 4
     tables = digital._baudot_tables(cuda)
     x = torch.from_numpy(sym).to(cuda)
@@ -2253,11 +2264,39 @@ def test_cuda_baudot_matches_plain(cuda, cap):
     got = baudot_cuda.decode(x, cap, state, *tables)
     assert baudot_cuda.LAUNCHES["baudot_scan"] == n0 + 1
     want = baudot_cuda.decode_plain(x, cap, state, *tables)
+    ser = baudot_cuda.decode_serial(x, cap, state, *tables)
     torch.cuda.synchronize()
     assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
-    for a, b in zip(got[2], want[2]):
-        assert a.is_cuda and _same_bits(a, b)
+    assert _same_bits(ser[0], want[0]) and _same_bits(ser[1], want[1])
+    for a, b, c in zip(got[2], want[2], ser[2]):
+        assert a.is_cuda and _same_bits(a, b) and _same_bits(c, b)
     assert int(got[1].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(65536, 0), (70001, 3), (1001, 1)])
+def test_cuda_baudot_routes_agree(cuda, n, offset):
+    """The segmented route against the serial route (decode_serial) on the
+    card, bit for bit, on 3 rows of framed characters over several tiles,
+    the rows starting off 16-byte alignment where n or the offset puts
+    them there (loaded by the threads instead of the bulk copy)."""
+    from csdr_tpu_torch.ops import digital
+    rng = np.random.default_rng(n)
+    flat = np.ones(3 * n + offset, np.uint8)
+    i = 0
+    while i + 8 < len(flat):
+        i += int(rng.integers(1, 4))
+        flat[i:i + 6] = np.r_[0, rng.integers(0, 2, 5)]
+        i += 8
+    x = torch.from_numpy(flat).to(cuda)[offset:].reshape(3, n)
+    tables = digital._baudot_tables(cuda)
+    st = baudot_cuda.zero_state((3,), cuda)
+    got = baudot_cuda.decode(x, n // 7 + 4, st, *tables)
+    ser = baudot_cuda.decode_serial(x, n // 7 + 4, st, *tables)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2] + got[2], ser[:2] + ser[2]):
+        assert _same_bits(a, b)
+    assert int(got[1].min()) > n // 20
 
 
 # ---------------------------------------------------------------------------
