@@ -236,8 +236,11 @@ prints one JSON line per phase and exits non-zero at the first failure:
    slots, card and CPU against float64 per channel.
 
 13. the byte edge: K3 forward at the waterfall's N=4096, B=837 against its
-   plain version and cuFFT, and what W's fft_cc runs (K3 and the
-   natural-order gather, fft_natural) against cuFFT; the IMA ADPCM codec
+   plain version and cuFFT (on no path now), and what W's fft_cc runs
+   (fft_natural: K3's forward storing natural order, one launch) bit for
+   bit K3 and the order gather at W's and X''s shapes and at every N from
+   128 to 16384, against cuFFT, timed beside cuFFT and the two-launch
+   route on rotated inputs; the IMA ADPCM codec
    kernel, encode and decode, against its plain version on the card bit
    for bit (the 9 rows of a real waterfall chunk, dB rows holding -inf,
    +inf, NaN and +-400 dB through compress_fft_adpcm_rows, a stream in
@@ -256,12 +259,12 @@ prints one JSON line per phase and exits non-zero at the first failure:
        every 2867 samples) from raw u8 I/Q, 10 chunks of 2 399 679 samples
        (1 s, 9 rows, 837 frames): convert_u8_c | fft_cc_block(4096, 2867)
        | logaveragepower_block(-70, 4096, 93) | fft_exchange_sides_ff |
-       compress_fft_adpcm_rows: K3 once and the codec once a chunk, four
-       tones each in its column within 1 bin, the card's bytes equal to
-       the plain codec's on the card's dB rows, linear averaged power card
-       vs CPU >= 100 dB (the share of rows whose bytes equal the CPU's
-       reported, not gated), and run_offline from the host array bit for
-       bit the same;
+       compress_fft_adpcm_rows: fft_natural once and the codec once a
+       chunk, four tones each in its column within 1 bin, the card's
+       bytes equal to the plain codec's on the card's dB rows, linear
+       averaged power card vs CPU >= 100 dB (the share of rows whose
+       bytes equal the CPU's reported, not gated), and run_offline from
+       the host array bit for bit the same;
    W1  BASELINE config 1 with OpenWebRX's compressed audio from raw u8
        I/Q: 10 s of the FM 1 kHz tone at 240 ksps, convert_u8_c |
        wfm_basic() | convert_f_s16 | paired_encode_block() (whole sample
@@ -295,16 +298,16 @@ prints one JSON line per phase and exits non-zero at the first failure:
        before and read just after (a replay counts its capture's
        launches), then with --device cpu: fir_decimate_cc (K2, and
        K2 at its shape D=10/T=79/kout=6553 against its plain version),
-       bandpass_fir_fft_cc (K3 both ways), fft_cc 4096 2867 (K3 through
-       fft_natural), fastddc_fwd_cc 16 then fastddc_inv_cc 0.1 16 (K4),
-       the ADPCM codec both ways, agc_ff 200 0.2 0.01 0.0001 65536 5 (an
-       attack wait: the exact scan's kernel once a chunk, the bytes bit
-       for bit --device cpu's), bpsk_costas_loop_cc 0.01, pll_cc 2 0.01
-       and rtty_line_decoder_u8_u8 over a chunk and a tail (each its
-       kernel once a chunk; the RTTY bytes bit for bit, the PLL at
-       SWEEP_BAR, the Costas loop at its first-256 bar with |y| = |x|);
-       each command's step on its first chunk
-       eager and captured (chunk_cost: issued and device-only ms, busy
+       bandpass_fir_fft_cc (K3 both ways), fft_cc 4096 2867 (fft_natural,
+       K3's natural-order form), fastddc_fwd_cc 16 then fastddc_inv_cc
+       0.1 16 (K4), the ADPCM codec both ways, agc_ff 200 0.2 0.01
+       0.0001 65536 5 (an attack wait: the exact scan's kernel once a
+       chunk, the bytes bit for bit --device cpu's), bpsk_costas_loop_cc
+       0.01, pll_cc 2 0.01 and rtty_line_decoder_u8_u8 over a chunk
+       and a tail (each its kernel once a chunk; the RTTY bytes bit for
+       bit, the PLL at SWEEP_BAR, the Costas loop at its first-256 bar
+       with |y| = |x|); each command's step on its first chunk eager and
+       captured (chunk_cost: issued and device-only ms, busy
        share, host CUDA calls, the host clock a chunk); live --fd
        retunes, captured: shift_addition_cc (at most one capture) and
        fastddc_inv_cc (none: its rows rewritten in place), the output
@@ -931,7 +934,8 @@ def phase_kernels(torch):
         {"kernel": "K2 _fir_vmem_kernel", "status": "ported",
          "wrapper": "csdr_tpu_torch.kernels.fir_cuda.fir_decimate"},
         {"kernel": "K3 _fft_fwd_kernel/_fft_inv_kernel", "status": "ported",
-         "wrapper": "csdr_tpu_torch.kernels.fft_cuda.fft_ko / ifft_ko"},
+         "wrapper": "csdr_tpu_torch.kernels.fft_cuda.fft_ko / ifft_ko / "
+                    "fft_natural"},
         {"kernel": "K4 fastddc _inv_kernel", "status": "ported",
          "wrapper": "csdr_tpu_torch.kernels.fastddc_cuda.fastddc_inv"},
         {"kernel": "K5 _fir_poly_kernel", "status": "ported",
@@ -964,7 +968,11 @@ def _timed_sets(make, nsets=4):
 
 
 def fft_case(torch, name, n, b, seed):
-    """K3 (fft_ko or ifft_ko) at (N, B) against its plain version."""
+    """K3 (fft_ko, ifft_ko, or fft_natural: its forward storing natural
+    order, one launch) at (N, B) against its plain version.  fft_natural's
+    plain version is torch.fft.fft, its CPU route; it is also held bit for
+    bit against the two-launch route it replaces, ko_to_natural(fft_ko(x)),
+    which is timed beside it."""
     from csdr_tpu_torch.kernels import _build, fft_cuda
     from csdr_tpu_torch.utils.timing import time_cuda
 
@@ -973,15 +981,24 @@ def fft_case(torch, name, n, b, seed):
     sets, pick = _timed_sets(lambda i: torch.randn(
         b, n, dtype=torch.complex64, device=dev, generator=gen))
     kern = getattr(fft_cuda, name)
-    plain = getattr(fft_cuda, name + "_plain")
+    natural = name == "fft_natural"
+    inverse = name == "ifft_ko"
+    plain = (torch.fft.fft if natural
+             else getattr(fft_cuda, name + "_plain"))
+
+    def two_launch(x):
+        return fft_cuda.ko_to_natural(fft_cuda.fft_ko(x))
+
     yk, yp = kern(sets[0]), plain(sets[0])
+    same = natural and torch.equal(yk, two_launch(sets[0]))
     torch.cuda.synchronize()
+    require(same or not natural, f"fft_natural N={n} B={b}: differs from "
+                                 "ko_to_natural(fft_ko(x))")
     yk, yp = yk.cpu().numpy(), yp.cpu().numpy()
     snr = snr_db(yp, yk)
     require(np.all(np.isfinite(yk)), f"{name}: non-finite output")
     require(snr > SNR_BAR, f"{name} N={n} B={b}: SNR {snr:.1f} dB vs plain "
                            f"<= {SNR_BAR}")
-    inverse = name == "ifft_ko"
     ms = time_cuda(lambda: kern(pick()), iters=40, queue_ahead_ms=20.0)
     plain_ms = time_cuda(lambda: plain(pick()), iters=20, queue_ahead_ms=20.0)
     if inverse:
@@ -996,10 +1013,21 @@ def fft_case(torch, name, n, b, seed):
     nbytes = 16 * b * n
     flops = 5 * b * n * int(np.log2(n))
     bound, bound_by = least_ms(torch, nbytes, flops)
+    if natural:
+        replaces = {"replaces": "csdr_tpu/kernels/fft_pallas.py:458",
+                    "replaces_note": "fft_natural: the pallas_call of :364 "
+                                     "(K3 forward, :220), then ko_to_natural "
+                                     "(:434)",
+                    "bit_for_bit_two_launch": same,
+                    "two_launch_ms": time_cuda(
+                        lambda: two_launch(pick()), iters=40,
+                        queue_ahead_ms=20.0)}
+    else:
+        replaces = {"replaces": ("csdr_tpu/kernels/fft_pallas.py:265"
+                                 if inverse else
+                                 "csdr_tpu/kernels/fft_pallas.py:220")}
     return {
-        "name": name, "route": "cuda", "source": FFT_SOURCE,
-        "replaces": ("csdr_tpu/kernels/fft_pallas.py:265" if inverse
-                     else "csdr_tpu/kernels/fft_pallas.py:220"),
+        "name": name, "route": "cuda", "source": FFT_SOURCE, **replaces,
         "shape": {"N": n, "B": b, "radix_plan": fft_cuda.radix_plan(n),
                   "frames_per_block":
                       _build.lib().csdr_fft_ko_frames_per_block(n, b)},
@@ -1007,14 +1035,40 @@ def fft_case(torch, name, n, b, seed):
         "max_abs_err": float(np.max(np.abs(yk - yp))),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by,
+        "share_of_bound": bound / ms,
         "library_ms": lib_ms,
         "library_call": ("torch.fft.ifft(norm='forward')" if inverse
                          else "torch.fft.fft") + " on (B, N) complex64 in "
-                        "natural order (cuFFT); the kernel-order gather is "
-                        "not in it",
+                        "natural order (cuFFT)" + (
+                            "; the plain version is the same call" if natural
+                            else "; the kernel-order gather is not in it"),
         "bytes": nbytes, "flops": flops,
         **roofline_row(torch, name, kern, sets[0], None, nbytes, flops, ms),
     }
+
+
+def fft_natural_sweep(torch, seed):
+    """fft_natural bit for bit ko_to_natural(fft_ko(x)) at every N the
+    kernel takes, B = 1 and 37, and against cuFFT at SNR_BAR."""
+    from csdr_tpu_torch.kernels import fft_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = float("inf")
+    for k in range(7, 15):
+        for b in (1, 37):
+            x = torch.randn(b, 1 << k, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            y = fft_cuda.fft_natural(x)
+            require(torch.equal(y, fft_cuda.ko_to_natural(fft_cuda.fft_ko(
+                x))), f"fft_natural N={1 << k} B={b}: differs from "
+                      "ko_to_natural(fft_ko(x))")
+            worst = min(worst, snr_db(torch.fft.fft(x).cpu().numpy(),
+                                      y.cpu().numpy()))
+    require(worst > SNR_BAR, f"fft_natural: SNR {worst:.1f} dB vs "
+                             f"torch.fft.fft <= {SNR_BAR}")
+    return {"n": [1 << k for k in range(7, 15)], "b": [1, 37],
+            "bit_for_bit_two_launch": True, "worst_snr_db": worst}
 
 
 def inv_case(torch, d, b, rates, seed):
@@ -5202,39 +5256,31 @@ def codec_redesign_cases(torch) -> dict:
 
 
 def phase_byte_edge_kernels(torch):
-    """K3 forward at the waterfall's N=4096, B=837; the ADPCM kernel, encode
-    and decode, against its plain version on the card: on the 9 rows of a
-    real waterfall chunk (W's first), through compress_fft_adpcm_rows on dB
-    rows holding -inf, +inf, NaN and +-400 dB, on a stream in two chunks
-    with the state carried, at W1's 48 000-sample audio chunk, and on the
-    cases of codec_redesign_cases."""
+    """K3 forward at the waterfall's N=4096, B=837 (on no path); fft_natural
+    (K3's natural-order forward) at W's and X''s shapes and its sweep over
+    every N; the ADPCM kernel, encode and decode, against its plain
+    version on the card: on the 9 rows of a real waterfall chunk (W's
+    first), through compress_fft_adpcm_rows on dB rows holding -inf, +inf,
+    NaN and +-400 dB, on a stream in two chunks with the state carried, at
+    W1's 48 000-sample audio chunk, and on the cases of
+    codec_redesign_cases."""
     from csdr_tpu_torch.ops import adpcm, spectrum
     from csdr_tpu_torch.kernels import adpcm_cuda
 
-    from csdr_tpu_torch.kernels import fft_cuda
-    from csdr_tpu_torch.utils.timing import time_cuda
-
     dev = torch.device("cuda")
     frames = W_CHUNK // W_EVERY
-    case_k3 = dict(fft_case(torch, "fft_ko", W_FFT, frames, 41), path="W")
-    # what W's fft_cc runs: K3 and the natural-order gather, beside cuFFT
-    xs = torch.randn(frames, W_FFT, dtype=torch.complex64, device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(43))
-    nat = fft_cuda.fft_natural(xs)
-    ref = torch.fft.fft(xs)
-    torch.cuda.synchronize()
-    nat_snr = snr_db(ref.cpu().numpy(), nat.cpu().numpy())
-    require(nat_snr > SNR_BAR, f"fft_natural N={W_FFT}: SNR {nat_snr:.1f} "
-                               f"dB vs torch.fft.fft <= {SNR_BAR}")
-    nat_ms = time_cuda(lambda: fft_cuda.fft_natural(xs), iters=40,
-                       queue_ahead_ms=20.0)
-    cufft_ms = time_cuda(lambda: torch.fft.fft(xs), iters=40,
-                         queue_ahead_ms=20.0)
-    emit("kernels", name="fft_natural", shape={"N": W_FFT, "B": frames},
-         check="fft_ko then ko_to_natural, as W's fft_cc runs it, against "
-               "torch.fft.fft", snr_db=nat_snr, ms=nat_ms,
-         library_ms=cufft_ms, k3_ms=case_k3["ms"],
-         gather_bytes=2 * 8 * frames * W_FFT)
+    # K3 in kernel order at W's shape: on no path since fft_natural
+    # stores natural order itself
+    case_k3 = dict(fft_case(torch, "fft_ko", W_FFT, frames, 41),
+                   path="not on a path")
+    # what W's fft_cc runs, and X''s fft_cc at its 22 frames a chunk
+    case_nat = dict(fft_case(torch, "fft_natural", W_FFT, frames, 43),
+                    path="W")
+    case_xp = dict(fft_case(torch, "fft_natural", W_FFT, 22, 44),
+                   path="X' fft_cc")
+    emit("kernels", name="fft_natural", check="bit for bit "
+         "ko_to_natural(fft_ko(x)) at every N, B = 1 and 37",
+         **fft_natural_sweep(torch, 45))
     chains = adpcm_chains(torch)
     emit("kernels", name="adpcm_chain_probe", check="SM cycles a link of "
          "the chains that bound the codec (csrc/adpcm.cu)", **chains)
@@ -5285,7 +5331,7 @@ def phase_byte_edge_kernels(torch):
     case_w1d = dict(adpcm_case(torch, "adpcm_decode", p1, one, chains),
                     path="W1")
     redesign = codec_redesign_cases(torch)
-    for c in (case_k3, case_w, dec_w, case_w1, case_w1d):
+    for c in (case_k3, case_nat, case_xp, case_w, dec_w, case_w1, case_w1d):
         emit("kernels", **c)
     emit("kernels", name="adpcm", check="edges and a carried stream",
          edge_rows_bit_exact=edges_same, stream_two_chunks_bit_exact=
@@ -5293,18 +5339,19 @@ def phase_byte_edge_kernels(torch):
     emit("kernels", name="adpcm", check="saturating and long decoder rows, "
          "carried states out of range, encoder rows over two blocks; bit "
          "for bit with the state", **redesign)
-    return [case_k3, case_w, case_w1, case_w1d]
+    return [case_nat, case_w, case_w1, case_w1d]
 
 
 def phase_waterfall_path(torch):
     """Path W: 10 chunks of 1 s of u8 I/Q at 2.4 Msps through the waterfall
     chain on the card, with every launch count zeroed just before and read
-    just after: K3 once and the codec once a chunk, each tone in its
-    column, the card's bytes equal to the plain codec's on the card's own
-    dB rows, the linear averaged power equal to the port's CPU run at
-    W_POWER_BAR (and the share of rows whose bytes equal the CPU's,
-    ungated); then the same through run_offline from the host array (the
-    host clock with the u8 upload), bit for bit the first run."""
+    just after: fft_natural (K3's natural-order forward) once and the
+    codec once a chunk, each tone in its column, the card's bytes equal
+    to the plain codec's on the card's own dB rows, the linear averaged
+    power equal to the port's CPU run at W_POWER_BAR (and the share of
+    rows whose bytes equal the CPU's, ungated); then the same through
+    run_offline from the host array (the host clock with the u8 upload),
+    bit for bit the first run."""
     from csdr_tpu_torch import run_offline
     from csdr_tpu_torch.kernels import adpcm_cuda
     from csdr_tpu_torch.ops import adpcm
@@ -5331,7 +5378,7 @@ def phase_waterfall_path(torch):
     wall = time.perf_counter() - t0
     launches = launches_all()
     nrows = W_CHUNKS * W_FPS
-    require_launches(launches, {"fft_ko": W_CHUNKS,
+    require_launches(launches, {"fft_natural": W_CHUNKS,
                                 "adpcm_encode": W_CHUNKS}, "path W")
     require(rows.shape == (nrows, W_FFT) and sent.shape == (
         nrows, (W_FFT + 10) // 2), f"path W: rows {tuple(rows.shape)}, "
@@ -5367,7 +5414,7 @@ def phase_waterfall_path(torch):
     out = run_offline(pipe, np.concatenate(u8), block_size=2 * W_CHUNK)
     wall_ro = time.perf_counter() - t0
     launches_ro = launches_all()
-    require_launches(launches_ro, {"fft_ko": W_CHUNKS,
+    require_launches(launches_ro, {"fft_natural": W_CHUNKS,
                                    "adpcm_encode": W_CHUNKS},
                      "path W through run_offline")
     require(np.array_equal(out, sent.cpu().numpy()),
@@ -6000,7 +6047,7 @@ def phase_cli_kernels(torch):
     and read just after, then the same command with --device cpu:
     fir_decimate_cc 10 0.05 HAMMING (K2; SSB_BAR, path C's bar for K2),
     bandpass_fir_fft_cc 0 0.2 0.05 (K3 forward and inverse; SSB_BAR, C's
-    bar for K3), fft_cc 4096 2867 (K3 through fft_natural; W_POWER_BAR),
+    bar for K3), fft_cc 4096 2867 (fft_natural; W_POWER_BAR),
     fastddc_fwd_cc 16 (no kernel: its natural-order forward is
     torch.fft) then fastddc_inv_cc 0.1 16 on the card's spectra (K4;
     CHANNEL_BAR), encode_ima_adpcm_i16_u8 and decode_ima_adpcm_u8_i16
@@ -6031,7 +6078,7 @@ def phase_cli_kernels(torch):
         cf, {"fft_ko": nb, "ifft_ko": nb}, SSB_BAR)
     got["fft_cc"] = x_prime_case(
         "fft_cc", ["fft_cc", str(W_FFT), str(W_EVERY)], cf,
-        {"fft_ko": pumped_chunks(XP_SAMPLES, W_EVERY)}, W_POWER_BAR)
+        {"fft_natural": pumped_chunks(XP_SAMPLES, W_EVERY)}, W_POWER_BAR)
     ddc = fastddc.fastddc_init(0.05, 16)
     fwd = x_prime_case("fastddc_fwd_cc", ["fastddc_fwd_cc", "16"], cf,
                        {}, CHANNEL_BAR)["out"]
@@ -6547,11 +6594,11 @@ def run(torch) -> int:
     # launches of each kernel on the path that gives it its shape: K1 from
     # wfm_advanced, K2 from the unfused chain and from C, K3 forward from B
     # and C, K3 inverse from C, K4 from A, K5 from P, K2 at T=81 from D,
-    # K2 at D=16/T=79 from the td server, K3 forward at N=4096 and the
-    # codec's encoder on 9 rows from W, the codec both ways on one audio
-    # stream from W1, the TED from G (and G', M, M'), the AGC from E (and F),
-    # the Costas loop from G_c (and X'), the PLL and the Baudot decoder
-    # from X' at the CLI's chunk
+    # K2 at D=16/T=79 from the td server, K3's natural-order forward at
+    # N=4096 and the codec's encoder on 9 rows from W, the codec both
+    # ways on one audio stream from W1, the TED from G (and G', M, M'),
+    # the AGC from E (and F), the Costas loop from G_c (and X'), the PLL
+    # and the Baudot decoder from X' at the CLI's chunk
     paths_of = {
         "D": ("D: nfm_receiver(decimation=50, audio_rate=48000)",
               receivers["D"][0]),
@@ -6611,7 +6658,7 @@ def run(torch) -> int:
                                    **xp["fastddc_inv_cc"]},
             ("fft_ko", "C"): xp["bandpass_fir_fft_cc"],
             ("ifft_ko", "C"): xp["bandpass_fir_fft_cc"],
-            ("fft_ko", "W"): xp["fft_cc"],
+            ("fft_natural", "W"): xp["fft_cc"],
             ("adpcm_encode", "W1"): xp["encode_ima_adpcm_i16_u8"],
             ("adpcm_decode", "W1"): xp["decode_ima_adpcm_u8_i16"],
             ("ted_scan", "G"): {"G'": g_launches["G'"], "M": mesh["M"],
@@ -6635,7 +6682,7 @@ def run(torch) -> int:
         table.append({k: c[k] for k in keys + (
             "cluster", "bound_tc_ms", "launches_by_path", "bound_note",
             "serial_chain_ms", "beats_chain_by", "empty_ms",
-            "tk_ms", "plain_on", "share_of_bound",
+            "tk_ms", "plain_on", "share_of_bound", "two_launch_ms",
             "share_published", "share_measured") if k in c})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

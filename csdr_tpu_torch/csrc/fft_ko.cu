@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernels in csdr_tpu/kernels/fft_pallas.py:
 //   _fft_fwd_kernel (INV = false) and _fft_inv_kernel (INV = true),
-// which share one pallas_call there as they share this template here.
+// which share one pallas_call there as they share this template here,
+// and fft_natural (that pallas_call, then ko_to_natural's relayout) as
+// one launch of the forward in natural bin order (NAT = true).
 //
 // Contract (the TPU kernels' own, so that their consumers port unchanged):
 // frames are (B, N) complex64, N a power of two in 128..16384, any B.
@@ -10,6 +12,8 @@
 //             X[k] = sum_n x[n] exp(-2*pi*i*k*n/N)            (FFTW sign)
 //   inverse:  takes kernel order, returns natural order,
 //             y[n] = sum_k X[k] exp(+2*pi*i*k*n/N)            (unnormalized)
+//   natural:  the forward, y[k] = X[k]: the same arithmetic and bits as
+//             the forward followed by the gather to natural order
 // fastddc folds the bin order into its class matrices and fftfilt into
 // its taps spectrum, so fwd -> pointwise -> inv never reorders.
 //
@@ -50,6 +54,22 @@
 //     the transpose: the same passes in reverse order, reading kernel
 //     order as the forward writes it, conjugate twiddles before each
 //     DFT, natural order stored by the last pass.
+//   - Natural order in one launch.  The forward's last pass then writes
+//     its 16 bins kb + j*N/16 into the frame's own shared buffer at their
+//     natural positions (after a barrier: every thread has read its
+//     last-pass points), and after a second barrier the frame's threads
+//     copy the N points out as float4s, consecutive lanes on consecutive
+//     16 B (two float2 loads each).  The buffer is laid out by nat_slot,
+//     an XOR swizzle of each point's bank pair (its position mod 16) by
+//     a linear map of its row (position / 16), chosen so that both the
+//     scatter (a half-warp's 16 bins at one j) and the copy's loads hit
+//     16 distinct bank pairs at every N from 256 to 16384: no bank
+//     conflict.  (The passes' pad would conflict 2-way on the scatter at
+//     N = 512 and 4096 and 8-way at 8192 and 16384.)  At N = 128 kernel
+//     order is natural order and the forward's own store is kept.
+//     Storing the registers straight to natural positions instead puts
+//     a warp's lanes N/256 points apart at N = 4096, each 8 B store a
+//     partial sector; that form measured slower on the H100 (PERF.md).
 //   - Twiddles.  One table per N, computed in float64 on the host and
 //     rounded to complex64 (fft_cuda.twiddles), held on the card per
 //     (N, device): pass by pass, the R-1 rows of S entries
@@ -231,6 +251,25 @@ __device__ __forceinline__ int ko_pos(int k) {
   }
 }
 
+// The natural-order buffer's layout: point a at a ^ h(a >> 4), where row
+// bit b flips the bank pair (the low 4 bits) by nibble b of kNatSwizzle
+// (5, 2, 9, 4, 2, 8 for row bits 0..5; higher bits flip none).  h is
+// linear, so nat_slot(a ^ c) = nat_slot(a) ^ nat_slot(c): a thread finds
+// its 16 slots from one call and constants.  The four bits of a that a
+// half-warp's lanes vary in the scatter (which four depends on N's
+// plan), and the four they vary in the copy (bits 1-4), move the bank
+// pair independently at every N: 16 lanes, 16 bank pairs
+// (tests/test_torch_fft_natural.py models the store and counts the
+// conflicts).
+constexpr int kNatSwizzle = 0x824925;
+
+__host__ __device__ constexpr int nat_slot(int a) {
+  int h = 0;
+  for (int b = 0; b < 6; ++b)
+    if ((a >> (4 + b)) & 1) h ^= (kNatSwizzle >> (4 * b)) & 15;
+  return a ^ h;
+}
+
 // ---- one pass ------------------------------------------------------------
 
 // The K-th pass run (digit I = K forward, P-1-K inverse) on the E points
@@ -238,8 +277,8 @@ __device__ __forceinline__ int ko_pos(int k) {
 // shared), DFTs and twiddles, store (device memory on the last pass).
 // Group q of the thread fixes every digit but I, with consecutive lanes on
 // consecutive low digits (those below I): base is its position with digit
-// I at 0.
-template <int LOGN, bool INV, int K>
+// I at 0.  NAT: the forward's last pass stores natural order through s.
+template <int LOGN, bool INV, bool NAT, int K>
 __device__ __forceinline__ void pass(float2* v, float2* s,
                                      const float2* __restrict__ xf,
                                      float2* __restrict__ yf,
@@ -254,6 +293,7 @@ __device__ __forceinline__ void pass(float2* v, float2* s,
   constexpr bool FIRST = K == 0, LAST = K == S::P - 1;
   constexpr bool TWIDDLE = I < S::P - 1;          // the last digit has none
   static_assert(SB > 0 || R == 16, "the last digit is radix 16");
+  static_assert(!(NAT && INV), "natural order is a forward's");
 
   int base[G], low[G];
 #pragma unroll
@@ -324,7 +364,27 @@ __device__ __forceinline__ void pass(float2* v, float2* s,
   }
 
   // store
-  if constexpr (LAST) {
+  if constexpr (LAST && NAT && LOGN > 7) {
+    __syncthreads();   // every thread has read its points from s
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int k0 = nat_slot(bin_of<LOGN>(base[q]));
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        s[k0 ^ nat_slot(j * (S::N / 16))] = v[q * R + j];
+    }
+    __syncthreads();
+    if (live) {
+      const int p0 = nat_slot(2 * t);
+      float4* y4 = reinterpret_cast<float4*>(yf);
+#pragma unroll
+      for (int i = 0; i < S::E / 2; ++i) {
+        const int p = p0 ^ nat_slot(2 * i * S::TPF);
+        const float2 a = s[p], b = s[p ^ 1];
+        y4[t + i * S::TPF] = make_float4(a.x, a.y, b.x, b.y);
+      }
+    }
+  } else if constexpr (LAST) {
     if (live) {
 #pragma unroll
       for (int q = 0; q < G; ++q) {
@@ -352,23 +412,23 @@ __device__ __forceinline__ void pass(float2* v, float2* s,
   }
 }
 
-template <int LOGN, bool INV, int K>
+template <int LOGN, bool INV, bool NAT, int K>
 __device__ __forceinline__ void passes(float2* v, float2* s,
                                        const float2* __restrict__ xf,
                                        float2* __restrict__ yf,
                                        const float2* __restrict__ tw, int t,
                                        bool live) {
-  pass<LOGN, INV, K>(v, s, xf, yf, tw, t, live);
+  pass<LOGN, INV, NAT, K>(v, s, xf, yf, tw, t, live);
   if constexpr (K + 1 < Shape<LOGN>::P) {
     __syncthreads();   // each pass stores only the points it loaded
-    passes<LOGN, INV, K + 1>(v, s, xf, yf, tw, t, live);
+    passes<LOGN, INV, NAT, K + 1>(v, s, xf, yf, tw, t, live);
   }
 }
 
 // (a minimum of one block an SM leaves ptxas free to hold a pass's loads
 // in flight together: ~105 registers at N=1024 and 78 at N=256, and 4-8 %
 // faster at paths B's and C's shapes than the 56-72 it picks unasked)
-template <int LOGN, bool INV>
+template <int LOGN, bool INV, bool NAT>
 __global__ void __launch_bounds__(Shape<LOGN>::THREADS, 1)
 fft_ko_kernel(const float2* __restrict__ x, float2* __restrict__ y,
               const float2* __restrict__ tw, long long batch, int fpb) {
@@ -380,7 +440,7 @@ fft_ko_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   const bool live = f < batch;
   float2* s = reinterpret_cast<float2*>(smem4) + fl * S::FRAME;
   float2 v[S::E];
-  passes<LOGN, INV, 0>(v, s, x + f * S::N, y + f * S::N, tw, t, live);
+  passes<LOGN, INV, NAT, 0>(v, s, x + f * S::N, y + f * S::N, tw, t, live);
 }
 
 // ---- launch --------------------------------------------------------------
@@ -407,7 +467,7 @@ int frames_per_block(int logn, long long batch) {
   return fpb;
 }
 
-template <int LOGN, bool INV>
+template <int LOGN, bool INV, bool NAT>
 int launch_n(const float2* x, float2* y, const float2* tw, long long batch,
              cudaStream_t stream) {
   using S = Shape<LOGN>;
@@ -416,18 +476,18 @@ int launch_n(const float2* x, float2* y, const float2* tw, long long batch,
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fft_ko_kernel<LOGN, INV>,
+        fft_ko_kernel<LOGN, INV, NAT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (batch + fpb - 1) / fpb;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fft_ko_kernel<LOGN, INV><<<(unsigned)blocks, fpb * S::TPF, smem, stream>>>(
-      x, y, tw, batch, fpb);
+  fft_ko_kernel<LOGN, INV, NAT>
+      <<<(unsigned)blocks, fpb * S::TPF, smem, stream>>>(x, y, tw, batch, fpb);
   return (int)cudaGetLastError();
 }
 
-template <bool INV>
+template <bool INV, bool NAT>
 int launch(const void* x, void* y, const void* tw, int n, long long batch,
            void* stream) {
   if (n < 128 || n > 16384 || (n & (n - 1)) || batch < 0)
@@ -439,14 +499,14 @@ int launch(const void* x, void* y, const void* tw, int n, long long batch,
   const float2* ts = (const float2*)tw;
   cudaStream_t st = (cudaStream_t)stream;
   switch (n) {
-    case 128: return launch_n<7, INV>(xs, ys, ts, batch, st);
-    case 256: return launch_n<8, INV>(xs, ys, ts, batch, st);
-    case 512: return launch_n<9, INV>(xs, ys, ts, batch, st);
-    case 1024: return launch_n<10, INV>(xs, ys, ts, batch, st);
-    case 2048: return launch_n<11, INV>(xs, ys, ts, batch, st);
-    case 4096: return launch_n<12, INV>(xs, ys, ts, batch, st);
-    case 8192: return launch_n<13, INV>(xs, ys, ts, batch, st);
-    default: return launch_n<14, INV>(xs, ys, ts, batch, st);
+    case 128: return launch_n<7, INV, NAT>(xs, ys, ts, batch, st);
+    case 256: return launch_n<8, INV, NAT>(xs, ys, ts, batch, st);
+    case 512: return launch_n<9, INV, NAT>(xs, ys, ts, batch, st);
+    case 1024: return launch_n<10, INV, NAT>(xs, ys, ts, batch, st);
+    case 2048: return launch_n<11, INV, NAT>(xs, ys, ts, batch, st);
+    case 4096: return launch_n<12, INV, NAT>(xs, ys, ts, batch, st);
+    case 8192: return launch_n<13, INV, NAT>(xs, ys, ts, batch, st);
+    default: return launch_n<14, INV, NAT>(xs, ys, ts, batch, st);
   }
 }
 
@@ -465,14 +525,21 @@ extern "C" {
 // Returns a cudaError_t.
 int csdr_fft_ko(const void* x, void* y, const void* tw, int n,
                 long long batch, void* stream) {
-  return launch<false>(x, y, tw, n, batch, stream);
+  return launch<false, false>(x, y, tw, n, batch, stream);
+}
+
+// Forward DFT as csdr_fft_ko, output in natural bin order (bit for bit the
+// kernel-order output gathered by fft_cuda.kernel_perm).
+int csdr_fft_natural(const void* x, void* y, const void* tw, int n,
+                     long long batch, void* stream) {
+  return launch<false, true>(x, y, tw, n, batch, stream);
 }
 
 // Inverse DFT (unnormalized) of kernel-order frames, natural-order output;
 // tw is the same table as the forward's.
 int csdr_ifft_ko(const void* x, void* y, const void* tw, int n,
                  long long batch, void* stream) {
-  return launch<true>(x, y, tw, n, batch, stream);
+  return launch<true, false>(x, y, tw, n, batch, stream);
 }
 
 // log2 of the radix of pass i of the n-point plan; 0 past its last pass,

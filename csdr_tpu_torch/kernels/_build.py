@@ -43,6 +43,7 @@ _SIGNATURES = {
                                     _VP, _D, _VP, _I, _I, _I, _VP],
     "csdr_fft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_ifft_ko": [_VP, _VP, _VP, _I, _LL, _VP],
+    "csdr_fft_natural": [_VP, _VP, _VP, _I, _LL, _VP],
     "csdr_fastddc_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _VP],
     "csdr_fir_poly": [_VP, _LL, _VP, _I, _I, _LL, _I, _I, _I, _VP, _VP],

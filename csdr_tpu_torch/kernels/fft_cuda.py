@@ -3,7 +3,10 @@ csdr_tpu.kernels.fft_pallas).
 
 Replaces the TPU kernels ``_fft_fwd_kernel`` and ``_fft_inv_kernel`` (K3,
 csdr_tpu/kernels/fft_pallas.py), one ``pallas_call`` there; here both are
-instantiations of one CUDA template, ``csrc/fft_ko.cu``.
+instantiations of one CUDA template, ``csrc/fft_ko.cu``, and so is
+``fft_natural`` (that ``pallas_call`` and ``ko_to_natural``'s relayout
+there): the forward storing natural bin order through shared memory, one
+launch.
 
 The contract is the TPU kernels' own, so that their consumers port
 unchanged: the forward DFT of (..., N) complex64 frames (unnormalized,
@@ -22,8 +25,9 @@ passes, with the twiddles of :func:`twiddles` from a table this module
 keeps on the card per (N, device) (see the source note).
 
 The wrappers launch the kernel for CUDA tensors, or raise; they take the
-plain version (``*_plain``: ``torch.fft`` plus the order permutation) only
-for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+plain version (``*_plain``: ``torch.fft`` plus the order permutation;
+``torch.fft.fft`` for ``fft_natural``) only for CPU tensors.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from csdr_tpu_torch.kernels import _build
 LANE = 128
 MAX_N = 16384
 
-LAUNCHES = {"fft_ko": 0, "ifft_ko": 0}
+LAUNCHES = {"fft_ko": 0, "ifft_ko": 0, "fft_natural": 0}
 
 
 def reset_launches() -> None:
@@ -178,13 +182,14 @@ def ko_to_natural(x: torch.Tensor) -> torch.Tensor:
 
 def fft_natural(x: torch.Tensor) -> torch.Tensor:
     """Forward DFT over the last axis in natural bin order (counterpart of
-    ``fft_pallas.fft_natural``): the kernel, then :func:`ko_to_natural`.
-    CUDA tensors launch the kernel and raise where it does not take N;
+    ``fft_pallas.fft_natural``, K3 then ``ko_to_natural``).  CUDA tensors
+    launch the natural-order form of the kernel once, bit for bit
+    ``ko_to_natural(fft_ko(x))``, and raise where it does not take N;
     CPU tensors take ``torch.fft.fft``."""
     _check(x)
     if not x.is_cuda:
         return torch.fft.fft(x)
-    return ko_to_natural(_launch("fft_ko", x))
+    return _launch("fft_natural", x)
 
 
 def ifft_ko(x: torch.Tensor) -> torch.Tensor:

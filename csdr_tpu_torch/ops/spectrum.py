@@ -61,8 +61,9 @@ def fft_one_side_ff(x: torch.Tensor) -> torch.Tensor:
 def _fft_batched(frames: torch.Tensor) -> torch.Tensor:
     """Natural-order FFT of (B, N) frames.  Routed by shape before any
     launch, as csdr_tpu routes it (``fft_pallas.use_kernel``): the sizes
-    K3 takes (N a power of two in 128..16384) go to ``fft_natural`` (K3
-    and the order gather on the card, ``torch.fft`` on the CPU); every
+    K3 takes (N a power of two in 128..16384) go to ``fft_natural`` (one
+    launch of K3's natural-order forward on the card, ``torch.fft`` on
+    the CPU); every
     other N, which csdr_tpu sends to its Stockham FFT, to ``torch.fft``."""
     if fft_cuda.supported(frames.shape[-1], frames.shape[0]):
         return fft_cuda.fft_natural(frames)

@@ -1,10 +1,11 @@
 """The port's kernels (the FIR pair, the direct polyphase FIR, the
-kernel-order FFT pair, the fastddc inverse, the IMA ADPCM codec, the
-timing recovery's symbol loop, the chunked AGC's relaxation, agc_ff's
-exact scan, the Costas loop, the PLL, the RTTY Baudot decoder and the FP32
-ceiling's fma-chain probe) against
-float64 numpy (the codec against the standard's integer steps in Python),
-and on the card against their plain versions.
+kernel-order FFT pair and its natural-order forward, the fastddc inverse,
+the IMA ADPCM codec, the timing recovery's symbol loop, the chunked AGC's
+relaxation, agc_ff's exact scan, the Costas loop, the PLL, the RTTY Baudot
+decoder and the FP32 ceiling's fma-chain probe) against float64 numpy (the
+codec against the standard's integer steps in Python), and on the card
+against their plain versions (the natural-order forward also against
+csdr_tpu's spectra kept in a file, tests/torch_fft_golden.py).
 
 This file imports neither jax nor csdr_tpu, so it also runs on a machine
 with a card and no JAX:
@@ -22,6 +23,7 @@ from csdr_tpu_torch import firdes
 from csdr_tpu_torch.kernels import (_build, adpcm_cuda, agc_cuda,
                                     baudot_cuda, carrier_cuda, fastddc_cuda,
                                     fft_cuda, fir_cuda, probe_cuda, ted_cuda)
+import torch_fft_golden as golden  # tests/, on the path under pytest
 
 torch.set_num_threads(2)
 
@@ -915,7 +917,8 @@ def test_cuda_fft_ko_matches_plain(cuda, n, b):
     assert _snr_db(zp.cpu().numpy(), zk.cpu().numpy()) > 110
     assert _snr_db(_ko64(x.cpu().numpy()), yk.cpu().numpy()) > 110
     assert fft_cuda.LAUNCHES == {"fft_ko": n0["fft_ko"] + 1,
-                                 "ifft_ko": n0["ifft_ko"] + 1}
+                                 "ifft_ko": n0["ifft_ko"] + 1,
+                                 "fft_natural": n0["fft_natural"]}
 
 
 @pytest.mark.cuda
@@ -995,16 +998,38 @@ def test_cuda_fastddc_kernel_ignores_global_tf32(cuda, tf32_on):
 
 
 @pytest.mark.cuda
-def test_cuda_fft_natural_is_the_kernel_in_natural_order(cuda):
-    """fft_natural at the waterfall's N=4096: one K3 launch, the gather by
-    kernel_perm, equal to cuFFT's natural order at the K3 bar."""
-    x = torch.from_numpy(_frames(37, 4096, seed=5)).to(cuda)
-    n0 = fft_cuda.LAUNCHES["fft_ko"]
+@pytest.mark.parametrize("b", [1, 3, 37])
+@pytest.mark.parametrize("n", [1 << k for k in range(7, 15)])
+def test_cuda_fft_natural_is_the_kernel_in_natural_order(cuda, n, b):
+    """fft_natural: one launch of K3's natural-order forward and no
+    kernel-order launch, bit for bit the kernel-order output gathered by
+    kernel_perm, equal to cuFFT's natural order at the K3 bar; frames that
+    are not contiguous are refused."""
+    x = torch.from_numpy(_frames(b, n, seed=5)).to(cuda)
+    n0 = dict(fft_cuda.LAUNCHES)
     y = fft_cuda.fft_natural(x)
     torch.cuda.synchronize()
-    assert fft_cuda.LAUNCHES["fft_ko"] == n0 + 1
+    assert fft_cuda.LAUNCHES == dict(n0, fft_natural=n0["fft_natural"] + 1)
     assert torch.equal(y, fft_cuda.ko_to_natural(fft_cuda.fft_ko(x)))
     assert _snr_db(torch.fft.fft(x).cpu().numpy(), y.cpu().numpy()) > 110
+    with pytest.raises(ValueError, match="contiguous"):
+        fft_cuda.fft_natural(torch.cat([x, x], -1)[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 37])
+def test_cuda_fft_natural_matches_csdr_tpu_golden(cuda, b):
+    """The natural-order kernel at N=4096 against csdr_tpu's fft_natural
+    (interpret mode, HIGHEST), read from tests/data/fft_natural_4096.npz
+    (tests/torch_fft_golden.py: its frame, and frames made from it by maps
+    whose effect on the spectrum is exact), every frame at the K3 bar."""
+    x, y = golden.load()
+    xb = torch.from_numpy(golden.frames(x, b)).to(cuda)
+    n0 = dict(fft_cuda.LAUNCHES)
+    got = fft_cuda.fft_natural(xb).cpu().numpy()
+    assert fft_cuda.LAUNCHES == dict(n0, fft_natural=n0["fft_natural"] + 1)
+    ref = golden.spectra(y, b)
+    assert min(_snr_db(r, g) for r, g in zip(ref, got)) > 110
 
 
 # --------------------------------------------------------------------------
